@@ -1,0 +1,110 @@
+"""Port parity: tpulamm_torch's Engine on the CPU against the JAX Engine,
+f32 compute and KV, on tiny Q4_0 and Q8_0 GGUFs.
+
+Prefill logits within 1e-4 * max|logit|; greedy tokens identical over 16
+steps for generate_fast and for generate.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from _torch_port_models import write_tiny_llama
+from tpulamm.gguf.constants import GGMLType
+from tpulamm.runtime.engine import Engine as JEngine
+from tpulamm.runtime.sampling import SamplingParams as JSamplingParams
+from tpulamm_torch.runtime.engine import Engine
+from tpulamm_torch.runtime.sampling import SamplingParams
+
+PROMPT = "the cat sat on the mat"
+
+
+@pytest.fixture(scope="module", params=["q4_0", "q8_0"])
+def engines(request, tmp_path_factory):
+    qtype = getattr(GGMLType, request.param.upper())
+    path = write_tiny_llama(
+        str(tmp_path_factory.mktemp("m") / f"{request.param}.gguf"), qtype,
+        seed=5)
+    je = JEngine(path, n_ctx=64, compute_dtype="float32",
+                 kv_dtype=jnp.float32)
+    te = Engine(path, n_ctx=64, compute_dtype="float32",
+                kv_dtype=torch.float32, device="cpu")
+    return path, je, te
+
+
+def test_prefill_logits(engines):
+    _, je, te = engines
+    toks = je.tokenizer.encode(PROMPT, special=True)
+    assert te.tokenizer.encode(PROMPT, special=True) == toks
+    je.reset_slot(0)
+    te.reset_slot(0)
+    want = je.prefill(0, toks, logits_all=True)
+    got = te.prefill(0, toks, logits_all=True)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_generate_fast_greedy_tokens(engines):
+    _, je, te = engines
+    want, wtext = je.generate_fast(PROMPT, n_predict=16, stop_on_eos=False)
+    got, text = te.generate_fast(PROMPT, n_predict=16, stop_on_eos=False)
+    assert got == want and len(got) == 16
+    assert text == wtext
+    assert te.n_past[0] == len(te.tokenizer.encode(PROMPT, special=True)) + 15
+
+
+def test_generate_greedy_tokens(engines):
+    _, je, te = engines
+    je.reset_slot(0)
+    te.reset_slot(0)
+    want, _ = je.generate(PROMPT, n_predict=16,
+                          sampling=JSamplingParams(temp=0.0),
+                          stop_on_eos=False)
+    got, _ = te.generate(PROMPT, n_predict=16,
+                         sampling=SamplingParams(temp=0.0), stop_on_eos=False)
+    assert got == want
+
+
+def test_rollback_and_decode_batch(engines):
+    """rollback drops the cells past n_past; a decode_batch step for the
+    one slot gives the same logits as decode_one."""
+    _, _, te = engines
+    toks = te.tokenizer.encode(PROMPT, special=True)
+    te.reset_slot(0)
+    te.prefill(0, toks)
+    a = te.decode_one(0, 42)
+    te.rollback(0, len(toks))
+    assert (te.cell_pos[0] >= 0).sum() == len(toks)
+    b = te.decode_batch({0: 42})[0]
+    np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+    from tpulamm_torch.runtime import kvcache
+    kvcache.clear(te.cache)
+    assert (te.cache.pos == -1).all()
+    te.reset_slot(0)
+
+
+def test_sampled_generate_fast_is_seeded(engines):
+    _, _, te = engines
+    a, _ = te.generate_fast(PROMPT, n_predict=8, temp=0.8, seed=7,
+                            stop_on_eos=False)
+    b, _ = te.generate_fast(PROMPT, n_predict=8, temp=0.8, seed=7,
+                            stop_on_eos=False)
+    assert a == b and len(a) == 8
+
+
+def test_cli_simple_cpu(engines, capsys):
+    path, _, _ = engines
+    from tpulamm_torch.cli import simple
+    assert simple.main(["-m", path, "-p", "the cat", "-n", "4", "-c", "64",
+                        "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("the cat")
+
+
+def test_default_device_needs_cuda(engines):
+    path, _, _ = engines
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(path, n_ctx=64)
