@@ -12,15 +12,33 @@ Phases (any failure raises, so the exit code is not 0):
      LLaMA-7B projection shapes (qmm at M = 512, qmm_int8 at M = 1), with
      error, kernel / plain / library time (CUDA events, median of 20
      launches with a cold L2) and the least time the card could take
+  3b. the flash kernels against flash_attention_ref on the card at the
+     FLASH_CASES (bf16 and int8 + scales K/V, hd 64/128/256, G 1/4/8, B = 2
+     with different qbase, holes and shifts, a qlen = 0 row, odd S), then
+     timed at the long-context path's shapes (B = 1, Hkv = 32, hd = 128,
+     G = 1; flash_attention at T = 512, S in {1024, 16385}; flash_decode at
+     T = 1, S in {8193, 16385}; q8 and bf16) beside the plain version,
+     scaled_dot_product_attention and the bound
   4. the slice at full width: a LLaMA-7B-shape Q4_0 GGUF (random blocks
      from a seed) served by Engine(n_ctx=2048) -- generate_fast on a
      512-token prompt for 128 greedy tokens, twice; the launch counts of
      the second run must be 129 qmm (one ubatch) and 129 qmm_int8 per
      decode step, and both runs must give the same tokens
+  4b. the long-context path at full width and depth: a CodeLlama-7B-shape
+     Q4_0 GGUF (32 layers, vocab 32016, rope base 1e6, context 16384)
+     served by Engine(n_ctx=16384, kv_dtype="q8_0") -- generate_fast on a
+     12,000-token prompt (24 ubatches) for 64 greedy tokens; the launch
+     counts must be flash_attention 23 x 32, flash_decode 63 x 32, qmm
+     24 x 129 and qmm_int8 63 x 129
   5. end-to-end numerics: the same width at 2 layers, the GPU engine
      against the port's plain path on the CPU (last prefill logits cosine
      >= 0.999; 8 teacher-forced decode steps cosine >= 0.99, the int8
      activations being the difference)
+  5b. numerics through the flash kernels and a context shift: 2 layers,
+     q8_0 KV, n_ctx 640, flash_attn=True on the card against the CPU's
+     einsum path -- a 620-token prompt (two ubatches; cosine >= 0.999),
+     then 32 teacher-forced decode steps (cosine >= 0.99 each) of which
+     step 21 shifts the context; the host and device positions must agree
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -41,6 +59,7 @@ import torch
 
 from tpulamm_torch.gguf.constants import GGML_TYPE_SIZES, GGMLType
 from tpulamm_torch.gguf.writer import GGUFWriter
+from tpulamm_torch.ops import flash_attention as FA
 from tpulamm_torch.ops import kernels
 from tpulamm_torch.ops import qmm as Q
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
@@ -63,7 +82,11 @@ SHAPES_7B = {"wqkv": (12288, 4096), "wo": (4096, 4096),
              "gate_up": (22016, 4096), "down": (4096, 11008),
              "lm_head": (32768, 4096)}
 LLAMA_7B = dict(dim=4096, ffn=11008, n_head=32, vocab=32000)
+# Code Llama 7B (Meta's release): LLaMA-7B widths, MHA, a 16k context
+CODELLAMA_7B = dict(dim=4096, ffn=11008, n_head=32, vocab=32016,
+                    n_ctx_train=16384, freq_base=1e6)
 PREFILL_M, PROMPT, N_PREDICT = 512, 512, 128
+LONG_CTX, LONG_PROMPT, LONG_PREDICT = 16384, 12000, 64
 TOL_QMM, TOL_INT8 = 1e-4, 1e-5
 
 
@@ -116,11 +139,14 @@ def spm_vocab(n_vocab: int) -> dict:
 
 
 def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
-                     n_head: int, vocab: int) -> None:
+                     n_head: int, vocab: int, n_ctx_train: int = 2048,
+                     freq_base: float = 10000.0) -> None:
     """A LLaMA-shape Q4_0 GGUF with random blocks (norm weights 1)."""
     w = GGUFWriter(path)
     md = {"general.architecture": "llama", "general.name": "smoke",
-          "llama.context_length": 2048, "llama.embedding_length": dim,
+          "llama.context_length": n_ctx_train,
+          "llama.rope.freq_base": float(freq_base),
+          "llama.embedding_length": dim,
           "llama.block_count": n_layers, "llama.feed_forward_length": ffn,
           "llama.attention.head_count": n_head,
           "llama.attention.head_count_kv": n_head,
@@ -156,6 +182,121 @@ def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
         q4(p + "ffn_up.weight", ffn, dim)
         q4(p + "ffn_down.weight", dim, ffn)
     w.write()
+
+
+def flash_case(rng, device, *, B=2, Hkv=2, T=8, G=4, S=161, hd=64,
+               kind="bf16", shift=False, empty_row=False, sharp=False):
+    """Inputs of one flash-attention call (as tests/test_flash_attention.py
+    builds them): the first `used` cells of each batch row live at
+    positions 0..used-1 (the trash cell and the rest empty), the T queries
+    at the last T of those positions; `shift` adds a seq_rm hole and a
+    seq_add shift; `empty_row` gives batch row 1 qlen = 0; `sharp` scales
+    q by 4, so that a few keys dominate each softmax and the outputs are
+    near the size of v. kind "bf16": bf16 K/V; "q8": int8 codes with
+    per-row f32 scales."""
+    TG = T * G
+    q = rng.standard_normal((B, Hkv, TG, hd), dtype=np.float32)
+    if sharp:
+        q *= 4.0
+    kpos = np.full((B, S), -1, np.int32)
+    qbase = np.zeros(B, np.int32)
+    for b in range(B):
+        used = max(T + 12, S - 1 - 8 * b - (S // 4) * (b % 2))
+        kpos[b, :used] = np.arange(used)
+        qbase[b] = used - T
+        if shift:
+            kpos[b, 5:9] = -1                      # seq_rm hole
+            kpos[b, 12:used] -= 3                  # seq_add shift
+            qbase[b] -= 3
+    qlen = np.full(B, T, np.int32)
+    if empty_row:
+        qlen[1] = 0
+    t = {"q": q, "kpos": kpos, "qbase": qbase, "qlen": qlen}
+    if kind == "q8":
+        t["k"] = rng.integers(-127, 128, (B, Hkv, S, hd), dtype=np.int8)
+        t["v"] = rng.integers(-127, 128, (B, Hkv, S, hd), dtype=np.int8)
+        t["ks"] = rng.uniform(0.005, 0.02, (B, Hkv, S)).astype(np.float32)
+        t["vs"] = rng.uniform(0.005, 0.02, (B, Hkv, S)).astype(np.float32)
+    else:
+        t["k"] = rng.standard_normal((B, Hkv, S, hd), dtype=np.float32)
+        t["v"] = rng.standard_normal((B, Hkv, S, hd), dtype=np.float32)
+    out = {n: torch.from_numpy(a).to(device) for n, a in t.items()}
+    if kind != "q8":
+        out["k"] = out["k"].to(torch.bfloat16)
+        out["v"] = out["v"].to(torch.bfloat16)
+    out.setdefault("ks", None)
+    out.setdefault("vs", None)
+    return out
+
+
+# phase-3b cases: both K/V kinds, hd 64/128/256, G 1/4/8, B = 2 with
+# different qbase, holes and shifts, a row with qlen = 0, odd S; the sharp
+# ones give outputs near the size of v at the path's head dim
+FLASH_CASES = [
+    dict(hd=64, G=4, T=8, S=161, kind="bf16", shift=True),
+    dict(hd=64, G=8, T=1, S=161, kind="q8", empty_row=True),
+    dict(hd=128, G=1, T=1, S=8193, Hkv=4, kind="q8", shift=True,
+         empty_row=True),
+    dict(hd=128, G=1, T=100, S=16385, Hkv=2, kind="bf16", shift=True),
+    dict(hd=128, G=8, T=3, S=16385, Hkv=2, kind="q8", empty_row=True),
+    dict(hd=128, G=4, T=70, S=8193, Hkv=2, kind="q8", shift=True),
+    dict(hd=128, G=1, T=1, S=16385, Hkv=4, kind="q8", shift=True,
+         sharp=True),
+    dict(hd=128, G=1, T=64, S=2049, Hkv=4, kind="bf16", empty_row=True,
+         sharp=True),
+    dict(hd=256, G=4, T=16, S=8193, kind="bf16", empty_row=True),
+    dict(hd=256, G=1, T=1, S=161, kind="q8", shift=True),
+]
+# elementwise |got - ref| <= TOL * (1 + |ref|): the JAX package's kernel
+# tolerance for bf16 operands against the f32 plain version
+TOL_FLASH = 2e-2
+# scaled by the output's size, against the plain version on the operands
+# as the kernel rounds them (q to bf16; K / V are bf16 or int8 codes
+# already): max|got - ref| <= TOL_REL * max|ref| and rms(got - ref) <=
+# TOL_REL * rms(ref). What is left is p's rounding to bf16, up to 2.8e-3
+# of either on an H100; a dropped or mis-weighted chunk shows above it
+TOL_FLASH_REL = 5e-3
+
+
+def flash_refs(c, kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """flash_attention_ref on these inputs, and on them with q rounded to
+    bf16 as the kernels round it."""
+    def ref(q):
+        return FA.flash_attention_ref(q, c["k"], c["v"], c["kpos"],
+                                      c["qbase"], c["qlen"], c["ks"],
+                                      c["vs"], **kw)
+    return ref(c["q"]), ref(c["q"].to(torch.bfloat16).to(torch.float32))
+
+
+def flash_err(got: torch.Tensor, refs, qlen) -> tuple[float, float, float]:
+    """(max |got - ref|, then max |got - ref_q| over max |ref_q| and
+    rms(got - ref_q) over rms(ref_q)) for refs = (ref, ref_q) of
+    flash_refs; raises past either tolerance, on a NaN, or where a row
+    with qlen = 0 is not exactly 0. On the CPU (a rehearsal: the wrappers
+    return the plain version, q unrounded) ref stands for ref_q."""
+    ref, ref_q = refs
+    if not got.is_cuda:
+        ref_q = ref
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("flash output holds a non-finite value")
+    d = (got - ref).abs()
+    err = float(d.max())
+    if bool((d > TOL_FLASH * (1.0 + ref.abs())).any()):
+        raise AssertionError(f"flash output off by {err} (tolerance "
+                             f"{TOL_FLASH} + {TOL_FLASH}|ref|)")
+    dq = got - ref_q
+    rel = float(dq.abs().max()) / max(float(ref_q.abs().max()), 1e-30)
+    rms = float(dq.square().mean().sqrt()) / max(
+        float(ref_q.square().mean().sqrt()), 1e-30)
+    if not (rel <= TOL_FLASH_REL and rms <= TOL_FLASH_REL):
+        raise AssertionError(f"flash output off by {rel:.3e} of max|ref|, "
+                             f"{rms:.3e} of rms(ref) (tolerance "
+                             f"{TOL_FLASH_REL})")
+    for b in range(got.shape[0]):
+        if int(qlen[b]) == 0 and bool((got[b] != 0).any()):
+            raise AssertionError(f"batch row {b} has qlen 0 but output "
+                                 "is not exactly 0")
+    return err, rel, rms
 
 
 # -- timing ------------------------------------------------------------------
@@ -215,10 +356,11 @@ def time_case(kern, plain, x, qt, w_bf16, peak, device, reps):
     return (t_k, t_p, t_l) + bound_parts(qt, x.shape[0], peak)
 
 
-def case_line(case, name, rel, t_k, t_p, t_l, t_b, t_o) -> str:
+def case_line(case, name, rel, t_k, t_p, t_l, t_b, t_o, err="rel",
+              library="bf16 matmul") -> str:
     b_ms = max(t_b, t_o)
-    return (f"[kernels] {case}: {name} rel {rel:.3e} | kernel {t_k:.4f} ms "
-            f"| plain {t_p:.4f} ms | library(bf16 matmul) {t_l:.4f} ms | "
+    return (f"[kernels] {case}: {name} {err} {rel:.3e} | kernel {t_k:.4f} ms "
+            f"| plain {t_p:.4f} ms | library({library}) {t_l:.4f} ms | "
             f"bound {b_ms:.4f} ms "
             f"({'bytes' if t_b >= t_o else 'operations'}) | "
             f"{b_ms / t_k:.1%} of bound")
@@ -324,6 +466,250 @@ def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return stats
+
+
+# flash timing at the long-context path's shapes (B = 1, Hkv = 32, hd = 128,
+# G = 1): (kernel, T, S, kind); the q8 S = 16385 rows feed the kernels line
+FLASH_TIMING = [("flash_attention", 512, 1024, "bf16"),
+                ("flash_attention", 512, 1024, "q8"),
+                ("flash_attention", 512, 16385, "bf16"),
+                ("flash_attention", 512, 16385, "q8"),
+                ("flash_decode", 1, 8193, "bf16"),
+                ("flash_decode", 1, 8193, "q8"),
+                ("flash_decode", 1, 16385, "bf16"),
+                ("flash_decode", 1, 16385, "q8")]
+
+
+def _flash_live(c, g: int) -> torch.Tensor:
+    """(B, TG, S) bool: the (query row, key) pairs the mask lets through."""
+    TG = c["q"].shape[2]
+    t = torch.arange(TG, device=c["q"].device) // g
+    qpos = c["qbase"][:, None].to(torch.int64) + t[None, :]
+    kp = c["kpos"][:, None, :]
+    return ((kp >= 0) & (kp <= qpos[:, :, None])
+            & (t[None, :, None] < c["qlen"][:, None, None]))
+
+
+def flash_bound(c, g: int) -> tuple[float, float]:
+    """(ms to move the bytes, ms to do the operations) of one flash call
+    on these inputs: q read and the f32 output written once, kpos, and the
+    K / V rows (and scales) of the keys some query row can see; 4 hd
+    operations per live (query row, key) pair at the bf16 peak."""
+    B, Hkv, TG, hd = c["q"].shape
+    live = _flash_live(c, g)
+    keys = int(live.any(1).sum())
+    pairs = int(live.sum())
+    row = hd * (c["k"].element_size() + c["v"].element_size()) + 4 * sum(
+        c[n] is not None for n in ("ks", "vs"))
+    nbytes = (2 * c["q"].numel() * 4 + c["kpos"].numel() * 4
+              + keys * Hkv * row)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            4.0 * Hkv * hd * pairs / PEAK_BF16_OPS * 1e3)
+
+
+def sdpa_call(c, g: int, scale: float):
+    """One torch scaled_dot_product_attention over bf16 K / V (dequantized
+    beforehand for q8) with the explicit boolean mask: the library
+    yardstick, timed only."""
+    k, v = c["k"], c["v"]
+    if c["ks"] is not None:
+        k = k.to(torch.float32) * c["ks"][..., None]
+    if c["vs"] is not None:
+        v = v.to(torch.float32) * c["vs"][..., None]
+    q, k, v = (x.to(torch.bfloat16) for x in (c["q"], k, v))
+    mask = _flash_live(c, g)[:, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale)
+
+
+def phase_flash(device, rng, cases=FLASH_CASES, timing=FLASH_TIMING,
+                shape=(1, 32, 128), reps=20) -> dict:
+    """The flash kernels against flash_attention_ref: every FLASH_CASES
+    case through both wrappers, then the path's shapes, timed."""
+    stats = {name: {"max_abs_err": 0.0} for name in FA.LAUNCHES}
+    fns = {"flash_attention": FA.flash_attention,
+           "flash_decode": FA.flash_decode}
+
+    def run(fn, c, kw):
+        return fn(c["q"], c["k"], c["v"], c["kpos"], c["qbase"], c["qlen"],
+                  c["ks"], c["vs"], **kw)
+
+    for case in cases:
+        c = flash_case(rng, device, **case)
+        kw = dict(scale=float(1.0 / np.sqrt(case["hd"])), g=case["G"])
+        refs = flash_refs(c, kw)
+        errs = []
+        for name, fn in fns.items():
+            err, rel, rms = flash_err(run(fn, c, kw), refs, c["qlen"])
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            errs.append(f"{name} {err:.3e} (bf16-q ref: {rel:.2e} of max, "
+                        f"rms {rms:.2e})")
+        log(f"[flash] {case}: max|ref| {float(refs[0].abs().max()):.3e}, "
+            f"max abs err {'; '.join(errs)}")
+    B, Hkv, hd = shape
+    for name, T, S, kind in timing:
+        c = flash_case(rng, device, B=B, Hkv=Hkv, T=T, G=1, S=S, hd=hd,
+                       kind=kind)
+        kw = dict(scale=float(1.0 / np.sqrt(hd)), g=1)
+        refs = flash_refs(c, kw)
+        err, rel, rms = flash_err(run(fns[name], c, kw), refs, c["qlen"])
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        t_k = time_ms(lambda: run(fns[name], c, kw), device, reps)
+        t_p = time_ms(lambda: run(FA.flash_attention_ref, c, kw), device,
+                      reps)
+        t_l = time_ms(sdpa_call(c, 1, kw["scale"]), device, reps)
+        t_b, t_o = flash_bound(c, 1)
+        log(case_line(f"{kind} B={B} Hkv={Hkv} hd={hd} T={T} S={S}", name,
+                      err, t_k, t_p, t_l, t_b, t_o, err="abs err",
+                      library="sdpa")
+            + f" | bf16-q ref: {rel:.2e} of max, rms {rms:.2e}")
+        if kind == "q8" and S == 16385:
+            stats[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                               bound_ms=max(t_b, t_o), bytes_ms=t_b,
+                               ops_ms=t_o)
+        del c, refs
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return stats
+
+
+def phase_long(device, rng, n_layers: int = 32, shape=CODELLAMA_7B,
+               n_ctx: int = LONG_CTX, prompt_len: int = LONG_PROMPT,
+               n_predict: int = LONG_PREDICT, n_ubatch: int = 512) -> dict:
+    """Serve a CodeLlama-7B-shape Q4_0 model at a 16k context with a q8_0
+    KV cache: one generate_fast run over a prompt of many ubatches."""
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, f"codellama7b_shape_q4_0_{n_layers}l.gguf")
+    t0 = time.perf_counter()
+    write_llama_gguf(path, n_layers, rng, **shape)
+    log(f"[long] wrote {path} ({os.path.getsize(path) / 1e9:.2f} GB, "
+        f"{n_layers} layers) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eng = Engine(path, n_ctx=n_ctx, n_ubatch=n_ubatch, kv_dtype="q8_0",
+                 device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_load = time.perf_counter() - t0
+    out_w = eng.params["output"]
+    quant_head = isinstance(out_w, QTensor)
+    weights = sum(v.n_bytes for lyr in eng.params["layers"] for v in lyr.values()
+                  if isinstance(v, QTensor))
+    head = (out_w.n_bytes if quant_head
+            else out_w.numel() * out_w.element_size())
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in eng.cache.k + eng.cache.v)
+    sc_bytes = sum(t.numel() * 4 for t in eng.cache.ks + eng.cache.vs)
+    log(f"[long] Engine(n_ctx={n_ctx}, kv_dtype='q8_0') load {t_load:.2f} s: "
+        f"{weights / 1e9:.3f} GB of layer projection planes, lm head "
+        f"{head / 1e9:.3f} GB ({'Q4_0 planes' if quant_head else 'dense'}), "
+        f"{kv_bytes / 1e9:.3f} GB of q8_0 K/V codes, {sc_bytes / 1e9:.3f} GB "
+        "of row scales")
+    prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    Q.reset_launches()
+    FA.reset_launches()
+    ids, _ = eng.generate_fast(prompt, n_predict=n_predict,
+                               stop_on_eos=False)
+    launches = {**Q.LAUNCHES, **FA.LAUNCHES}
+    peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+            else 0)
+    tm = eng.timings
+    steps = len(ids) - 1
+    out = {"layers": n_layers, "load_s": t_load,
+           "prefill_tok_s": tm.n_prefill / tm.t_prefill,
+           "decode_tok_s": steps / tm.t_eval, "peak_mem_gb": peak / 1e9,
+           "launches": launches, "tokens": len(ids)}
+    log(f"[long] {n_layers} layers, n_ctx {n_ctx}, q8_0 KV: prefill "
+        f"{prompt_len} tokens {out['prefill_tok_s']:.1f} tok/s "
+        f"({tm.t_prefill:.3f} s), decode {steps} steps "
+        f"{out['decode_tok_s']:.2f} tok/s, peak memory "
+        f"{out['peak_mem_gb']:.3f} GB, launches {launches}")
+    n_ub = -(-prompt_len // n_ubatch)
+    # four fused projections a layer, plus the lm head where it is
+    # quantized: a vocab that is not a multiple of 128 (32016) is stored
+    # dense by both packages' loaders and runs as one dense matmul
+    per_pass = 4 * n_layers + int(quant_head)
+    # ubatch 0 runs at span n_ubatch < 1024 and takes the einsum; every
+    # later ubatch (span >= 1024, T >= 64) flash_attention; every decode
+    # step (span >= 8192, T * G = 1) flash_decode
+    want = {"qmm": per_pass * n_ub, "qmm_int8": per_pass * steps,
+            "flash_attention": n_layers * (n_ub - 1),
+            "flash_decode": n_layers * steps}
+    if launches != want or steps != n_predict - 1:
+        raise AssertionError(f"launch counts {launches} != {want} "
+                             f"({steps} decode steps)")
+    lg = eng.decode_one(0, ids[-1])
+    if not (np.isfinite(lg).all() and lg.shape == (shape["vocab"],)
+            and all(0 <= t < shape["vocab"] for t in ids)):
+        raise AssertionError("long-context logits not finite / misshapen")
+    log(f"[long] launch counts as expected: {want}; logits finite")
+    if device.type == "cuda":
+        # one more 512-token ubatch at the full 16385-cell span, then
+        # decode steps: where the device time of each goes
+        chunk = prompt[:n_ubatch]
+        out.update(profile_steps(eng, "prefill16k",
+                                 lambda: eng.prefill(0, chunk), steps=1))
+        out.update(profile_steps(eng, "decode16k",
+                                 lambda: eng.decode_one(0, 5)))
+    del eng
+    os.remove(path)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_shift(device, rng, shape=CODELLAMA_7B, n_ctx: int = 640,
+                prompt_len: int = 620, steps: int = 32) -> dict:
+    """2-layer CodeLlama-shape model, q8_0 KV: the card with flash_attn
+    forced on (both kernels at short spans) against the CPU's einsum path,
+    across a context shift."""
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, "codellama7b_shape_q4_0_2l.gguf")
+    write_llama_gguf(path, 2, rng, **shape)
+    gpu = Engine(path, n_ctx=n_ctx, kv_dtype="q8_0", flash_attn=True,
+                 device=device)
+    cpu = Engine(path, n_ctx=n_ctx, kv_dtype="q8_0", device="cpu")
+    FA.reset_launches()
+    prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+    a, b = gpu.prefill(0, prompt), cpu.prefill(0, prompt)
+    if not (np.isfinite(a).all() and a.shape == (shape["vocab"],)):
+        raise AssertionError("prefill logits not finite / misshapen")
+    cos_prefill = cosine(a, b)
+    cos_dec, shifted = [], []
+    tok = int(np.argmax(b))
+    for i in range(steps):
+        before = int(gpu.n_past[0])
+        a, b = gpu.decode_one(0, tok), cpu.decode_one(0, tok)
+        if not np.isfinite(a).all():
+            raise AssertionError("decode logits not finite")
+        if int(gpu.n_past[0]) != before + 1:
+            shifted.append(i + 1)
+        cos_dec.append(cosine(a, b))
+        tok = int(np.argmax(b))
+    dev_pos = gpu.cache.pos[0, :n_ctx].cpu().numpy()
+    launches = dict(FA.LAUNCHES)
+    log(f"[shift] 2 layers, q8_0 KV, n_ctx {n_ctx}, flash_attn on the card: "
+        f"prefill {prompt_len} tokens cosine {cos_prefill!r} (>= 0.999); "
+        f"{steps} teacher-forced decode steps, min cosine {min(cos_dec)!r} "
+        f"(>= 0.99), context shift at step(s) {shifted}, n_past "
+        f"{int(gpu.n_past[0])}, flash launches {launches}")
+    if not cos_prefill >= 0.999:
+        raise AssertionError(f"prefill cosine {cos_prefill} < 0.999")
+    if not min(cos_dec) >= 0.99:
+        raise AssertionError(f"decode cosine {min(cos_dec)} < 0.99")
+    if not shifted or int(gpu.n_past[0]) != int(cpu.n_past[0]):
+        raise AssertionError("the context did not shift on both engines")
+    if not (np.array_equal(dev_pos, gpu.cell_pos[0])
+            and np.array_equal(gpu.cell_pos, cpu.cell_pos)):
+        raise AssertionError("host cell_pos and device pos disagree")
+    n_ub = -(-prompt_len // gpu.n_ubatch)
+    if launches != {"flash_attention": 2 * n_ub, "flash_decode": 2 * steps}:
+        raise AssertionError(f"flash launches {launches}")
+    del gpu, cpu
+    os.remove(path)
+    return {"cos_prefill": cos_prefill, "cos_decode_min": min(cos_dec),
+            "shift_steps": shifted}
 
 
 def phase_slice(device, rng, n_layers: int = 32, shape=LLAMA_7B,
@@ -465,6 +851,10 @@ def kernels_line(stats: dict, launches: dict) -> str:
         "qmm": ("tpulamm_torch/csrc/qmm.cu", "tpulamm/ops/pallas_qmm.py:576"),
         "qmm_int8": ("tpulamm_torch/csrc/qmm_int8.cu",
                      "tpulamm/ops/pallas_qmm.py:274"),
+        "flash_attention": ("tpulamm_torch/csrc/flash_attention.cu",
+                            "tpulamm/ops/flash_attention.py:129"),
+        "flash_decode": ("tpulamm_torch/csrc/flash_attention.cu",
+                         "tpulamm/ops/flash_attention.py:266"),
     }
     out = []
     for name, (src, rep) in meta.items():
@@ -491,18 +881,34 @@ def main() -> int:
     torch.manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     smi, kind = phase_device()
+
+    def done(tag):
+        log(f"[{tag}] done ({time.perf_counter() - t_start:.0f} s elapsed)")
     phase_build()
+    done("build")
     stats = phase_kernels(device, rng)
-    log(f"[kernels] all kernels match their plain versions "
-        f"({time.perf_counter() - t_start:.0f} s elapsed)")
+    done("kernels")
+    stats.update(phase_flash(device, rng))
+    done("flash")
     sl = phase_slice(device, rng)
-    log(f"[slice] done ({time.perf_counter() - t_start:.0f} s elapsed)")
+    done("slice")
+    lc = phase_long(device, rng)
+    done("long")
     phase_numerics(device, rng)
-    log(f"[numerics] done ({time.perf_counter() - t_start:.0f} s elapsed)")
-    log("[kernels] times are sums over the five 7B shapes (qmm at M=512, "
-        "qmm_int8 at M=1); launches from the main-path run")
+    done("numerics")
+    phase_shift(device, rng)
+    done("shift")
+    log("[kernels] qmm / qmm_int8 times are sums over the five 7B shapes "
+        "(qmm at M=512, qmm_int8 at M=1), launches from the slice-1 run "
+        "(phase 4); flash times at B=1 Hkv=32 hd=128 S=16385 q8 "
+        "(flash_attention T=512, flash_decode T=1), launches from the "
+        "long-context run (phase 4b)")
     log(f"[device] {smi}")
-    log(kernels_line(stats, sl["launches"]))
+    launches = {"qmm": sl["launches"]["qmm"],
+                "qmm_int8": sl["launches"]["qmm_int8"],
+                "flash_attention": lc["launches"]["flash_attention"],
+                "flash_decode": lc["launches"]["flash_decode"]}
+    log(kernels_line(stats, launches))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

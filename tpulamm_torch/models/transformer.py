@@ -11,19 +11,22 @@ slices; a config that needs one raises.
 
 Attention: the JAX forward picks its flash kernels on the TPU by the
 predicates at transformer.py:169-187 and :249-259. The same predicates
-decide here with "on CUDA" in place of "on TPU"; the flash kernels are
-not ported yet, so where they would run this raises instead of quietly
-taking the einsum.
+decide here (`flash_choice`) with "on CUDA" in place of "on TPU", on the
+ubatch length the JAX engine would pad to (its bucket); where they pick a
+kernel, ops.flash_attention runs it at the exact length, masking by qlen.
+Elsewhere the einsum path runs, with the q8_0 scale folds in the JAX order.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
 import torch
 
 from tpulamm_torch.models.config import ModelConfig
+from tpulamm_torch.ops.flash_attention import flash_attention, flash_decode
 from tpulamm_torch.ops.layers import layer_norm, masked_softmax, rms_norm, silu
 from tpulamm_torch.ops.qmatmul import dense_matmul, qmatmul
 from tpulamm_torch.ops.qtensor import QTensor, gather_dequant_rows
@@ -93,10 +96,12 @@ def flash_choice(cfg: ModelConfig, T: int, span: int, on_cuda: bool
 
 def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
               positions: torch.Tensor, cache: KVCache, layer_idx: int,
-              slots: torch.Tensor | None, cells: torch.Tensor,
-              kv_span: int | None = None, angles: tuple | None = None
-              ) -> tuple:
-    """angles: rope_angles(cfg.rope, positions), shared by every layer."""
+              slots: int | torch.Tensor | None, cells: torch.Tensor,
+              kv_span: int | None = None, angles: tuple | None = None,
+              t_bucket: int | None = None) -> tuple:
+    """angles: rope_angles(cfg.rope, positions), shared by every layer;
+    t_bucket: the padded ubatch length the kernel choice is made on
+    (None = T)."""
     B, T, _ = h.shape
     hd = cfg.head_dim
     if layer.get("wqkv_fused") is not None:
@@ -116,34 +121,54 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
 
     S_full = cache.k[layer_idx].shape[2]
     span = kv_span if kv_span is not None and kv_span < S_full else S_full
-    kernel = flash_choice(cfg, T, span, h.device.type == "cuda")
-    if kernel is not None:
-        raise NotImplementedError(
-            f"attention at T={T} over a span of {span} cells takes "
-            f"{kernel}, which is not ported yet (ROADMAP: slice 2, the "
-            "long-context path)")
+    kernel = flash_choice(cfg, T if t_bucket is None else t_bucket, span,
+                          h.device.type == "cuda")
 
+    # always an in-place write, whichever path reads the cache below
     write_kv(cache, layer_idx, k, v, slots, cells, positions)
 
-    def crow(arr):
-        """slots=None: the batch covers the FIRST B cache rows in order."""
-        return arr if arr.shape[0] == B else arr[:B]
+    def rows(arr):
+        """This batch's cache rows: slots=None covers the FIRST B rows in
+        order and an int slot its one row (views); a tensor of slot ids
+        gathers (a copy)."""
+        if slots is None:
+            return arr if arr.shape[0] == B else arr[:B]
+        if isinstance(slots, int):
+            return arr[slots:slots + 1]
+        return arr[slots.to(torch.long)]
 
-    if slots is None:
-        kc, vc = crow(cache.k[layer_idx]), crow(cache.v[layer_idx])
-        kpos = crow(cache.pos)
-    else:
-        sl = slots.to(torch.long)
-        kc, vc, kpos = cache.k[layer_idx][sl], cache.v[layer_idx][sl], \
-            cache.pos[sl]
-    kc, vc, kpos = kc[:, :, :span], vc[:, :, :span], kpos[:, :span]
+    # span views of the cache: never copied for the kernels (they take
+    # strides); the einsum reads them as f32
+    kc = rows(cache.k[layer_idx])[:, :, :span]
+    vc = rows(cache.v[layer_idx])[:, :, :span]
+    kpos = rows(cache.pos)[:, :span]
+    ksc = (rows(cache.ks[layer_idx])[:, :, :span] if cache.ks is not None
+           else None)
+    vsc = (rows(cache.vs[layer_idx])[:, :, :span] if cache.vs is not None
+           else None)
     group = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, T, cfg.n_kv_heads, group, hd)
+
+    if kernel is not None:
+        qf = qg.permute(0, 2, 1, 3, 4).reshape(B, cfg.n_kv_heads, T * group,
+                                               hd)
+        # device tensors: no host round trip per layer
+        qbase = positions[:, 0].to(torch.int32)
+        qlen = (positions >= 0).sum(1).to(torch.int32)
+        fn = flash_decode if kernel == "flash_decode" else flash_attention
+        o = fn(qf, kc, vc, kpos, qbase, qlen, ksc, vsc,
+               scale=float(1.0 / math.sqrt(hd)), g=group, causal=cfg.causal)
+        o = o.reshape(B, cfg.n_kv_heads, T, group, hd).permute(0, 2, 1, 3, 4)
+        o = o.reshape(B, T, cfg.n_heads * hd).to(cfg.cdtype)
+        return _proj(o, layer["wo"], cfg, layer.get("bo")), cache
 
     # scores (B, Hkv, G, T, S) in f32, as the JAX path computes off the TPU
     torch.backends.cuda.matmul.allow_tf32 = False
     scores = torch.einsum("bthgd,bhsd->bhgts", qg.to(torch.float32),
                           kc.to(torch.float32))
+    if ksc is not None:
+        # q8_0 K: (q . k_i8) * ks == q . k_dequant, folded before the scale
+        scores = scores * ksc[:, :, None, None, :]
     # 1/sqrt(hd) rounded to f32 as JAX computes it; a Python scalar holding
     # that f32 value multiplies on the device without a host copy
     scores = scores * float(np.float32(1.0) / np.sqrt(np.float32(hd)))
@@ -152,6 +177,9 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     live = kpos[:, None, :] >= 0
     mask = live & (kpos[:, None, :] <= positions[:, :, None])
     probs = masked_softmax(scores, mask[:, None, None, :, :])
+    if vsc is not None:
+        # q8_0 V: the row scale folds into probs (s is the contracted axis)
+        probs = probs * vsc[:, :, None, None, :]
     out = torch.einsum("bhgts,bhsd->bthgd", probs, vc.to(torch.float32))
     out = out.reshape(B, T, cfg.n_heads * hd).to(cfg.cdtype)
     return _proj(out, layer["wo"], cfg, layer.get("bo")), cache
@@ -172,10 +200,14 @@ def ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, cache: KVCache,
-            slots: torch.Tensor | None, cells: torch.Tensor,
-            kv_span: int | None = None) -> tuple[torch.Tensor, KVCache]:
-    """tokens/positions/cells: (B, T); slots: (B,) or None ->
-    (logits (B, T, vocab) f32, cache updated in place)."""
+            slots: int | torch.Tensor | None, cells: torch.Tensor,
+            kv_span: int | None = None, t_bucket: int | None = None
+            ) -> tuple[torch.Tensor, KVCache]:
+    """tokens/positions/cells: (B, T); slots: (B,) slot ids, the slot of a
+    one-row batch as an int, or None for the first B slots; t_bucket: the
+    length the JAX engine pads this ubatch to, on which the attention
+    kernel is chosen (None = T) -> (logits (B, T, vocab) f32, cache updated
+    in place)."""
     missing = unsupported_features(cfg)
     if missing:
         raise NotImplementedError(f"forward features not ported yet: "
@@ -188,7 +220,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for il, layer in enumerate(params["layers"]):
         hn = _norm(h, layer, "attn_norm", cfg)
         attn_out, cache = attention(layer, cfg, hn, positions, cache, il,
-                                    slots, cells, kv_span, angles)
+                                    slots, cells, kv_span, angles, t_bucket)
         if cfg.res_scale != 1.0:
             attn_out = attn_out * cfg.res_scale
         h = (h + attn_out).to(cfg.cdtype)

@@ -27,6 +27,7 @@ BUILD_DIR = PKG_DIR / "build"
 
 # library name -> (source file, {C function: argument types})
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 LIBS: dict[str, tuple[str, dict[str, list]]] = {
     "qmm": ("qmm.cu", {
         "tl_qmm_f32": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -35,6 +36,15 @@ LIBS: dict[str, tuple[str, dict[str, list]]] = {
         "tl_quantize_acts": [_P, _P, _P, _P, _I, _I, _I, _P],
         "tl_qmm_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
+    }),
+    "flash_attention": ("flash_attention.cu", {
+        "tl_flash": [_I, _I, _P,
+                     _P, _I, _L, _L, _L,            # k, type, strides
+                     _P, _I, _L, _L, _L,            # v, type, strides
+                     _P, _L, _P, _P,                # kpos, stride, qbase, qlen
+                     _P, _L, _L, _P, _L, _L,        # ks, strides, vs, strides
+                     _I, _I, _I, _I, _I, _I, _F,    # B Hkv TG S G causal scale
+                     _I, _I, _P, _P, _P, _P, _P],   # chunking, ws, out, stream
     }),
 }
 

@@ -2,11 +2,18 @@
 (counterpart of tpulamm.runtime.engine, core API).
 
 - prompts are prefilled in ubatches of up to n_ubatch tokens, each run at
-  its exact length (the JAX engine pads to power-of-two buckets so jit
-  compiles few shapes; eager torch needs no padding, and since 16 is one
-  of those buckets the int8/f32 kernel choice is the same)
+  its exact length. The JAX engine pads a ubatch to a PREFILL_BUCKETS
+  length so jit compiles few shapes; eager torch needs no padding, but the
+  attention kernel is chosen on that bucket length (forward's t_bucket),
+  so the card runs the kernel the JAX package would (the kernels mask by
+  the live query count). 16 is a bucket, so the int8/f32 choice of the
+  projections is the same either way.
 - the KV cache holds n_ctx + 1 cells per slot; cell n_ctx is the trash
-  cell that padding rows of a batched step write to
+  cell that padding rows of a batched step write to. kv_dtype picks its
+  storage: a float dtype, or "q8_0" (int8 codes + per-row scales)
+- a full context is handled as the JAX engine does: context shift (drop
+  half of the tokens after the first n_keep, re-rope the rest, defrag) or,
+  with grp_attn_n > 1, self-extend
 - decode runs one (B, 1) step per token; generate_fast samples on the
   device (greedy argmax, or top-k + torch.multinomial on a seeded
   torch.Generator) and generate samples on the host with Sampler
@@ -31,6 +38,9 @@ from tpulamm_torch.runtime import kvcache as kv
 from tpulamm_torch.runtime.kvcache import KVCache
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
 from tpulamm_torch.tokenizer.spm import build_tokenizer
+
+
+PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,27 +69,52 @@ class Engine:
     def __init__(self, model_path: str, *, n_ctx: int = 2048,
                  n_slots: int = 1, n_ubatch: int = 512,
                  compute_dtype: str | None = None,
-                 kv_dtype: torch.dtype = torch.bfloat16, device=None):
-        """kv_dtype: a float dtype for K and V (the q8_0 cache is not
-        ported yet)."""
+                 kv_dtype=torch.bfloat16, kv_dtype_v=None,
+                 flash_attn: bool | None = None, grp_attn_n: int = 1,
+                 grp_attn_w: int = 512, device=None):
+        """kv_dtype / kv_dtype_v: the K and V storage (-ctk / -ctv), a
+        torch float dtype, its name, or "q8_0"; V defaults to K's.
+        flash_attn: None picks the flash kernels by span as the JAX
+        dispatch does; True / False forces them on / off.
+        grp_attn_n / grp_attn_w: self-extend (grouped attention) factor
+        and window; 1 = context shift when the window fills."""
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         self.cfg, self.params, self.metadata = load_model(
             model_path, compute_dtype=compute_dtype, device=self.device)
+        self.cfg.flash_attn = flash_attn
         self._fuse_projections()
         self.tokenizer = (build_tokenizer(self.metadata)
                           if "tokenizer.ggml.tokens" in self.metadata else None)
         self.n_ctx = n_ctx
         self.n_slots = n_slots
+        if n_ubatch > PREFILL_BUCKETS[-1]:
+            raise ValueError(f"n_ubatch={n_ubatch} exceeds the largest "
+                             f"prefill bucket {PREFILL_BUCKETS[-1]}")
         self.n_ubatch = n_ubatch
+        self.grp_attn_n = grp_attn_n
+        self.grp_attn_w = grp_attn_w
+        # tokens kept at the start of the window on context shift (--keep)
+        self.n_keep = 4
+
+        def storage(t):
+            """(float dtype, None) or (None, "q8_0")"""
+            if t == "q8_0":
+                return None, t
+            return (getattr(torch, t) if isinstance(t, str) else t), None
+        kd, qk = storage(kv_dtype)
+        vd, qv = storage(kv_dtype if kv_dtype_v is None else kv_dtype_v)
         # cell n_ctx is the trash cell for padding rows
-        self.cache = KVCache.create(self.cfg.n_layers, n_slots, n_ctx + 1,
-                                    self.cfg.n_kv_heads, self.cfg.head_dim,
-                                    dtype=kv_dtype, device=self.device)
+        self.cache = KVCache.create(
+            self.cfg.n_layers, n_slots, n_ctx + 1, self.cfg.n_kv_heads,
+            self.cfg.head_dim, dtype=kd or torch.bfloat16,
+            dtype_v=vd or torch.bfloat16, qtype_k=qk, qtype_v=qv,
+            device=self.device)
         # host mirror of the cache's cell positions: cell allocation
         # (llama_kv_cache_find_slot, llama.cpp:2207) needs no device sync
         self.n_past = np.zeros(n_slots, np.int64)
         self.cell_pos = np.full((n_slots, n_ctx), -1, np.int64)
+        self.ga_i = np.zeros(n_slots, np.int64)     # self-extend group index
         self.timings = Timings()
         self.timings.t_load = time.perf_counter() - t0
 
@@ -137,28 +172,33 @@ class Engine:
         span = 1 << (s - 1).bit_length()
         return None if span >= self.n_ctx else int(span)
 
+    @staticmethod
+    def _bucket_for(t: int) -> int:
+        """Smallest prefill bucket >= t (the JAX engine's padded length;
+        t <= n_ubatch <= PREFILL_BUCKETS[-1])."""
+        return next(b for b in PREFILL_BUCKETS if b >= t)
+
     def _step(self, tok: np.ndarray, pos: np.ndarray, cel: np.ndarray,
-              slots: torch.Tensor | None) -> torch.Tensor:
-        """One forward over a (B, T) batch; returns device logits."""
+              slots: int | None) -> torch.Tensor:
+        """One forward over a (B, T) batch: one slot's row (slots an int)
+        or every slot (None); returns device logits."""
+        n = tok.shape[1]
         # one host-to-device copy for tokens, positions and cells
         host = torch.from_numpy(np.stack([tok, pos, cel]).astype(np.int64))
         t, p, c = host.to(self.device)
         with torch.no_grad():
             logits, self.cache = forward(self.params, self.cfg, t, p,
                                          self.cache, slots, c,
-                                         kv_span=self._kv_span(0))
+                                         kv_span=self._kv_span(0),
+                                         t_bucket=(self._bucket_for(n)
+                                                   if n > 1 else 1))
         return logits
-
-    def _slot_arg(self, slot: int) -> torch.Tensor | None:
-        if self.n_slots == 1:
-            return None
-        return torch.full((1,), slot, dtype=torch.long, device=self.device)
 
     def _run_device(self, slot: int, tokens: np.ndarray,
                     positions: np.ndarray, cells: np.ndarray) -> torch.Tensor:
         """One ubatch for one slot -> (T, vocab) logits on the device."""
         logits = self._step(np.asarray(tokens)[None], np.asarray(positions)[None],
-                            np.asarray(cells)[None], self._slot_arg(slot))
+                            np.asarray(cells)[None], int(slot))
         return logits[0]
 
     def _run(self, slot: int, tokens: np.ndarray, positions: np.ndarray,
@@ -174,22 +214,18 @@ class Engine:
         if len(free) < n:
             raise RuntimeError(
                 f"KV cache full for slot {slot}: need {n}, have {len(free)} "
-                f"free of {self.n_ctx} (context shift is not ported yet)")
+                f"free of {self.n_ctx} (context shift should have freed "
+                "space)")
         cells = free[:n]
         self.cell_pos[slot, cells] = positions
         return cells.astype(np.int32)
-
-    def _check_room(self, slot: int):
-        if self.n_past[slot] + 1 > self.n_ctx:
-            raise NotImplementedError(
-                "context full: context shift (seq_add + defrag) is not "
-                "ported yet (ROADMAP queue 1)")
 
     # -- public API ------------------------------------------------------------
     def reset_slot(self, slot: int):
         self.seq_rm(slot)
         self.n_past[slot] = 0
         self.cell_pos[slot] = -1
+        self.ga_i[slot] = 0
 
     def prefill(self, slot: int, tokens: list[int],
                 logits_all: bool = False) -> np.ndarray:
@@ -211,7 +247,6 @@ class Engine:
         return np.concatenate(out) if logits_all else out[-1][0]
 
     def _decode_device(self, slot: int, token: int) -> torch.Tensor:
-        self._check_room(slot)
         pos = np.array([self.n_past[slot]], np.int32)
         cells = self._cells_for(slot, 1, pos)
         logits = self._run_device(slot, np.array([token], np.int32), pos,
@@ -222,6 +257,7 @@ class Engine:
     def decode_one(self, slot: int, token: int) -> np.ndarray:
         """One decode step; returns (vocab,) logits."""
         t0 = time.perf_counter()
+        self._maybe_shift(slot)
         logits = self._decode_device(slot, token).cpu().numpy()
         self.timings.t_eval += time.perf_counter() - t0
         self.timings.n_eval += 1
@@ -236,7 +272,7 @@ class Engine:
         pos = np.full((b, 1), -1, np.int32)
         cel = np.full((b, 1), self.n_ctx, np.int32)
         for slot, t in toks.items():
-            self._check_room(slot)
+            self._maybe_shift(slot)
             p = self.n_past[slot]
             tok[slot, 0] = t
             pos[slot, 0] = p
@@ -256,6 +292,66 @@ class Engine:
         kv.seq_rm(self.cache, slot, p0, p1)
         cp = self.cell_pos[slot]
         cp[(cp >= p0) & (cp < p1)] = -1
+
+    def seq_cp(self, src: int, dst: int):
+        """Copy a slot's KV cells and host state to another slot."""
+        kv.seq_cp(self.cache, src, dst)
+        self.n_past[dst] = self.n_past[src]
+        self.cell_pos[dst] = self.cell_pos[src]
+        self.ga_i[dst] = self.ga_i[src]
+
+    def seq_add(self, slot: int, p0: int, p1: int, delta: int):
+        kv.seq_add(self.cache, slot, p0, p1, delta, self.cfg.rope)
+        cp = self.cell_pos[slot]
+        m = (cp >= p0) & (cp < p1)
+        cp[m] += delta
+        cp[m & (cp < 0)] = -1
+
+    def seq_div(self, slot: int, p0: int, p1: int, d: int):
+        kv.seq_div(self.cache, slot, p0, p1, d, self.cfg.rope)
+        cp = self.cell_pos[slot]
+        m = (cp >= p0) & (cp < p1)
+        cp[m] //= d
+
+    # -- context management (main.cpp:540-598) --------------------------------
+    def _maybe_shift(self, slot: int):
+        if self.grp_attn_n > 1:
+            self._self_extend(slot)
+            return
+        if self.n_past[slot] + 1 <= self.n_ctx:
+            return
+        # context shift: drop half of the tokens after n_keep, shift the rest
+        n_left = int(self.n_past[slot]) - self.n_keep
+        n_discard = n_left // 2
+        self.seq_rm(slot, self.n_keep, self.n_keep + n_discard)
+        self.seq_add(slot, self.n_keep + n_discard, int(self.n_past[slot]),
+                     -n_discard)
+        self.n_past[slot] -= n_discard
+        self.defrag()
+
+    def defrag(self):
+        """Compact live cells to the front of every slot, keeping their
+        order, and the host cell mirror with them."""
+        kv.defrag(self.cache)
+        for row in self.cell_pos:
+            live = row[row >= 0]
+            row[:] = -1
+            row[:len(live)] = live
+
+    def _self_extend(self, slot: int):
+        """Self-extend position surgery, main.cpp:575-598: ib =
+        (ga_n * ga_i) / ga_w, and n_past shrinks by bd each shift."""
+        ga_n, ga_w = self.grp_attn_n, self.grp_attn_w
+        while self.n_past[slot] >= self.ga_i[slot] + ga_w:
+            i, np_ = int(self.ga_i[slot]), int(self.n_past[slot])
+            ib = (ga_n * i) // ga_w
+            bd = (ga_w // ga_n) * (ga_n - 1)
+            dd = (ga_w // ga_n) - ib * bd - ga_w
+            self.seq_add(slot, i, np_, ib * bd)
+            self.seq_div(slot, i + ib * bd, i + ib * bd + ga_w, ga_n)
+            self.seq_add(slot, i + ib * bd + ga_w, np_ + ib * bd, dd)
+            self.n_past[slot] -= bd
+            self.ga_i[slot] += ga_w // ga_n
 
     # -- generation -------------------------------------------------------------
     def _encode(self, prompt) -> list[int]:
@@ -295,8 +391,8 @@ class Engine:
         gen.manual_seed(seed)
         out = [first]
         while len(out) < n_predict and not (stop_on_eos and out[-1] == eos):
-            if self.n_past[slot] + 1 > self.n_ctx:
-                break                                   # context full
+            if self.n_ctx - self.n_past[slot] - 1 <= 0:
+                break                  # context full: no shift, as in JAX
             lg = self._decode_device(slot, out[-1])
             out.append(self._sample_next(lg, temp, top_k, gen))
         if stop_on_eos and eos in out:
