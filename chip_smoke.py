@@ -19,11 +19,24 @@ Phases (any failure raises, so the exit code is not 0):
      G = 1; flash_attention at T = 512, S in {1024, 16385}; flash_decode at
      T = 1, S in {8193, 16385}; q8 and bf16) beside the plain version,
      scaled_dot_product_attention and the bound
+  3c. the opt-in decode kernels against their plain versions on the card:
+     qmm_int8_inkq bit for bit against qmm_int8 at the five 7B shapes in
+     all six formats; ffn_fused at the 7B FFN (4096 -> 11008 -> 4096), M 1
+     and 16, all six formats (rel <= 1e-4); mega_decode at 2 layers of
+     LLaMA-7B and TinyLlama-1.1B width, spans 1024 and 2049 (max error <=
+     1e-2 max|ref|, logits cosine >= 0.9999, the new K/V rows written into
+     the cache); Q4_0 timed (ms, plain, library, bound)
   4. the slice at full width: a LLaMA-7B-shape Q4_0 GGUF (random blocks
      from a seed) served by Engine(n_ctx=2048) -- generate_fast on a
      512-token prompt for 128 greedy tokens, twice; the launch counts of
      the second run must be 129 qmm (one ubatch) and 129 qmm_int8 per
      decode step, and both runs must give the same tokens
+  4c. the same model through Engine(megakernel=True, fused_ffn=True,
+     int8_inkq=True): generate_fast twice as in 4 (launches of the second
+     run: 129 qmm, then per decode step 1 mega_decode and 1 qmm_int8_inkq
+     for the lm head, nothing else; the same tokens), then 8 decode_one
+     steps (per step 32 ffn_fused and 65 qmm_int8_inkq, nothing else);
+     tok/s and profiles of both kinds of step
   4b. the long-context path at full width and depth: a CodeLlama-7B-shape
      Q4_0 GGUF (32 layers, vocab 32016, rope base 1e6, context 16384)
      served by Engine(n_ctx=16384, kv_dtype="q8_0") -- generate_fast on a
@@ -39,6 +52,10 @@ Phases (any failure raises, so the exit code is not 0):
      einsum path -- a 620-token prompt (two ubatches; cosine >= 0.999),
      then 32 teacher-forced decode steps (cosine >= 0.99 each) of which
      step 21 shifts the context; the host and device positions must agree
+  5c. the megakernel at 2 layers of LLaMA-7B width over 8 teacher-forced
+     steps: on the card against on the CPU (cosine >= 0.9999) and against
+     the card's default decode path (cosine >= 0.99: f32 against int8
+     activations)
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -59,10 +76,15 @@ import torch
 
 from tpulamm_torch.gguf.constants import GGML_TYPE_SIZES, GGMLType
 from tpulamm_torch.gguf.writer import GGUFWriter
+from tpulamm_torch.models.config import ModelConfig
+from tpulamm_torch.ops import ffn_fused as FF
 from tpulamm_torch.ops import flash_attention as FA
 from tpulamm_torch.ops import kernels
+from tpulamm_torch.ops import mega_decode as MD
 from tpulamm_torch.ops import qmm as Q
+from tpulamm_torch.ops.layers import rms_norm, silu
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
+from tpulamm_torch.ops.rope import RopeParams
 from tpulamm_torch.runtime.engine import Engine, Timings
 
 SEED = 1234
@@ -73,6 +95,7 @@ SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_OPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_OPS = 67e12               # outside the tensor cores
 
 FORMATS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
            GGMLType.Q8_0, GGMLType.Q2_K]
@@ -85,9 +108,16 @@ LLAMA_7B = dict(dim=4096, ffn=11008, n_head=32, vocab=32000)
 # Code Llama 7B (Meta's release): LLaMA-7B widths, MHA, a 16k context
 CODELLAMA_7B = dict(dim=4096, ffn=11008, n_head=32, vocab=32016,
                     n_ctx_train=16384, freq_base=1e6)
+# TinyLlama-1.1B (its published config): GQA 32 / 4 heads, head_dim 64
+TINYLLAMA = dict(dim=2048, ffn=5632, n_head=32, n_kv=4)
 PREFILL_M, PROMPT, N_PREDICT = 512, 512, 128
 LONG_CTX, LONG_PROMPT, LONG_PREDICT = 16384, 12000, 64
 TOL_QMM, TOL_INT8 = 1e-4, 1e-5
+# ffn_fused against its plain version: rel <= 1e-4 (f32 sums in another
+# order over identical f32 weights); mega_decode: max error <= 1e-2 max|ref|
+# (bf16 rounding flips of the residual stream from the f32 sum order) and
+# the logits' cosine >= 0.9999
+TOL_FFN, TOL_MEGA, COS_MEGA = 1e-4, 1e-2, 0.9999
 
 
 def log(*a):
@@ -573,6 +603,324 @@ def phase_flash(device, rng, cases=FLASH_CASES, timing=FLASH_TIMING,
     return stats
 
 
+# -- slice 3: the opt-in decode kernels ----------------------------------------
+def mega_case(rng, device, *, dim: int, ffn: int, n_head: int,
+              n_kv: int | None = None, n_layers: int = 2, span: int = 1024,
+              live: int = 640, qtype=GGMLType.Q4_0, rope_kind: str = "norm",
+              vocab: int = 4096) -> dict:
+    """One megakernel step on a random llama stack: each layer's fused
+    QTensors (random blocks), norms near 1, a bf16 cache of `span` cells
+    whose first `live` hold positions 0.. (the rest empty), x ~ N(0, 1), the
+    position and cell `live`, and a random lm head and out_norm for logits."""
+    n_kv = n_kv or n_head
+    hd = dim // n_head
+    cfg = ModelConfig(arch="llama", dim=dim, n_layers=n_layers,
+                      n_heads=n_head, n_kv_heads=n_kv, ffn_dim=ffn,
+                      rope=RopeParams(n_rot=hd, kind=rope_kind))
+
+    def q(n, k):
+        return QTensor.from_gguf_raw(random_blocks(qtype, n, k, rng), qtype,
+                                     (n, k), device=device)
+
+    def norm():
+        return torch.from_numpy((1.0 + 0.1 * rng.standard_normal(dim)).astype(
+            np.float32)).to(device)
+    layers = [dict(wqkv_fused=q((n_head + 2 * n_kv) * hd, dim),
+                   wo=q(dim, n_head * hd), wgateup_fused=q(2 * ffn, dim),
+                   w_down=q(dim, ffn), attn_norm=norm(), ffn_norm=norm())
+              for _ in range(n_layers)]
+    mega = MD.build_mega({"layers": layers}, cfg)
+    kv = [torch.from_numpy(rng.standard_normal((1, n_kv, span, hd),
+                                               dtype=np.float32)
+                           ).to(device).to(torch.bfloat16)
+          for _ in range(2 * n_layers)]
+    kpos = torch.full((1, span), -1, dtype=torch.int32, device=device)
+    kpos[0, :live] = torch.arange(live, dtype=torch.int32, device=device)
+    lanes = MD.rope_lane_vectors(mega.rope, hd, n_head, n_kv,
+                                 torch.tensor([live], device=device))
+    x = torch.from_numpy(rng.standard_normal((1, dim), dtype=np.float32))
+    return dict(mega=mega, x=x.to(device), pos=live, kpos=kpos,
+                k=kv[:n_layers], v=kv[n_layers:], lanes=lanes,
+                head=q(vocab, dim), out_norm=norm())
+
+
+def mega_call(fn, c):
+    return fn(c["mega"], c["x"], c["pos"], c["pos"], c["kpos"], c["k"],
+              c["v"], *c["lanes"])
+
+
+def mega_bound(c) -> tuple[float, float]:
+    """(ms to move the bytes, ms to do the operations) of one step: every
+    layer's planes, the live K / V rows, kpos, the norms, x and the outputs
+    once at the HBM rate; the products' 2 N K and the attention's 4 hd
+    operations a live key and head at the f32 rate (the kernel's type)."""
+    spec = c["mega"].spec
+    L, H, Hkv, hd = spec.n_layers, spec.n_heads, spec.n_kv_heads, spec.head_dim
+    live = int((c["kpos"] >= 0).sum())
+    planes = sum(lyr[k].n_bytes for lyr in c["mega"].layers
+                 for k in MD.WEIGHTS)
+    nbytes = (planes + 2 * L * Hkv * live * hd * 2 + c["kpos"].numel() * 4
+              + 2 * L * spec.dim * 4 + 2 * spec.dim * 4
+              + 2 * L * Hkv * hd * 4)
+    macs = (spec.dim * spec.nqkv + H * hd * spec.dim + spec.dim * 2 * spec.ffn
+            + spec.ffn * spec.dim)
+    ops = L * (2 * macs + 4 * H * hd * (live + 1))
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS * 1e3
+
+
+def ffn_bound(x, gu, dn) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one fused FFN: the planes, x and the
+    output once; 2 M dim (2 ffn) + 2 M ffn dim f32 operations."""
+    m, dim = x.shape
+    ffn = dn.mm_dims[1]
+    nbytes = gu.n_bytes + dn.n_bytes + 2 * m * dim * 4
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            6.0 * m * dim * ffn / PEAK_F32_OPS * 1e3)
+
+
+# phase-3c megakernel cases: (label, widths, span, live cells); 2 layers
+MEGA_CASES = [("LLaMA-7B", dict(dim=4096, ffn=11008, n_head=32), 1024, 640),
+              ("LLaMA-7B", dict(dim=4096, ffn=11008, n_head=32), 2049, 2047),
+              ("TinyLlama-1.1B", TINYLLAMA, 1024, 640),
+              ("TinyLlama-1.1B", TINYLLAMA, 2049, 2047)]
+
+
+def phase_decode_kernels(device, rng, formats=FORMATS, shapes=SHAPES_7B,
+                         ffn_dims=(4096, 11008), ffn_m=(1, 16),
+                         mega_cases=MEGA_CASES, reps=20) -> dict:
+    """The three opt-in decode kernels against their plain versions on the
+    card: qmm_int8_inkq bit for bit against qmm_int8 at the 7B shapes in
+    every format; ffn_fused at the 7B FFN in every format, M 1 and 16;
+    mega_decode at 2 layers of two widths and two spans. Timed at Q4_0
+    (M = 1; mega at the first case)."""
+    stats = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                    "bound_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+                    "ops_ms": 0.0}
+             for name in ("qmm_int8_inkq", "ffn_fused", "mega_decode")}
+
+    def add(name, t_k, t_p, t_l, t_b, t_o):
+        s = stats[name]
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                       ("bound_ms", max(t_b, t_o)), ("bytes_ms", t_b),
+                       ("ops_ms", t_o)):
+            s[key] = None if v is None else s[key] + v
+
+    def q(qtype, n, k):
+        return QTensor.from_gguf_raw(random_blocks(qtype, n, k, rng), qtype,
+                                     (n, k), device=device)
+
+    for qtype in formats:
+        for label, (n, k) in shapes.items():
+            qt = q(qtype, n, k)
+            x = torch.randn((1, k), device=device)
+            got = Q.qmm_int8_inkq_cuda(x, qt)
+            if not torch.equal(got, Q.qmm_int8_cuda(x, qt)):
+                raise AssertionError(f"qmm_int8_inkq {qtype.name} {label}: "
+                                     "not bit-identical to qmm_int8")
+            rel, ab = rel_err(got, Q.qmm_int8_inkq_ref(x, qt))
+            stats["qmm_int8_inkq"]["max_abs_err"] = max(
+                stats["qmm_int8_inkq"]["max_abs_err"], ab)
+            if not rel <= TOL_INT8:
+                raise AssertionError(f"qmm_int8_inkq: relative error {rel}")
+            if qtype == GGMLType.Q4_0:
+                t = time_case(Q.qmm_int8_inkq_cuda, Q.qmm_int8_inkq_ref, x,
+                              qt, dequant_mm(qt, torch.bfloat16),
+                              PEAK_INT8_OPS, device, reps)
+                add("qmm_int8_inkq", *t)
+                log(case_line(f"Q4_0 {label} M=1 N={n} K={k}",
+                              "qmm_int8_inkq", rel, *t))
+            del qt
+        log(f"[decode] {qtype.name}: qmm_int8_inkq == qmm_int8 bit for bit "
+            "at the five 7B shapes")
+    dim, ffn = ffn_dims
+    for qtype in formats:
+        gu, dn = q(qtype, 2 * ffn, dim), q(qtype, dim, ffn)
+        for m in ffn_m:
+            x = torch.randn((m, dim), device=device)
+            rel, ab = rel_err(FF.ffn_fused(x, gu, dn), FF.ffn_fused_ref(x, gu, dn))
+            stats["ffn_fused"]["max_abs_err"] = max(
+                stats["ffn_fused"]["max_abs_err"], ab)
+            if not rel <= TOL_FFN:
+                raise AssertionError(f"ffn_fused {qtype.name} M={m}: "
+                                     f"relative error {rel} > {TOL_FFN}")
+            case = f"{qtype.name} M={m} dim={dim} ffn={ffn}"
+            if qtype == GGMLType.Q4_0 and m == 1:
+                wg = dequant_mm(gu, torch.bfloat16)
+                wd = dequant_mm(dn, torch.bfloat16)
+                xb = x.to(torch.bfloat16)
+
+                def library():       # bf16 torch.matmul, weights dequantized
+                    g = torch.matmul(xb, wg)
+                    return torch.matmul(silu(g[:, :ffn]) * g[:, ffn:], wd)
+                t = (time_ms(lambda: FF.ffn_fused(x, gu, dn), device, reps),
+                     time_ms(lambda: FF.ffn_fused_ref(x, gu, dn), device,
+                             reps),
+                     time_ms(library, device, reps)) + ffn_bound(x, gu, dn)
+                add("ffn_fused", *t)
+                log(case_line(case, "ffn_fused", rel, *t))
+            else:
+                log(f"[decode] {case}: ffn_fused rel {rel:.3e}")
+        del gu, dn
+    for i, (label, widths, span, live) in enumerate(mega_cases):
+        c = mega_case(rng, device, **widths, span=span, live=live)
+        got = mega_call(MD.mega_decode_layers, c)
+        rows = [k[0, :, c["pos"]].clone() for k in c["k"] + c["v"]]
+        want = mega_call(MD.mega_decode_layers_ref, c)
+        errs, rels = [], []
+        for name, a, b in zip(("x_out", "k_new", "v_new"), got, want):
+            rel, ab = rel_err(a, b)
+            errs.append(f"{name} {rel:.2e}")
+            rels.append(rel)
+            stats["mega_decode"]["max_abs_err"] = max(
+                stats["mega_decode"]["max_abs_err"], ab)
+            if not (rel <= TOL_MEGA and bool(torch.isfinite(a).all())):
+                raise AssertionError(f"mega_decode {label} span {span}: "
+                                     f"{name} off by {rel} of max|ref|")
+        hd = c["mega"].spec.head_dim
+        for row, new in zip(rows, list(got[1]) + list(got[2])):
+            if not torch.equal(row, new.reshape(-1, hd).to(torch.bfloat16)):
+                raise AssertionError("mega_decode did not write the new "
+                                     "K/V row into the cache")
+
+        def logits(xo):
+            h = rms_norm(xo.to(torch.bfloat16), c["out_norm"], 1e-5)
+            return Q.qmm_ref(h.to(torch.float32), c["head"])[0].cpu().numpy()
+        cos = cosine(logits(got[0]), logits(want[0]))
+        if not cos >= COS_MEGA:
+            raise AssertionError(f"mega_decode {label} span {span}: logits "
+                                 f"cosine {cos} < {COS_MEGA}")
+        case = f"{label} 2 layers span={span} live={live}"
+        if i == 0:
+            t = (time_ms(lambda: mega_call(MD.mega_decode_layers, c), device,
+                         reps),
+                 time_ms(lambda: mega_call(MD.mega_decode_layers_ref, c),
+                         device, 3), None) + mega_bound(c)
+            add("mega_decode", *t)
+            log(case_line(case, "mega_decode", rels[0], t[0], t[1],
+                          float("nan"), t[3], t[4], library="none"))
+        log(f"[decode] {case}: mega_decode max err / max|ref|: "
+            f"{', '.join(errs)}; logits cosine {cos!r}")
+        del c
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return stats
+
+
+def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
+                 prompt_len: int = PROMPT, n_predict: int = N_PREDICT,
+                 decode_steps: int = 8) -> dict:
+    """Slice 3 at full width: the phase-4 model through the opt-in decode
+    kernels, Engine(megakernel=True, fused_ffn=True, int8_inkq=True): two
+    generate_fast runs (the megakernel path), then decode_one steps (the
+    fused FFN and in-kernel-quantized gemv path)."""
+    t0 = time.perf_counter()
+    eng = Engine(path, n_ctx=2048, megakernel=True, fused_ffn=True,
+                 int8_inkq=True, device=device)
+    if eng.mega is None:
+        raise AssertionError("the model did not qualify for the megakernel")
+    log(f"[opt-in] Engine(megakernel, fused_ffn, int8_inkq) load "
+        f"{time.perf_counter() - t0:.2f} s")
+    prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+    ids_a, _ = eng.generate_fast(prompt, n_predict=n_predict,
+                                 stop_on_eos=False)
+    eng.timings = Timings()
+
+    def reset():
+        for mod in (Q, FA, FF, MD):
+            mod.reset_launches()
+
+    def counts():
+        return {**Q.LAUNCHES, **FA.LAUNCHES, **FF.LAUNCHES, **MD.LAUNCHES}
+    reset()
+    ids_b, _ = eng.generate_fast(prompt, n_predict=n_predict,
+                                 stop_on_eos=False)
+    mega_launches = counts()
+    tm = eng.timings
+    steps = len(ids_b) - 1
+    out = {"mega_decode_tok_s": steps / tm.t_eval,
+           "mega_prefill_tok_s": tm.n_prefill / tm.t_prefill,
+           "mega_launches": mega_launches}
+    log(f"[opt-in] generate_fast through the megakernel: prefill "
+        f"{out['mega_prefill_tok_s']:.1f} tok/s, decode {steps} steps "
+        f"{out['mega_decode_tok_s']:.2f} tok/s, launches {mega_launches}")
+    if ids_a != ids_b:
+        raise AssertionError("two megakernel runs gave different tokens")
+    want = {**{k: 0 for k in mega_launches}, "qmm": 4 * n_layers + 1,
+            "mega_decode": steps, "qmm_int8_inkq": steps}
+    if mega_launches != want:
+        raise AssertionError(f"launch counts {mega_launches} != {want}")
+    log(f"[opt-in] launch counts as expected: mega_decode and "
+        f"qmm_int8_inkq (lm head) 1 per step x {steps}, qmm {4 * n_layers + 1}"
+        " for the ubatch; two runs gave the same tokens")
+    if device.type == "cuda":
+        out.update(profile_steps(eng, "mega", lambda: eng._mega_step(0, 5)))
+    # decode_one: the forward with the fused FFN and the inkq gemv; one
+    # step first, uncounted, loads the kernels' modules
+    tok = int(np.argmax(eng.decode_one(0, ids_b[-1])))
+    reset()
+    t0 = time.perf_counter()
+    for _ in range(decode_steps):
+        lg = eng.decode_one(0, tok)
+        if not np.isfinite(lg).all():
+            raise AssertionError("decode_one logits not finite")
+        tok = int(np.argmax(lg))
+    t_one = time.perf_counter() - t0
+    fused_launches = counts()
+    out.update(fused_decode_tok_s=decode_steps / t_one,
+               fused_launches=fused_launches)
+    want = {**{k: 0 for k in fused_launches},
+            "ffn_fused": n_layers * decode_steps,
+            "qmm_int8_inkq": (2 * n_layers + 1) * decode_steps}
+    log(f"[opt-in] {decode_steps} decode_one steps: "
+        f"{out['fused_decode_tok_s']:.2f} tok/s, launches {fused_launches}")
+    if fused_launches != want:
+        raise AssertionError(f"launch counts {fused_launches} != {want}")
+    log(f"[opt-in] launch counts as expected: ffn_fused {n_layers} and "
+        f"qmm_int8_inkq {2 * n_layers + 1} per step, qmm_int8 0")
+    if device.type == "cuda":
+        out.update(profile_steps(eng, "fused", lambda: eng.decode_one(0, 5)))
+    del eng
+    return out
+
+
+def phase_mega_numerics(device, rng, shape=LLAMA_7B, prompt_len: int = 64,
+                        steps: int = 8) -> dict:
+    """2 layers at full width, 8 teacher-forced megakernel steps: the card
+    against the CPU's plain megakernel (cosine >= 0.9999), and against the
+    card's default decode path (cosine >= 0.99: f32 activations against the
+    default's int8 ones)."""
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, "llama7b_shape_q4_0_2l_mega.gguf")
+    write_llama_gguf(path, 2, rng, **shape)
+    gpu = Engine(path, n_ctx=2048, megakernel=True, device=device)
+    cpu = Engine(path, n_ctx=2048, megakernel=True, device="cpu")
+    base = Engine(path, n_ctx=2048, device=device)
+    prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+    tok = int(np.argmax(cpu.prefill(0, prompt)))
+    gpu.prefill(0, prompt)
+    base.prefill(0, prompt)
+    cos_cpu, cos_base = [], []
+    for _ in range(steps):
+        a = gpu._mega_step(0, tok).cpu().numpy()
+        b = cpu._mega_step(0, tok).numpy()
+        c = base.decode_one(0, tok)
+        if not (np.isfinite(a).all() and a.shape == (shape["vocab"],)):
+            raise AssertionError("megakernel logits not finite / misshapen")
+        cos_cpu.append(cosine(a, b))
+        cos_base.append(cosine(a, c))
+        tok = int(np.argmax(b))
+    log(f"[mega-numerics] 2 layers, {steps} teacher-forced steps: megakernel "
+        f"on the card vs on the CPU min cosine {min(cos_cpu)!r} (>= 0.9999); "
+        f"vs the default decode path min cosine {min(cos_base)!r} (>= 0.99)")
+    if not min(cos_cpu) >= 0.9999:
+        raise AssertionError(f"mega card vs CPU cosine {min(cos_cpu)} < 0.9999")
+    if not min(cos_base) >= 0.99:
+        raise AssertionError(f"mega vs default cosine {min(cos_base)} < 0.99")
+    del gpu, cpu, base
+    os.remove(path)
+    return {"cos_cpu_min": min(cos_cpu), "cos_default_min": min(cos_base)}
+
+
 def phase_long(device, rng, n_layers: int = 32, shape=CODELLAMA_7B,
                n_ctx: int = LONG_CTX, prompt_len: int = LONG_PROMPT,
                n_predict: int = LONG_PREDICT, n_ubatch: int = 512) -> dict:
@@ -634,6 +982,7 @@ def phase_long(device, rng, n_layers: int = 32, shape=CODELLAMA_7B,
     # later ubatch (span >= 1024, T >= 64) flash_attention; every decode
     # step (span >= 8192, T * G = 1) flash_decode
     want = {"qmm": per_pass * n_ub, "qmm_int8": per_pass * steps,
+            "qmm_int8_inkq": 0,
             "flash_attention": n_layers * (n_ub - 1),
             "flash_decode": n_layers * steps}
     if launches != want or steps != n_predict - 1:
@@ -713,9 +1062,11 @@ def phase_shift(device, rng, shape=CODELLAMA_7B, n_ctx: int = 640,
 
 
 def phase_slice(device, rng, n_layers: int = 32, shape=LLAMA_7B,
-                prompt_len: int = PROMPT, n_predict: int = N_PREDICT) -> dict:
+                prompt_len: int = PROMPT, n_predict: int = N_PREDICT,
+                keep: bool = False) -> dict:
     """Serve a LLaMA-7B-shape Q4_0 model: two identical generate_fast runs,
-    launch counts and speed from the second."""
+    launch counts and speed from the second. keep: leave the GGUF for the
+    next phase (its path is out["path"])."""
     os.makedirs(SMOKE_DIR, exist_ok=True)
     path = os.path.join(SMOKE_DIR, f"llama7b_shape_q4_0_{n_layers}l.gguf")
     t0 = time.perf_counter()
@@ -758,7 +1109,8 @@ def phase_slice(device, rng, n_layers: int = 32, shape=LLAMA_7B,
     if ids_a != ids_b:
         raise AssertionError("two greedy runs on the card disagree")
     per_pass = 4 * n_layers + 1
-    want = {"qmm": per_pass, "qmm_int8": per_pass * steps}
+    want = {"qmm": per_pass, "qmm_int8": per_pass * steps,
+            "qmm_int8_inkq": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     log(f"[slice] launch counts as expected: qmm {per_pass} for the ubatch, "
@@ -770,7 +1122,10 @@ def phase_slice(device, rng, n_layers: int = 32, shape=LLAMA_7B,
             eng, "prefill", lambda: (eng.reset_slot(0), eng.prefill(0, prompt)),
             steps=1))
     del eng
-    os.remove(path)
+    if keep:
+        out["path"] = path
+    else:
+        os.remove(path)
     return out
 
 
@@ -797,10 +1152,11 @@ def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kern) / 1e3 / steps
     launches = sum(e.count for e in events
-                   if e.key == "cudaLaunchKernel") // steps
+                   if e.key in ("cudaLaunchKernel",
+                                "cudaLaunchCooperativeKernel")) // steps
     log(f"[profile] {label}: {wall:.3f} ms wall per call, device busy "
-        f"{busy:.3f} ms ({busy / wall:.1%}), {launches} cudaLaunchKernel "
-        "calls per call")
+        f"{busy:.3f} ms ({busy / wall:.1%}), {launches} kernel launches "
+        "(cudaLaunchKernel + cudaLaunchCooperativeKernel) per call")
     host = [e for e in events if e.device_type != DeviceType.CUDA]
     for e in sorted(kern, key=dev_us, reverse=True)[:8]:
         log(f"[profile] {label} kernel {dev_us(e) / 1e3 / steps:9.3f} ms/call "
@@ -851,10 +1207,16 @@ def kernels_line(stats: dict, launches: dict) -> str:
         "qmm": ("tpulamm_torch/csrc/qmm.cu", "tpulamm/ops/pallas_qmm.py:576"),
         "qmm_int8": ("tpulamm_torch/csrc/qmm_int8.cu",
                      "tpulamm/ops/pallas_qmm.py:274"),
+        "qmm_int8_inkq": ("tpulamm_torch/csrc/qmm_int8.cu",
+                          "tpulamm/ops/pallas_qmm.py:431"),
         "flash_attention": ("tpulamm_torch/csrc/flash_attention.cu",
                             "tpulamm/ops/flash_attention.py:129"),
         "flash_decode": ("tpulamm_torch/csrc/flash_attention.cu",
                          "tpulamm/ops/flash_attention.py:266"),
+        "ffn_fused": ("tpulamm_torch/csrc/ffn_fused.cu",
+                      "tpulamm/ops/pallas_ffn.py:188"),
+        "mega_decode": ("tpulamm_torch/csrc/mega_decode.cu",
+                        "tpulamm/ops/pallas_decode.py:345"),
     }
     out = []
     for name, (src, rep) in meta.items():
@@ -890,24 +1252,40 @@ def main() -> int:
     done("kernels")
     stats.update(phase_flash(device, rng))
     done("flash")
-    sl = phase_slice(device, rng)
+    stats.update(phase_decode_kernels(device, rng))
+    done("decode kernels")
+    sl = phase_slice(device, rng, keep=True)
     done("slice")
+    try:
+        oi = phase_opt_in(device, rng, sl["path"], sl["layers"])
+    finally:
+        os.remove(sl["path"])
+    done("opt-in")
     lc = phase_long(device, rng)
     done("long")
     phase_numerics(device, rng)
     done("numerics")
     phase_shift(device, rng)
     done("shift")
-    log("[kernels] qmm / qmm_int8 times are sums over the five 7B shapes "
-        "(qmm at M=512, qmm_int8 at M=1), launches from the slice-1 run "
-        "(phase 4); flash times at B=1 Hkv=32 hd=128 S=16385 q8 "
-        "(flash_attention T=512, flash_decode T=1), launches from the "
-        "long-context run (phase 4b)")
+    phase_mega_numerics(device, rng)
+    done("mega numerics")
+    log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
+        "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "
+        "qmm / qmm_int8 from the slice-1 run (phase 4); flash times at B=1 "
+        "Hkv=32 hd=128 S=16385 q8 (flash_attention T=512, flash_decode "
+        "T=1), launches from the long-context run (phase 4b); ffn_fused at "
+        "the 7B FFN, M=1, Q4_0, launches from the decode_one steps of phase "
+        "4c; mega_decode at 2 layers of LLaMA-7B width, span 1024, "
+        "qmm_int8_inkq and mega_decode launches from the megakernel "
+        "generate_fast run of phase 4c")
     log(f"[device] {smi}")
     launches = {"qmm": sl["launches"]["qmm"],
                 "qmm_int8": sl["launches"]["qmm_int8"],
+                "qmm_int8_inkq": oi["mega_launches"]["qmm_int8_inkq"],
                 "flash_attention": lc["launches"]["flash_attention"],
-                "flash_decode": lc["launches"]["flash_decode"]}
+                "flash_decode": lc["launches"]["flash_decode"],
+                "ffn_fused": oi["fused_launches"]["ffn_fused"],
+                "mega_decode": oi["mega_launches"]["mega_decode"]}
     log(kernels_line(stats, launches))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,15 +9,19 @@ JAX package's conftest:
 
 Tolerances as in chip_smoke.py: qmm within 1e-4 of max|out| (the f32 sums
 run in another order), qmm_int8 within 1e-5 with identical activation
-codes.
+codes, qmm_int8_inkq bit-identical to qmm_int8, ffn_fused within 1e-4,
+mega_decode within 1e-2 of max|ref| (bf16 rounding flips of the residual
+stream from the f32 sum order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FLASH_CASES, FORMATS, random_blocks
+from chip_smoke import FLASH_CASES, FORMATS, mega_call, mega_case, random_blocks
 from tpulamm_torch.gguf.constants import GGMLType
+from tpulamm_torch.ops import ffn_fused as FF
+from tpulamm_torch.ops import mega_decode as MD
 from tpulamm_torch.ops import qmm as Q
 from tpulamm_torch.ops.qtensor import QTensor
 
@@ -56,7 +60,8 @@ def test_kernels_match_plain(dev, qtype, m):
         assert torch.equal(qx, rq) and torch.equal(sx, rs)
         assert _rel(Q.qmm_int8_cuda(x, qt), Q.qmm_int8_ref(x, qt)) <= 1e-5
     torch.cuda.synchronize()
-    assert Q.LAUNCHES == {"qmm": 1, "qmm_int8": int(m <= Q.INT8_MAX_M)}
+    assert Q.LAUNCHES == {"qmm": 1, "qmm_int8": int(m <= Q.INT8_MAX_M),
+                          "qmm_int8_inkq": 0}
 
 
 @pytest.mark.cuda
@@ -135,3 +140,101 @@ def test_flash_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="head_dim 96"):
         FA.flash_attention(q96, k96, k96, c["kpos"], c["qbase"], c["qlen"],
                            **kw)
+
+
+# -- the opt-in decode kernels (qmm_int8.cu inkq, ffn_fused.cu, mega_decode.cu)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", FORMATS, ids=lambda q: q.name)
+@pytest.mark.parametrize("m", [1, 5, 16])
+def test_inkq_is_bit_identical_to_qmm_int8(dev, qtype, m):
+    x, qt = _case(qtype, m, dev)
+    Q.reset_launches()
+    assert torch.equal(Q.qmm_int8_inkq_cuda(x, qt), Q.qmm_int8_cuda(x, qt))
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES == {"qmm": 0, "qmm_int8": 1, "qmm_int8_inkq": 1}
+
+
+DIM, FFN = 512, 768
+
+
+def _ffn_case(qtype, m, dev, seed=1):
+    rng = np.random.default_rng(seed)
+    gu = QTensor.from_gguf_raw(random_blocks(qtype, 2 * FFN, DIM, rng), qtype,
+                               (2 * FFN, DIM), device=dev)
+    dn = QTensor.from_gguf_raw(random_blocks(qtype, DIM, FFN, rng), qtype,
+                               (DIM, FFN), device=dev)
+    x = torch.from_numpy(rng.normal(size=(m, DIM)).astype(np.float32)).to(dev)
+    return x, gu, dn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", FORMATS, ids=lambda q: q.name)
+@pytest.mark.parametrize("m,act", [(1, "silu"), (7, "gelu"), (16, "silu")])
+def test_ffn_fused_matches_plain(dev, qtype, m, act):
+    x, gu, dn = _ffn_case(qtype, m, dev)
+    FF.reset_launches()
+    got = FF.ffn_fused(x, gu, dn, act=act)
+    assert _rel(got, FF.ffn_fused_ref(x, gu, dn, act=act)) <= 1e-4
+    assert torch.equal(got, FF.ffn_fused(x, gu, dn, act=act))  # fixed order
+    torch.cuda.synchronize()
+    assert FF.LAUNCHES == {"ffn_fused": 2}
+
+
+MEGA_GPU_CASES = {
+    "q4_0_gqa": dict(dim=256, ffn=512, n_head=4, n_kv=2, span=64, live=40),
+    "q8_0_neox_hd128": dict(dim=512, ffn=768, n_head=4, span=97, live=96,
+                            qtype=GGMLType.Q8_0, rope_kind="neox"),
+    "q2_k_hd256": dict(dim=512, ffn=512, n_head=2, span=300, live=150,
+                       qtype=GGMLType.Q2_K),
+    "q5_1_3_layers": dict(dim=256, ffn=768, n_head=4, n_layers=3, span=33,
+                          live=1, qtype=GGMLType.Q5_1),
+    "q4_1_no_live_cell": dict(dim=256, ffn=512, n_head=4, span=16, live=0,
+                              qtype=GGMLType.Q4_1),
+    "q5_0_long_span": dict(dim=256, ffn=512, n_head=4, n_kv=1, span=5000,
+                           live=4500, qtype=GGMLType.Q5_0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MEGA_GPU_CASES, ids=list(MEGA_GPU_CASES))
+def test_mega_decode_matches_plain(dev, case):
+    c = mega_case(np.random.default_rng(3), dev, **MEGA_GPU_CASES[case])
+    MD.reset_launches()
+    got = mega_call(MD.mega_decode_layers, c)
+    # the kernel wrote each layer's new K / V row, bf16, at the cell
+    hd, cell = c["mega"].spec.head_dim, c["pos"]
+    for rows, new in ((c["k"], got[1]), (c["v"], got[2])):
+        for row, n in zip(rows, new):
+            assert torch.equal(row[0, :, cell],
+                               n.reshape(-1, hd).to(torch.bfloat16))
+    again = mega_call(MD.mega_decode_layers, c)
+    want = mega_call(MD.mega_decode_layers_ref, c)
+    for a, b, c2 in zip(got, want, again):
+        assert torch.isfinite(a).all()
+        assert _rel(a, b) <= 1e-2
+        assert torch.equal(a, c2)                      # fixed order
+    torch.cuda.synchronize()
+    assert MD.LAUNCHES == {"mega_decode": 2}
+
+
+@pytest.mark.cuda
+def test_decode_wrappers_refuse(dev):
+    x, qt = _case(GGMLType.Q4_0, 1, dev)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        Q.qmm_int8_inkq_cuda(x, qt.to("cpu"))
+    with pytest.raises(ValueError, match="M <= 16"):
+        Q.qmm_int8_inkq_cuda(torch.zeros((17, K), device=dev), qt)
+    x, gu, dn = _ffn_case(GGMLType.Q4_0, 1, dev)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        FF.ffn_fused(x, gu, dn.to("cpu"))
+    with pytest.raises(ValueError, match="M <= 16"):
+        FF.ffn_fused(torch.zeros((17, DIM), device=dev), gu, dn)
+    c = mega_case(np.random.default_rng(4), dev, dim=256, ffn=512, n_head=4,
+                  span=16, live=8)
+    with pytest.raises(NotImplementedError, match="B0 == 1"):
+        MD.mega_decode_layers(c["mega"], torch.zeros((2, 256), device=dev),
+                              8, 8, c["kpos"], c["k"], c["v"], *c["lanes"])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        MD.mega_decode_layers(c["mega"], c["x"], 8, 8, c["kpos"],
+                              [k.cpu() for k in c["k"]], c["v"], *c["lanes"])

@@ -71,6 +71,30 @@ def test_qmm_int8_ref_matches_pallas(dtype):
     assert _rel(got, want) <= 1e-5
 
 
+def test_qmm_int8_inkq_ref_matches_pallas(dtype):
+    """The in-kernel quantization (_make_int8_kernel_inkq's quant body, on
+    x transposed) gives quantize_acts' codes and scales; the plain version
+    is qmm_int8_ref's function and matches _qmm_int8_call_inkq."""
+    jt, tt = _pair(dtype, seed=6)
+    x = np.random.default_rng(7).normal(size=(3, K)).astype(np.float32)
+    x[2, 64:96] = 0.0                  # an all-zero group: scale 1
+    gw = tt.spec.group
+    xb = jnp.asarray(x).T.reshape(K // gw, gw, 3)          # (G, gw, m)
+    s = jnp.max(jnp.abs(xb), axis=1, keepdims=True) * jnp.float32(1 / 127)
+    s = jnp.where(s > 0, s, jnp.float32(1.0))
+    q = jnp.clip(jnp.round(xb / s), -127, 127).astype(jnp.int8)
+    qx, sx, _ = tqmm.quantize_acts(torch.from_numpy(x), gw)
+    np.testing.assert_array_equal(
+        qx.numpy(), np.asarray(q).transpose(2, 0, 1).reshape(3, K))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(s)[:, 0, :].T)
+    want = np.asarray(pallas_qmm._qmm_int8_call_inkq(
+        jnp.asarray(x), jt.planes, qtype=jt.qtype, n=N, k=K, tn=128, kc=2,
+        interpret=True))[:3]
+    got = tqmm.qmm_int8_inkq_ref(torch.from_numpy(x), tt)
+    assert torch.equal(got, tqmm.qmm_int8_ref(torch.from_numpy(x), tt))
+    assert _rel(got.numpy(), want) <= 1e-5
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """On a CPU tensor each wrapper returns its plain version and counts
     no launch."""
@@ -82,7 +106,27 @@ def test_wrappers_take_plain_version_on_cpu():
                                rtol=0, atol=0)
     torch.testing.assert_close(tqmm.qmm_int8_cuda(x, tt),
                                tqmm.qmm_int8_ref(x, tt), rtol=0, atol=0)
-    assert tqmm.LAUNCHES == {"qmm": 0, "qmm_int8": 0}
+    torch.testing.assert_close(tqmm.qmm_int8_inkq_cuda(x, tt),
+                               tqmm.qmm_int8_ref(x, tt), rtol=0, atol=0)
+    assert tqmm.LAUNCHES == {"qmm": 0, "qmm_int8": 0, "qmm_int8_inkq": 0}
+
+
+def test_library_name_follows_its_headers(tmp_path, monkeypatch):
+    """A library is named by a hash of its source and every csrc header it
+    includes (through other headers too), so an edited header rebuilds it."""
+    import shutil
+    from tpulamm_torch.ops import kernels
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    assert [p.name for p in kernels.sources("mega_decode")] == [
+        "mega_decode.cu", "gemv_stage.cuh", "quant_planes.cuh"]
+    before = {n: kernels.lib_path(n) for n in kernels.LIBS}
+    with open(csrc / "quant_planes.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: kernels.lib_path(n) for n in kernels.LIBS}
+    changed = {n for n in kernels.LIBS if before[n] != after[n]}
+    assert changed == {"qmm", "qmm_int8", "ffn_fused", "mega_decode"}
 
 
 @pytest.mark.parametrize("m,n,cdt,want", [

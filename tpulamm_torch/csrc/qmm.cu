@@ -28,69 +28,14 @@
 // and add, no FMA contraction), so both see identical weights and differ
 // only in the order of the f32 sums.
 
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "quant_planes.cuh"
 
 namespace {
 
-enum : int { Q4_0 = 2, Q4_1 = 3, Q5_0 = 6, Q5_1 = 7, Q8_0 = 8, Q2_K = 10 };
+using namespace tlq;
 
 constexpr int BM = 64, BN = 64, BK = 32, NT = 256;
 constexpr int XS_STRIDE = BM + 4;  // keeps float4 rows 16-byte aligned
-
-template <int QT> struct Fmt {
-  static constexpr float zero = QT == Q4_0 ? 8.f : (QT == Q5_0 ? 16.f : 0.f);
-  static constexpr bool has_min = QT == Q4_1 || QT == Q5_1 || QT == Q2_K;
-};
-
-// integer code of element (k, n) from the packed planes
-template <int QT>
-__device__ __forceinline__ int code_at(const uint8_t* __restrict__ qa,
-                                       const uint8_t* __restrict__ qb,
-                                       int k, int n, int N) {
-  const int c = k >> 8, e = k & 255;
-  if constexpr (QT == Q8_0) {
-    return (int)(int8_t)qa[(size_t)k * N + n];
-  } else if constexpr (QT == Q2_K) {
-    // q2 row 64c + s holds crumb t = element 256c + s + 64t
-    const int b = qa[(size_t)(64 * c + (e & 63)) * N + n];
-    return (b >> (2 * (e >> 6))) & 3;
-  } else {
-    // qs row 128c + r: low nibble element 256c + r, high 256c + 128 + r
-    const int b = qa[(size_t)(128 * c + (e & 127)) * N + n];
-    int q = (e & 128) ? (b >> 4) : (b & 15);
-    if constexpr (QT == Q5_0 || QT == Q5_1) {
-      // qh row 32c + s holds bit t = element 256c + s + 32t
-      const int h = qb[(size_t)(32 * c + (e & 31)) * N + n];
-      q |= ((h >> (e >> 5)) & 1) << 4;
-    }
-    return q;
-  }
-}
-
-// scale and min of the group holding element k, column n
-template <int QT>
-__device__ __forceinline__ void group_scale(const void* __restrict__ sa,
-                                            const void* __restrict__ sb,
-                                            int k, int n, int N,
-                                            float& s, float& mn) {
-  if constexpr (QT == Q2_K) {
-    // compact planes: scd byte = sc | (m << 4); dm rows 8c, 8c+1 = d, dmin
-    const uint8_t* scd = (const uint8_t*)sa;
-    const unsigned short* dm = (const unsigned short*)sb;
-    const int b = scd[(size_t)(k >> 4) * N + n];
-    const int c = k >> 8;
-    const float d = __half2float(__ushort_as_half(dm[(size_t)(8 * c) * N + n]));
-    const float dmin =
-        __half2float(__ushort_as_half(dm[(size_t)(8 * c + 1) * N + n]));
-    s = __fmul_rn((float)(b & 15), d);
-    mn = __fmul_rn((float)(b >> 4), -dmin);
-  } else {
-    s = ((const float*)sa)[(size_t)(k >> 5) * N + n];
-    mn = Fmt<QT>::has_min ? ((const float*)sb)[(size_t)(k >> 5) * N + n] : 0.f;
-  }
-}
 
 template <int QT>
 __global__ void __launch_bounds__(NT)
@@ -128,9 +73,7 @@ qmm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qa,
       if constexpr (QT == Q2_K) {
         if (kk >= 16) { ss = s2; mm = mn2; }
       }
-      float w = __fmul_rn((float)q - Fmt<QT>::zero, ss);
-      if constexpr (Fmt<QT>::has_min) w = __fadd_rn(w, mm);
-      ws[kk][wn] = w;
+      ws[kk][wn] = dequant<QT>(q, ss, mm);
     }
     __syncthreads();
 #pragma unroll

@@ -2,7 +2,9 @@
 //
 // Replaces tpulamm/ops/pallas_qmm.py::_qmm_int8_call (kernel body
 // _make_int8_kernel) and its XLA prologue _quantize_acts: the TPU path
-// behind every decode projection (M <= 16).
+// behind every decode projection (M <= 16); and _qmm_int8_call_inkq (body
+// _make_int8_kernel_inkq), the same product with the activation
+// quantization inside the one launch (tl_qmm_int8_inkq, below).
 //
 //   launch 1, quantize_acts: per (row, group) of x (group 32; 16 for Q2_K)
 //     s = amax * (1/127) (1 where 0), qx = rint(x / s) clipped to +-127,
@@ -30,25 +32,52 @@
 // block), so the result does not depend on the blocks' timing.
 // The prologue divides by s (no reciprocal) and rounds half to even
 // (rintf), so its codes equal the plain version's.
+//
+// In-kernel quantization (tl_qmm_int8_inkq): there is no prologue launch.
+// The 8 warps of a block take units 8q .. 8q+7 of K for q = blockIdx.y,
+// blockIdx.y + ks, ...: each q is one 512-element slice of K (two chunks).
+// Before its warps read slice q, the block quantizes that slice of its
+// own rows into shared memory with the prologue's code (quant_group), so
+// the codes, scales and sums, and the order of every sum after them, are
+// those of the two-launch path: the output is bit-identical to it. Each
+// block quantizes only what it reads; the blocks of other column tiles
+// repeat that small work (M * 512 values per slice) instead of waiting on
+// a launch.
 
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "quant_planes.cuh"
 
 namespace {
 
-enum : int { Q4_0 = 2, Q4_1 = 3, Q5_0 = 6, Q5_1 = 7, Q8_0 = 8, Q2_K = 10 };
+using namespace tlq;
 
 constexpr int WARPS = 8, NT = 32 * WARPS, TILE_N = 128;
-
-template <int QT> struct Fmt {
-  static constexpr float zero = QT == Q4_0 ? 8.f : (QT == Q5_0 ? 16.f : 0.f);
-  static constexpr bool has_min = QT == Q4_1 || QT == Q5_1 || QT == Q2_K;
-  static constexpr bool corr = zero != 0.f || has_min;
-  static constexpr int group = QT == Q2_K ? 16 : 32;
-};
+constexpr int SLICE = 512;       // K elements a block quantizes at a time
 
 // ---------------------------------------------------------------- prologue
+// one activation group of GA values at xp -> codes at qp, scale, exact sum
+template <int GA>
+__device__ __forceinline__ void quant_group(const float* __restrict__ xp,
+                                            int8_t* __restrict__ qp,
+                                            float& s, float& sum) {
+  float v[GA];
+  float amax = 0.f, acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < GA; ++i) {
+    v[i] = xp[i];
+    amax = fmaxf(amax, fabsf(v[i]));
+    acc = __fadd_rn(acc, v[i]);
+  }
+  float sc = __fmul_rn(amax, 1.0f / 127.0f);
+  if (!(sc > 0.f)) sc = 1.0f;
+#pragma unroll
+  for (int i = 0; i < GA; ++i) {
+    const float q = fminf(fmaxf(rintf(__fdiv_rn(v[i], sc)), -127.f), 127.f);
+    qp[i] = (int8_t)q;
+  }
+  s = sc;
+  sum = acc;
+}
+
 template <int GA>
 __global__ void quantize_acts_kernel(const float* __restrict__ x,
                                      int8_t* __restrict__ qx,
@@ -58,54 +87,44 @@ __global__ void quantize_acts_kernel(const float* __restrict__ x,
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= M * G) return;
   const int m = idx / G, g = idx - m * G;
-  const float* xp = x + (size_t)m * K + (size_t)g * GA;
-  float v[GA];
-  float amax = 0.f, sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < GA; ++i) {
-    v[i] = xp[i];
-    amax = fmaxf(amax, fabsf(v[i]));
-    sum = __fadd_rn(sum, v[i]);
-  }
-  float s = __fmul_rn(amax, 1.0f / 127.0f);
-  if (!(s > 0.f)) s = 1.0f;
-  int8_t* qp = qx + (size_t)m * K + (size_t)g * GA;
-#pragma unroll
-  for (int i = 0; i < GA; ++i) {
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(v[i], s)), -127.f), 127.f);
-    qp[i] = (int8_t)q;
-  }
-  sx[idx] = s;
-  gsum[idx] = sum;
+  quant_group<GA>(x + (size_t)m * K + (size_t)g * GA,
+                  qx + (size_t)m * K + (size_t)g * GA, sx[idx], gsum[idx]);
 }
 
 // ---------------------------------------------------------------- gemv
-__device__ __forceinline__ uint32_t ld32(const uint8_t* __restrict__ p,
-                                         size_t row, int N, int n) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p + row * N + n));
-}
+// Where the gemv reads the activation codes, scales and sums (row m is
+// the absolute row, k and g absolute element and group indices): the
+// prologue's arrays in device memory, or one block's quantized slice in
+// shared memory.
+struct GlobalActs {
+  const int8_t* __restrict__ qx;
+  const float* __restrict__ sx;
+  const float* __restrict__ gsum;
+  int K, G;
+  __device__ int word(int m, int k) const {
+    return __ldg(reinterpret_cast<const int*>(qx + (size_t)m * K + k));
+  }
+  __device__ float scale(int m, int g) const { return sx[(size_t)m * G + g]; }
+  __device__ float sum(int m, int g) const { return gsum[(size_t)m * G + g]; }
+};
 
-// w[b] = bytes of columns n..n+3 in row b -> c[j] = bytes of rows 0..3 in
-// column j (a 4x4 byte transpose)
-__device__ __forceinline__ void transpose4(const uint32_t w[4], uint32_t c[4]) {
-  const uint32_t a = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t b = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t d = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t e = __byte_perm(w[2], w[3], 0x7362);
-  c[0] = __byte_perm(a, b, 0x5410);
-  c[1] = __byte_perm(a, b, 0x7632);
-  c[2] = __byte_perm(d, e, 0x5410);
-  c[3] = __byte_perm(d, e, 0x7632);
-}
-
-__device__ __forceinline__ void load_cols(const uint8_t* __restrict__ p,
-                                          size_t row0, int N, int n,
-                                          uint32_t c[4]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) w[b] = ld32(p, row0 + b, N, n);
-  transpose4(w, c);
-}
+template <int GA>
+struct SliceActs {
+  static constexpr int GPS = SLICE / GA;         // groups per slice
+  const int8_t* q;                               // [MT][SLICE]
+  const float* s;                                // [MT][GPS]
+  const float* gs;                               // [MT][GPS]
+  int m0, k0;                                    // first row, first element
+  __device__ int word(int m, int k) const {
+    return *reinterpret_cast<const int*>(q + (m - m0) * SLICE + (k - k0));
+  }
+  __device__ float scale(int m, int g) const {
+    return s[(m - m0) * GPS + g - k0 / GA];
+  }
+  __device__ float sum(int m, int g) const {
+    return gs[(m - m0) * GPS + g - k0 / GA];
+  }
+};
 
 // scale and offset (min - zero * scale) of global group G at columns n..n+3
 template <int QT>
@@ -145,20 +164,19 @@ __device__ __forceinline__ void group_scales(const void* __restrict__ sa,
 }
 
 // acc[m][j] += (idot * sw) * sx + gsum * off for one group
-template <int QT, int MT>
+template <int QT, int MT, class A>
 __device__ __forceinline__ void rescale(float acc[MT][4], const int idot[MT][4],
-                                        const float* __restrict__ sx,
-                                        const float* __restrict__ gsum,
+                                        const A& act,
                                         const void* __restrict__ sa,
                                         const void* __restrict__ sb, int G,
-                                        int Gtot, int N, int n, int m0, int M) {
+                                        int N, int n, int m0, int M) {
   float sw[4], off[4];
   group_scales<QT>(sa, sb, G, N, n, sw, off);
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     if (m0 + m >= M) break;
-    const float s = sx[(size_t)(m0 + m) * Gtot + G];
-    const float gs = Fmt<QT>::corr ? gsum[(size_t)(m0 + m) * Gtot + G] : 0.f;
+    const float s = act.scale(m0 + m, G);
+    const float gs = Fmt<QT>::corr ? act.sum(m0 + m, G) : 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       acc[m][j] += __fmul_rn(__fmul_rn((float)idot[m][j], sw[j]), s);
@@ -168,28 +186,22 @@ __device__ __forceinline__ void rescale(float acc[MT][4], const int idot[MT][4],
 }
 
 // activation word (4 codes at k..k+3) of row m0 + m, zero past M
-template <int MT>
-__device__ __forceinline__ void act_words(const int8_t* __restrict__ qx,
-                                          int K, int k, int m0, int M,
+template <int MT, class A>
+__device__ __forceinline__ void act_words(const A& act, int k, int m0, int M,
                                           int out[MT]) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-    out[m] = (m0 + m < M)
-                 ? __ldg(reinterpret_cast<const int*>(qx + (size_t)(m0 + m) * K + k))
-                 : 0;
+  for (int m = 0; m < MT; ++m) out[m] = (m0 + m < M) ? act.word(m0 + m, k) : 0;
 }
 
 // one unit = 32 plane rows of 256-element chunk c, sub-block u in 0..3
-template <int QT, int MT>
+template <int QT, int MT, class A>
 __device__ __forceinline__ void do_unit(float acc[MT][4], int c, int u,
-                                        const int8_t* __restrict__ qx,
-                                        const float* __restrict__ sx,
-                                        const float* __restrict__ gsum,
+                                        const A& act,
                                         const uint8_t* __restrict__ qa,
                                         const uint8_t* __restrict__ qb,
                                         const void* __restrict__ sa,
                                         const void* __restrict__ sb,
-                                        int M, int N, int K, int n, int m0) {
+                                        int M, int N, int n, int m0) {
   const int kc = 256 * c;
   if constexpr (QT == Q2_K) {
     // q2 rows 64c + 16u + 4i + b hold crumb t = element 64t + 16u + 4i + b,
@@ -202,7 +214,7 @@ __device__ __forceinline__ void do_unit(float acc[MT][4], int c, int u,
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         int xw[MT];
-        act_words<MT>(qx, K, kc + 64 * t + 16 * u + 4 * i, m0, M, xw);
+        act_words<MT>(act, kc + 64 * t + 16 * u + 4 * i, m0, M, xw);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int code = (int)((col[j] >> (2 * t)) & 0x03030303u);
@@ -213,8 +225,8 @@ __device__ __forceinline__ void do_unit(float acc[MT][4], int c, int u,
     }
 #pragma unroll
     for (int t = 0; t < 4; ++t)
-      rescale<QT, MT>(acc, idot[t], sx, gsum, sa, sb, 16 * c + 4 * t + u,
-                      K / 16, N, n, m0, M);
+      rescale<QT, MT>(acc, idot[t], act, sa, sb, 16 * c + 4 * t + u, N, n,
+                      m0, M);
   } else {
     // groups u (k in [32u, 32u+32)) and u + 4 (k in [128+32u, 160+32u))
     int lo[MT][4] = {}, hi[MT][4] = {};
@@ -245,8 +257,8 @@ __device__ __forceinline__ void do_unit(float acc[MT][4], int c, int u,
         }
       }
       int xl[MT], xh[MT];
-      act_words<MT>(qx, K, kc + e, m0, M, xl);
-      act_words<MT>(qx, K, kc + 128 + e, m0, M, xh);
+      act_words<MT>(act, kc + e, m0, M, xl);
+      act_words<MT>(act, kc + 128 + e, m0, M, xh);
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -255,15 +267,18 @@ __device__ __forceinline__ void do_unit(float acc[MT][4], int c, int u,
           hi[m][j] = __dp4a((int)ch[j], xh[m], hi[m][j]);
         }
     }
-    rescale<QT, MT>(acc, lo, sx, gsum, sa, sb, 8 * c + u, K / 32, N, n, m0, M);
-    rescale<QT, MT>(acc, hi, sx, gsum, sa, sb, 8 * c + u + 4, K / 32, N, n, m0, M);
+    rescale<QT, MT>(acc, lo, act, sa, sb, 8 * c + u, N, n, m0, M);
+    rescale<QT, MT>(acc, hi, act, sa, sb, 8 * c + u + 4, N, n, m0, M);
   }
 }
 
-template <int QT, int MT>
+// x: the f32 activations when INKQ (quantized here, slice by slice), else
+// unused and qx / sx / gsum hold the prologue's output
+template <int QT, int MT, bool INKQ>
 __global__ void __launch_bounds__(NT)
 qmm_int8_kernel(const int8_t* __restrict__ qx, const float* __restrict__ sx,
-                const float* __restrict__ gsum, const uint8_t* __restrict__ qa,
+                const float* __restrict__ gsum, const float* __restrict__ x,
+                const uint8_t* __restrict__ qa,
                 const uint8_t* __restrict__ qb, const void* __restrict__ sa,
                 const void* __restrict__ sb, float* __restrict__ out,
                 float* __restrict__ partial, unsigned int* __restrict__ counters,
@@ -276,9 +291,33 @@ qmm_int8_kernel(const int8_t* __restrict__ qx, const float* __restrict__ sx,
   const int ks = gridDim.y;
   const int units = (K / 256) * 4;
   float acc[MT][4] = {};
-  for (int s = blockIdx.y * WARPS + warp; s < units; s += ks * WARPS)
-    do_unit<QT, MT>(acc, s >> 2, s & 3, qx, sx, gsum, qa, qb, sa, sb, M, N, K,
-                    n, m0);
+  if constexpr (!INKQ) {
+    const GlobalActs act{qx, sx, gsum, K, K / Fmt<QT>::group};
+    for (int s = blockIdx.y * WARPS + warp; s < units; s += ks * WARPS)
+      do_unit<QT, MT>(acc, s >> 2, s & 3, act, qa, qb, sa, sb, M, N, n, m0);
+  } else {
+    // slice q holds units 8q .. 8q+7, so warp w takes unit 8q + w: the
+    // same units in the same order as above
+    static_assert(SLICE / 64 == WARPS, "one unit of 64 elements a warp");
+    constexpr int GA = Fmt<QT>::group, GPS = SLICE / GA;
+    __shared__ __align__(16) int8_t sq[MT * SLICE];
+    __shared__ float ssx[MT * GPS], sgs[MT * GPS];
+    for (int q = blockIdx.y; q * SLICE < K; q += ks) {
+      const int k0 = q * SLICE;
+      __syncthreads();                       // the last slice is read
+      for (int i = threadIdx.x; i < MT * GPS; i += NT) {
+        const int m = i / GPS, g = i - m * GPS;
+        if (m0 + m < M && k0 + g * GA < K)
+          quant_group<GA>(x + (size_t)(m0 + m) * K + k0 + g * GA,
+                          sq + m * SLICE + g * GA, ssx[i], sgs[i]);
+      }
+      __syncthreads();
+      const int s = q * WARPS + warp;
+      if (s < units)
+        do_unit<QT, MT>(acc, s >> 2, s & 3, SliceActs<GA>{sq, ssx, sgs, m0, k0},
+                        qa, qb, sa, sb, M, N, n, m0);
+    }
+  }
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -313,29 +352,55 @@ qmm_int8_kernel(const int8_t* __restrict__ qx, const float* __restrict__ sx,
   if (threadIdx.x == 0) counters[cidx] = 0u;
 }
 
-template <int QT, int MT>
+template <int QT, int MT, bool INKQ>
 void launch_gemv(const void* qx, const void* sx, const void* gsum,
-                 const void* qa, const void* qb, const void* sa, const void* sb,
-                 void* out, void* partial, void* counters, int M, int N, int K,
-                 int ks, cudaStream_t st) {
+                 const void* x, const void* qa, const void* qb, const void* sa,
+                 const void* sb, void* out, void* partial, void* counters,
+                 int M, int N, int K, int ks, cudaStream_t st) {
   dim3 grid(N / TILE_N, ks, (M + MT - 1) / MT);
-  qmm_int8_kernel<QT, MT><<<grid, NT, 0, st>>>(
+  qmm_int8_kernel<QT, MT, INKQ><<<grid, NT, 0, st>>>(
       (const int8_t*)qx, (const float*)sx, (const float*)gsum,
-      (const uint8_t*)qa, (const uint8_t*)qb, sa, sb, (float*)out,
-      (float*)partial, (unsigned int*)counters, M, N, K);
+      (const float*)x, (const uint8_t*)qa, (const uint8_t*)qb, sa, sb,
+      (float*)out, (float*)partial, (unsigned int*)counters, M, N, K);
 }
 
-template <int QT>
+template <int QT, bool INKQ>
 void launch_fmt(const void* qx, const void* sx, const void* gsum,
-                const void* qa, const void* qb, const void* sa, const void* sb,
-                void* out, void* partial, void* counters, int M, int N, int K,
-                int ks, cudaStream_t st) {
+                const void* x, const void* qa, const void* qb, const void* sa,
+                const void* sb, void* out, void* partial, void* counters,
+                int M, int N, int K, int ks, cudaStream_t st) {
   if (M == 1)
-    launch_gemv<QT, 1>(qx, sx, gsum, qa, qb, sa, sb, out, partial, counters,
-                       M, N, K, ks, st);
+    launch_gemv<QT, 1, INKQ>(qx, sx, gsum, x, qa, qb, sa, sb, out, partial,
+                             counters, M, N, K, ks, st);
   else
-    launch_gemv<QT, 4>(qx, sx, gsum, qa, qb, sa, sb, out, partial, counters,
-                       M, N, K, ks, st);
+    launch_gemv<QT, 4, INKQ>(qx, sx, gsum, x, qa, qb, sa, sb, out, partial,
+                             counters, M, N, K, ks, st);
+}
+
+template <bool INKQ>
+int launch_qtype(int qtype, const void* qx, const void* sx, const void* gsum,
+                 const void* x, const void* qa, const void* qb,
+                 const void* sa, const void* sb, void* out, void* partial,
+                 void* counters, int M, int N, int K, int ks, void* stream) {
+  if (M <= 0 || M > 16 || N % TILE_N != 0 || K % 256 != 0 || ks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define TL_FMT(Q)                                                            \
+  case Q:                                                                    \
+    launch_fmt<Q, INKQ>(qx, sx, gsum, x, qa, qb, sa, sb, out, partial,       \
+                        counters, M, N, K, ks, st);                          \
+    break;
+  switch (qtype) {
+    TL_FMT(Q4_0)
+    TL_FMT(Q4_1)
+    TL_FMT(Q5_0)
+    TL_FMT(Q5_1)
+    TL_FMT(Q8_0)
+    TL_FMT(Q2_K)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TL_FMT
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -367,23 +432,17 @@ extern "C" int tl_qmm_int8(int qtype, const void* qx, const void* sx,
                            const void* sa, const void* sb, void* out,
                            void* partial, void* counters, int M, int N, int K,
                            int ks, void* stream) {
-  if (M <= 0 || M > 16 || N % TILE_N != 0 || K % 256 != 0 || ks < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define TL_FMT(Q)                                                            \
-  case Q:                                                                    \
-    launch_fmt<Q>(qx, sx, gsum, qa, qb, sa, sb, out, partial, counters, M, N, \
-                  K, ks, st);                                                \
-    break;
-  switch (qtype) {
-    TL_FMT(Q4_0)
-    TL_FMT(Q4_1)
-    TL_FMT(Q5_0)
-    TL_FMT(Q5_1)
-    TL_FMT(Q8_0)
-    TL_FMT(Q2_K)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef TL_FMT
-  return (int)cudaGetLastError();
+  return launch_qtype<false>(qtype, qx, sx, gsum, nullptr, qa, qb, sa, sb,
+                             out, partial, counters, M, N, K, ks, stream);
+}
+
+// The gemv alone, quantizing x (M, K) f32 inside the launch; the other
+// arguments as for tl_qmm_int8. Gives tl_quantize_acts + tl_qmm_int8's
+// output bit for bit.
+extern "C" int tl_qmm_int8_inkq(int qtype, const void* x, const void* qa,
+                                const void* qb, const void* sa, const void* sb,
+                                void* out, void* partial, void* counters,
+                                int M, int N, int K, int ks, void* stream) {
+  return launch_qtype<true>(qtype, nullptr, nullptr, nullptr, x, qa, qb, sa,
+                            sb, out, partial, counters, M, N, K, ks, stream);
 }

@@ -71,6 +71,11 @@ class ModelConfig:
     # attention kernel selection: None = auto (flash kernel on CUDA when
     # the span calls for it), True/False = force
     flash_attn: bool | None = None
+    # opt-in decode kernels on CUDA (the JAX package's TPULAMM_FUSED_FFN and
+    # TPULAMM_INT8_INKQ): the one-launch FFN for <= 16 rows, and the int8
+    # gemv that quantizes its activations inside its launch
+    fused_ffn: bool = False
+    int8_inkq: bool = False
 
     @property
     def head_dim(self) -> int:

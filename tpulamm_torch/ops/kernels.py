@@ -2,9 +2,10 @@
 
 Each source is compiled by its own `nvcc` process into a shared library
 with a plain C interface, which ctypes loads. Sources build at first use
-into tpulamm_torch/build/; the library name carries a hash of the source,
-so an edited kernel is rebuilt and a stale one is never loaded. `build()`
-starts every compile at once and waits for them all.
+into tpulamm_torch/build/; the library name carries a hash of the source
+and of every csrc header it includes, so an edited kernel or header is
+rebuilt and a stale library is never loaded. `build()` starts every
+compile at once and waits for them all.
 
 Every pointer and the stream cross as ctypes.c_void_p (a bare Python int
 would be cut to 32 bits); each C function returns cudaGetLastError(), and
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +30,7 @@ BUILD_DIR = PKG_DIR / "build"
 # library name -> (source file, {C function: argument types})
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 LIBS: dict[str, tuple[str, dict[str, list]]] = {
     "qmm": ("qmm.cu", {
         "tl_qmm_f32": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -36,6 +39,8 @@ LIBS: dict[str, tuple[str, dict[str, list]]] = {
         "tl_quantize_acts": [_P, _P, _P, _P, _I, _I, _I, _P],
         "tl_qmm_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
+        "tl_qmm_int8_inkq": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _P],
     }),
     "flash_attention": ("flash_attention.cu", {
         "tl_flash": [_I, _I, _P,
@@ -45,6 +50,18 @@ LIBS: dict[str, tuple[str, dict[str, list]]] = {
                      _P, _L, _L, _P, _L, _L,        # ks, strides, vs, strides
                      _I, _I, _I, _I, _I, _I, _F,    # B Hkv TG S G causal scale
                      _I, _I, _P, _P, _P, _P, _P],   # chunking, ws, out, stream
+    }),
+    "ffn_fused": ("ffn_fused.cu", {
+        "tl_ffn_fused_blocks": [_I, _IP],
+        "tl_ffn_fused": [_I, _I, _P,
+                         _P, _P, _P, _P,                # gate|up planes
+                         _P, _P, _P, _P,                # down planes
+                         _P, _P, _P, _P, _P,            # mid out partial ...
+                         _I, _I, _I, _I, _I, _I, _I, _P],
+    }),
+    "mega_decode": ("mega_decode.cu", {
+        "tl_mega_blocks": [_IP],
+        "tl_mega_decode": [_P, _I, _P],                 # &MegaArgs, blocks
     }),
 }
 
@@ -64,10 +81,26 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """The .cu file of library `name`, then every csrc header it includes,
+    directly or through another header, in the order first seen."""
+    todo, seen = [CSRC / LIBS[name][0]], []
+    while todo:
+        path = todo.pop(0)
+        if path not in seen:
+            seen.append(path)
+            todo += [CSRC / h for h in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def lib_path(name: str) -> Path:
-    src = CSRC / LIBS[name][0]
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict[str, float]:

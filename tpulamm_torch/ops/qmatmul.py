@@ -16,14 +16,15 @@ from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor, *,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x: (..., K) activations; qt: (N, K) mm-layout QTensor -> (..., N) f32."""
+            compute_dtype=torch.bfloat16, inkq: bool = False) -> torch.Tensor:
+    """x: (..., K) activations; qt: (N, K) mm-layout QTensor -> (..., N) f32.
+    inkq: on CUDA the int8 path quantizes inside its launch."""
     assert qt.layout == "mm", "qmatmul needs an mm-layout QTensor"
     n, k = qt.mm_dims
     lead = x.shape[:-1]
     xm = x.reshape(-1, k)
     if x.device.type == "cuda":
-        out = qmm(xm, qt, compute_dtype)
+        out = qmm(xm, qt, compute_dtype, inkq)
     else:
         # torch has no bf16 x bf16 -> f32 dot: round the operands to the
         # compute dtype, then multiply in f32 (what jnp.dot with

@@ -6,6 +6,9 @@ versions, and the path choice. Counterpart of tpulamm.ops.pallas_qmm.
 - `quantize_acts` + `qmm_int8_ref` / `qmm_int8_cuda`: int8-activation gemv
   (csrc/qmm_int8.cu replaces `_qmm_int8_call` and `_quantize_acts`), the
   default for decode.
+- `qmm_int8_inkq_cuda`: the same gemv with the activation quantization
+  inside its one launch (csrc/qmm_int8.cu `tl_qmm_int8_inkq` replaces
+  `_qmm_int8_call_inkq`); bit-identical to `qmm_int8_cuda`.
 - `qmm`: the path choice of `qmm_pallas` (pallas_qmm.py:648-763).
 
 A wrapper takes its plain version only for a tensor that lies on the CPU;
@@ -22,7 +25,7 @@ from tpulamm_torch.ops.qtensor import (QTensor, dequant_mm, mm_scale_planes,
                                        unpack_mm_values)
 from tpulamm_torch.quant.repack import SPECS
 
-LAUNCHES = {"qmm": 0, "qmm_int8": 0}
+LAUNCHES = {"qmm": 0, "qmm_int8": 0, "qmm_int8_inkq": 0}
 
 INT8_MAX_M = 16          # decode regime: int8 activations up to 16 rows
 
@@ -184,6 +187,20 @@ def _split_k(n: int, k: int, m: int) -> int:
     return max(1, min(-(-units // 8), want))
 
 
+def _gemv_scratch(x: torch.Tensor, n: int, k: int, m: int):
+    """(ks, out, partial, counters) of one split-K gemv launch."""
+    ks = _split_k(n, k, m)
+    tiles = (n // 128) * (1 if m == 1 else -(-m // 4))
+    cnt = _counters.get(x.device)
+    if cnt is None or cnt.numel() < tiles:
+        cnt = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=x.device)
+        _counters[x.device] = cnt
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((ks, m, n), dtype=torch.float32, device=x.device)
+               if ks > 1 else out)
+    return ks, out, partial, cnt
+
+
 def qmm_int8_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """int8-activation x (M <= 16, K) @ dequant(qt) -> (M, N) f32 through
     csrc/qmm_int8.cu (two launches: prologue, gemv)."""
@@ -197,15 +214,7 @@ def qmm_int8_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     lib = kernels.library("qmm_int8")
     qx, sx, gsum = _launch_quantize_acts(lib, x.to(torch.float32).contiguous(),
                                          qt.spec.group)
-    ks = _split_k(n, k, m)
-    tiles = (n // 128) * (1 if m == 1 else -(-m // 4))
-    cnt = _counters.get(x.device)
-    if cnt is None or cnt.numel() < tiles:
-        cnt = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=x.device)
-        _counters[x.device] = cnt
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((ks, m, n), dtype=torch.float32, device=x.device)
-               if ks > 1 else out)
+    ks, out, partial, cnt = _gemv_scratch(x, n, k, m)
     qa, qb, sa, sb = _plane_ptrs(qt)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     kernels.check(lib.tl_qmm_int8(int(qt.qtype), qx.data_ptr(), sx.data_ptr(),
@@ -214,6 +223,35 @@ def qmm_int8_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
                                   cnt.data_ptr(), m, n, k, ks, stream),
                   "qmm_int8")
     LAUNCHES["qmm_int8"] += 1
+    return out
+
+
+# The in-kernel quantization computes the plain version's function exactly
+# (the same codes, scales and sums), so its plain version is the same one.
+qmm_int8_inkq_ref = qmm_int8_ref
+
+
+def qmm_int8_inkq_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """qmm_int8_cuda's product in one launch: each block of the gemv
+    quantizes the activations of the K slices it reads
+    (csrc/qmm_int8.cu, tl_qmm_int8_inkq). Bit-identical to qmm_int8_cuda."""
+    m, n, k = _check_shapes(x, qt)
+    if m > INT8_MAX_M:
+        raise ValueError(f"int8 gemv takes M <= {INT8_MAX_M}, got {m}")
+    if x.device.type == "cpu":
+        return qmm_int8_inkq_ref(x, qt)
+    _on_cuda(x, qt)
+    from tpulamm_torch.ops import kernels
+    lib = kernels.library("qmm_int8")
+    xf = x.to(torch.float32).contiguous()
+    ks, out, partial, cnt = _gemv_scratch(x, n, k, m)
+    qa, qb, sa, sb = _plane_ptrs(qt)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    kernels.check(lib.tl_qmm_int8_inkq(int(qt.qtype), xf.data_ptr(), qa, qb,
+                                       sa, sb, out.data_ptr(),
+                                       partial.data_ptr(), cnt.data_ptr(),
+                                       m, n, k, ks, stream), "qmm_int8_inkq")
+    LAUNCHES["qmm_int8_inkq"] += 1
     return out
 
 
@@ -237,10 +275,12 @@ def use_int8(m: int, n: int, compute_dtype) -> bool:
             and _widest_divisor_tile(n) >= 1024)
 
 
-def qmm(x: torch.Tensor, qt: QTensor, compute_dtype=torch.bfloat16
-        ) -> torch.Tensor:
-    """x (M, K) @ dequant(qt) -> (M, N) f32 by the path qmm_pallas takes."""
+def qmm(x: torch.Tensor, qt: QTensor, compute_dtype=torch.bfloat16,
+        inkq: bool = False) -> torch.Tensor:
+    """x (M, K) @ dequant(qt) -> (M, N) f32 by the path qmm_pallas takes;
+    inkq: the int8 path quantizes inside its launch (TPULAMM_INT8_INKQ=1
+    in the JAX package)."""
     n, _ = qt.mm_dims
     if use_int8(x.shape[0], n, compute_dtype):
-        return qmm_int8_cuda(x, qt)
+        return qmm_int8_inkq_cuda(x, qt) if inkq else qmm_int8_cuda(x, qt)
     return qmm_cuda(x, qt)

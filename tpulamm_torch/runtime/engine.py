@@ -17,6 +17,11 @@
 - decode runs one (B, 1) step per token; generate_fast samples on the
   device (greedy argmax, or top-k + torch.multinomial on a seeded
   torch.Generator) and generate samples on the host with Sampler
+- the opt-in decode kernels (the JAX package's TPULAMM_MEGAKERNEL,
+  TPULAMM_FUSED_FFN and TPULAMM_INT8_INKQ, here Engine options):
+  megakernel=True makes each generate_fast step of a one-slot engine one
+  launch through every layer (ops.mega_decode); fused_ffn and int8_inkq
+  change the kernels the forward runs on CUDA
 - per-phase timings mirror llama_print_timings (llama.h:949)
 
 Entry points run on CUDA unless the caller asks for the CPU; with no
@@ -31,8 +36,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpulamm_torch.models.llama import forward
+from tpulamm_torch.models.llama import embed, forward
 from tpulamm_torch.models.loader import load_model
+from tpulamm_torch.models.transformer import _proj
+from tpulamm_torch.ops.layers import rms_norm
+from tpulamm_torch.ops.mega_decode import (build_mega, mega_decode_layers,
+                                           rope_lane_vectors)
 from tpulamm_torch.ops.qtensor import QTensor
 from tpulamm_torch.runtime import kvcache as kv
 from tpulamm_torch.runtime.kvcache import KVCache
@@ -71,18 +80,28 @@ class Engine:
                  compute_dtype: str | None = None,
                  kv_dtype=torch.bfloat16, kv_dtype_v=None,
                  flash_attn: bool | None = None, grp_attn_n: int = 1,
-                 grp_attn_w: int = 512, device=None):
+                 grp_attn_w: int = 512, megakernel: bool = False,
+                 fused_ffn: bool = False, int8_inkq: bool = False,
+                 device=None):
         """kv_dtype / kv_dtype_v: the K and V storage (-ctk / -ctv), a
         torch float dtype, its name, or "q8_0"; V defaults to K's.
         flash_attn: None picks the flash kernels by span as the JAX
         dispatch does; True / False forces them on / off.
         grp_attn_n / grp_attn_w: self-extend (grouped attention) factor
-        and window; 1 = context shift when the window fills."""
+        and window; 1 = context shift when the window fills.
+        megakernel: generate_fast decodes through the one-launch decode
+        megakernel where the model and cache allow it (self.mega);
+        fused_ffn: decode-size FFNs run the one-launch FFN kernel;
+        int8_inkq: the int8 gemv quantizes its activations inside its
+        launch. fused_ffn and int8_inkq act on CUDA only, as their JAX
+        switches act on the TPU only."""
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         self.cfg, self.params, self.metadata = load_model(
             model_path, compute_dtype=compute_dtype, device=self.device)
         self.cfg.flash_attn = flash_attn
+        self.cfg.fused_ffn = fused_ffn
+        self.cfg.int8_inkq = int8_inkq
         self._fuse_projections()
         self.tokenizer = (build_tokenizer(self.metadata)
                           if "tokenizer.ggml.tokens" in self.metadata else None)
@@ -115,6 +134,7 @@ class Engine:
         self.n_past = np.zeros(n_slots, np.int64)
         self.cell_pos = np.full((n_slots, n_ctx), -1, np.int64)
         self.ga_i = np.zeros(n_slots, np.int64)     # self-extend group index
+        self.mega = self._build_mega() if megakernel else None
         self.timings = Timings()
         self.timings.t_load = time.perf_counter() - t0
 
@@ -158,6 +178,19 @@ class Engine:
                 layer["wgateup_fused"] = QTensor.concat_n(gu)
                 layer.pop("w_gate", None)
                 layer.pop("w_up", None)
+
+    def _build_mega(self):
+        """The decode megakernel's operands when the model and cache
+        qualify (engine.py:196-203 of the JAX package): a bf16 cache, an
+        output head and out_norm, no out_norm bias; else None."""
+        c, p = self.cache, self.params
+        if (c.ks is not None or c.vs is not None
+                or c.k[0].dtype != torch.bfloat16
+                or c.v[0].dtype != torch.bfloat16
+                or p.get("output") is None or p.get("out_norm") is None
+                or p.get("out_norm_b") is not None):
+            return None
+        return build_mega(p, self.cfg)
 
     # -- low-level ubatch execution ------------------------------------------
     def _kv_span(self, need: int) -> int | None:
@@ -253,6 +286,37 @@ class Engine:
                                   cells)
         self.n_past[slot] += 1
         return logits[0]
+
+    def _mega_step(self, slot: int, token: int) -> torch.Tensor:
+        """One decode step of a fresh-slot stream through the megakernel:
+        embed, rope lane vectors, the kernel (every layer; it writes the
+        K/V rows at the token's cell), final norm, lm head, then the cell's
+        position; returns (vocab,) device logits."""
+        cfg, params = self.cfg, self.params
+        pos = int(self.n_past[slot])
+        cell = int(self._cells_for(slot, 1, np.array([pos]))[0])
+        span = self._kv_span(0) or self.cache.pos.shape[1]
+        tok, p = torch.tensor([token, pos]).to(self.device)
+        rows = slice(slot, slot + 1)
+        with torch.no_grad():
+            h = embed(params, cfg, tok.view(1, 1))
+            if cfg.emb_scale != 1.0:
+                h = (h.to(torch.float32) * cfg.emb_scale).to(cfg.cdtype)
+            lanes = rope_lane_vectors(self.mega.rope, cfg.head_dim,
+                                      cfg.n_heads, cfg.n_kv_heads, p.view(1))
+            x_out, _, _ = mega_decode_layers(
+                self.mega, h[:, 0].to(torch.float32), pos, cell,
+                self.cache.pos[rows, :span],
+                [k[rows, :, :span] for k in self.cache.k],
+                [v[rows, :, :span] for v in self.cache.v], *lanes)
+            hh = rms_norm(x_out.to(cfg.cdtype), params["out_norm"],
+                          cfg.norm_eps)
+            if cfg.logit_scale != 1.0:
+                hh = (hh.to(torch.float32) * cfg.logit_scale).to(cfg.cdtype)
+            logits = _proj(hh, params["output"], cfg, params.get("output_b"))
+            self.cache.pos[slot, cell] = pos
+        self.n_past[slot] += 1
+        return logits[0, :cfg.vocab_size].to(torch.float32)
 
     def decode_one(self, slot: int, token: int) -> np.ndarray:
         """One decode step; returns (vocab,) logits."""
@@ -389,11 +453,14 @@ class Engine:
         eos = self._eos()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        # the megakernel serves the one-slot stream (engine.py:1538-1544)
+        step = (self._mega_step if self.mega is not None and self.n_slots == 1
+                else self._decode_device)
         out = [first]
         while len(out) < n_predict and not (stop_on_eos and out[-1] == eos):
             if self.n_ctx - self.n_past[slot] - 1 <= 0:
                 break                  # context full: no shift, as in JAX
-            lg = self._decode_device(slot, out[-1])
+            lg = step(slot, out[-1])
             out.append(self._sample_next(lg, temp, top_k, gen))
         if stop_on_eos and eos in out:
             out = out[:out.index(eos)]
