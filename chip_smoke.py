@@ -26,6 +26,12 @@ Phases (any failure raises, so the exit code is not 0):
      LLaMA-7B and TinyLlama-1.1B width, spans 1024 and 2049 (max error <=
      1e-2 max|ref|, logits cosine >= 0.9999, the new K/V rows written into
      the cache); Q4_0 timed (ms, plain, library, bound)
+  3d. stream_reduce against reduce_ref and a float64 column sum (within
+     1e-5 sum|x| a column) with row tails to skip, block_rows 512 / 1024 /
+     2048, cols 1024 and 256, 8 equal rows, the same bits twice; then the
+     streaming probe's entry point (tools/stream_ceiling.py) on a 2 GiB
+     buffer, and the kernel timed there beside its plain version,
+     torch.sum(x, 0) and the bound: the card's measured streaming ceiling
   4. the slice at full width: a LLaMA-7B-shape Q4_0 GGUF (random blocks
      from a seed) served by Engine(n_ctx=2048) -- generate_fast on a
      512-token prompt for 128 greedy tokens, twice; the launch counts of
@@ -37,6 +43,16 @@ Phases (any failure raises, so the exit code is not 0):
      for the lm head, nothing else; the same tokens), then 8 decode_one
      steps (per step 32 ffn_fused and 65 qmm_int8_inkq, nothing else);
      tok/s and profiles of both kinds of step
+  6. the measurement harness on the phase-4 model (32 layers), each entry
+     point with its launch counts: tpulamm_torch.bench (Q4_0 4096x11008x128
+     GFLOPS, its gate and JSON line), the perf_report matmul table (seven
+     formats, each gated), cli.bench -p 512 -n 128 -r 2, cli.bench
+     --batched -p 128 -n 32 -pl 1 -pl 4 -pl 8 -c 512, decode_roofline at
+     the measured streaming ceiling; inside the --batched run every
+     decode_batch_fast block is checked (exactly qmm_int8 129 x 32,
+     nothing else), and after pl 4's warm-up block its greedy tokens
+     against a host loop of decode_batch and a profile of one block (one
+     device-to-host copy a block, none a step)
   4b. the long-context path at full width and depth: a CodeLlama-7B-shape
      Q4_0 GGUF (32 layers, vocab 32016, rope base 1e6, context 16384)
      served by Engine(n_ctx=16384, kv_dtype="q8_0") -- generate_fast on a
@@ -56,6 +72,11 @@ Phases (any failure raises, so the exit code is not 0):
      steps: on the card against on the CPU (cosine >= 0.9999) and against
      the card's default decode path (cosine >= 0.99: f32 against int8
      activations)
+  5d. batched decode at 2 layers of LLaMA-7B width, 3 slots: decode_batch
+     on the card against the CPU's plain path over 8 teacher-forced steps
+     (cosine >= 0.99 a slot and step), then decode_batch_sampled at temp 0
+     with penalty_repeat 1.3, whose tokens must equal decode_batch + the
+     host Sampler on the card
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -64,18 +85,17 @@ JAX and nothing of the tpulamm package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
-import shutil
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from tpulamm_torch.gguf.constants import GGML_TYPE_SIZES, GGMLType
-from tpulamm_torch.gguf.writer import GGUFWriter
+from tpulamm_torch.gguf.constants import GGMLType
 from tpulamm_torch.models.config import ModelConfig
 from tpulamm_torch.ops import ffn_fused as FF
 from tpulamm_torch.ops import flash_attention as FA
@@ -86,6 +106,10 @@ from tpulamm_torch.ops.layers import rms_norm, silu
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
 from tpulamm_torch.ops.rope import RopeParams
 from tpulamm_torch.runtime.engine import Engine, Timings
+from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
+from tpulamm_torch.tools import stream_ceiling as SC
+from tpulamm_torch.tools.synth import random_blocks, write_llama_gguf
+from tpulamm_torch.tools.timing import nvidia_smi, time_ms
 
 SEED = 1234
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -118,6 +142,9 @@ TOL_QMM, TOL_INT8 = 1e-4, 1e-5
 # (bf16 rounding flips of the residual stream from the f32 sum order) and
 # the logits' cosine >= 0.9999
 TOL_FFN, TOL_MEGA, COS_MEGA = 1e-4, 1e-2, 0.9999
+# stream_reduce against the float64 column sum of the rows it reads:
+# |got - ref| <= 1e-5 * sum |x| per column (f32 sums in a fixed order)
+TOL_STREAM = 1e-5
 
 
 def log(*a):
@@ -136,84 +163,6 @@ def cosine(a: np.ndarray, b: np.ndarray) -> float:
 
 
 # -- inputs ------------------------------------------------------------------
-def random_blocks(qtype: GGMLType, n: int, k: int, rng,
-                  scale: float = 0.02 / 8) -> np.ndarray:
-    """GGUF rows (n, row_bytes) of random codes with fp16 scales near
-    `scale` (and mins near -8 * scale where the format has them)."""
-    bs, tb = GGML_TYPE_SIZES[qtype]
-    nb = k // bs
-    raw = np.frombuffer(rng.bytes(n * nb * tb), np.uint8).reshape(n, nb, tb).copy()
-
-    def f16(v):
-        return np.asarray(v, np.float16).view(np.uint8).reshape(n, nb, 2)
-    d = scale * rng.uniform(0.5, 1.5, size=(n, nb))
-    if qtype == GGMLType.Q2_K:
-        raw[..., 80:82] = f16(d / 4)                       # d
-        raw[..., 82:84] = f16(d / 4)                       # dmin
-    else:
-        raw[..., 0:2] = f16(d)
-        if qtype in (GGMLType.Q4_1, GGMLType.Q5_1):
-            raw[..., 2:4] = f16(-8 * d)                    # m
-    return raw.reshape(n, nb * tb)
-
-
-def spm_vocab(n_vocab: int) -> dict:
-    """Byte-fallback SPM vocab: specials + 256 byte tokens + fillers."""
-    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
-    ttypes = [2, 3, 3] + [6] * 256
-    while len(tokens) < n_vocab:
-        tokens.append(f"<extra_{len(tokens)}>")
-        ttypes.append(1)
-    return {"tokens": tokens, "token_type": ttypes,
-            "scores": [0.0] * 3 + [0.0] * 256 + [-1000.0] * (n_vocab - 259)}
-
-
-def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
-                     n_head: int, vocab: int, n_ctx_train: int = 2048,
-                     freq_base: float = 10000.0) -> None:
-    """A LLaMA-shape Q4_0 GGUF with random blocks (norm weights 1)."""
-    w = GGUFWriter(path)
-    md = {"general.architecture": "llama", "general.name": "smoke",
-          "llama.context_length": n_ctx_train,
-          "llama.rope.freq_base": float(freq_base),
-          "llama.embedding_length": dim,
-          "llama.block_count": n_layers, "llama.feed_forward_length": ffn,
-          "llama.attention.head_count": n_head,
-          "llama.attention.head_count_kv": n_head,
-          "llama.rope.dimension_count": dim // n_head,
-          "llama.attention.layer_norm_rms_epsilon": 1e-5,
-          "llama.vocab_size": vocab}
-    for key, val in md.items():
-        w.add_kv(key, val)
-    voc = spm_vocab(vocab)
-    w.add_kv("tokenizer.ggml.model", "llama")
-    w.add_kv("tokenizer.ggml.tokens", voc["tokens"])
-    w.add_kv("tokenizer.ggml.scores", np.asarray(voc["scores"], np.float32))
-    w.add_kv("tokenizer.ggml.token_type",
-             np.asarray(voc["token_type"], np.int32))
-    w.add_kv("tokenizer.ggml.bos_token_id", 1)
-    w.add_kv("tokenizer.ggml.eos_token_id", 2)
-
-    def q4(name, n, k):
-        w.add_tensor(name, random_blocks(GGMLType.Q4_0, n, k, rng),
-                     shape=(n, k), ggml_type=GGMLType.Q4_0)
-
-    ones = np.ones(dim, np.float32)
-    q4("token_embd.weight", vocab, dim)
-    w.add_tensor("output_norm.weight", ones)
-    q4("output.weight", vocab, dim)
-    for i in range(n_layers):
-        p = f"blk.{i}."
-        w.add_tensor(p + "attn_norm.weight", ones)
-        w.add_tensor(p + "ffn_norm.weight", ones)
-        for t in ("attn_q", "attn_k", "attn_v", "attn_output"):
-            q4(p + t + ".weight", dim, dim)
-        q4(p + "ffn_gate.weight", ffn, dim)
-        q4(p + "ffn_up.weight", ffn, dim)
-        q4(p + "ffn_down.weight", dim, ffn)
-    w.write()
-
-
 def flash_case(rng, device, *, B=2, Hkv=2, T=8, G=4, S=161, hd=64,
                kind="bf16", shift=False, empty_row=False, sharp=False):
     """Inputs of one flash-attention call (as tests/test_flash_attention.py
@@ -330,41 +279,6 @@ def flash_err(got: torch.Tensor, refs, qlen) -> tuple[float, float, float]:
 
 
 # -- timing ------------------------------------------------------------------
-_flush_buf: dict = {}
-SPIN_CYCLES = 2_000_000            # ~1 ms of the card's clock
-
-
-def time_ms(fn, device, reps: int = 20) -> float:
-    """Median ms of `reps` calls, each timed by CUDA events with the L2
-    flushed before it (a decode step finds every weight cold). A spin
-    kernel ahead of the flush keeps the card busy while the host enqueues
-    the call, so a wrapper's host time does not count as device time."""
-    if device.type != "cuda":                    # CPU rehearsal only
-        t = []
-        for _ in range(max(2, reps // 10)):
-            t0 = time.perf_counter()
-            fn()
-            t.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(t))
-    buf = _flush_buf.get(device)
-    if buf is None:
-        buf = _flush_buf[device] = torch.empty(64 << 20, dtype=torch.float32,
-                                               device=device)   # 256 MB
-    fn()                                                     # warm-up
-    ev = []
-    for _ in range(reps):
-        torch.cuda._sleep(SPIN_CYCLES)
-        buf.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-            enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        ev.append((a, b))
-    torch.cuda.synchronize(device)
-    return float(np.median([a.elapsed_time(b) for a, b in ev]))
-
-
 def bound_parts(qt: QTensor, m: int, peak_ops: float) -> tuple[float, float]:
     """(ms to move the bytes, ms to do the operations) of x (m, K) f32 @ W
     -> (m, N) f32: each input read once and the output written once at the
@@ -398,12 +312,7 @@ def case_line(case, name, rel, t_k, t_p, t_l, t_b, t_o, err="rel",
 
 # -- phases ------------------------------------------------------------------
 def phase_device() -> tuple[str, str]:
-    smi = "not available"
-    if shutil.which("nvidia-smi"):
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     log(f"[device] nvidia-smi: {smi}")
     log(f"[device] torch: {kind}, torch {torch.__version__}, "
@@ -806,6 +715,88 @@ def phase_decode_kernels(device, rng, formats=FORMATS, shapes=SHAPES_7B,
     return stats
 
 
+# phase-3d cases (total_rows, cols): row tails at every block size (the
+# kernel skips them), cols 1024 and 256, a buffer of many tiles, and one
+# shorter than a tile (the output is b alone)
+STREAM_CASES = [(3 * 2048 + 777, 1024), (3 * 2048 + 777, 256),
+                (41 * 2048 + 1000, 1024), (300, 256)]
+
+
+def stream_err(got: torch.Tensor, x: torch.Tensor, b: float, br: int
+               ) -> float:
+    """max |got - ref| for ref the float64 column sum of the rows a
+    block_rows = br reduce reads, plus b; raises past TOL_STREAM sum|x| a
+    column or where the 8 rows differ."""
+    n = x.shape[0] // br * br
+    xs = x[:n].to(torch.float64)
+    err = (got.to(torch.float64) - (xs.sum(0) + b)).abs()
+    if not bool((err <= TOL_STREAM * xs.abs().sum(0)).all()):
+        raise AssertionError(f"stream_reduce off by {float(err.max())} "
+                             f"(block_rows {br}, {tuple(x.shape)})")
+    if not bool((got == got[:1]).all()):
+        raise AssertionError("stream_reduce: the 8 output rows differ")
+    return float(err.max())
+
+
+def phase_stream(device, rng, cases=STREAM_CASES, gb: float = 2.0,
+                 reps: int = 20) -> dict:
+    """stream_reduce against reduce_ref and a float64 column sum at
+    STREAM_CASES and each block size, bit-identical over two runs; then the
+    probe's entry point on a `gb` GiB buffer (its launches are the main
+    path's), and the kernel timed beside its plain version, torch.sum and
+    the bound on a buffer of the same size."""
+    stats = {"max_abs_err": 0.0}
+    for rows, cols in cases:
+        x = torch.from_numpy(rng.standard_normal((rows, cols), dtype=np.float32)
+                             ).to(device)
+        b = torch.full((1, 1), 0.375, device=device)
+        errs = []
+        for br in SC.BLOCK_ROWS:
+            run = SC.make_reduce(rows, cols, br)
+            got = run(b, x)
+            if not torch.equal(got, run(b, x)):
+                raise AssertionError("stream_reduce: two runs differ")
+            err = stream_err(got, x, 0.375, br)
+            rel, _ = rel_err(got, SC.reduce_ref(x, b, br))
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            errs.append(f"block_rows {br}: {err:.3e} (vs reduce_ref {rel:.2e} "
+                        "of max)")
+        log(f"[stream] {rows}x{cols}, tail skipped, 8 equal rows, same bits "
+            f"twice; max abs err vs f64: {'; '.join(errs)}")
+    SC.reset_launches()
+    SC.main([str(gb), "--device", str(device)])
+    launches = SC.LAUNCHES["stream_reduce"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    total_rows = int(gb * 2**30 / (SC.COLS * 4)) // 2048 * 2048
+    x = torch.randn((total_rows, SC.COLS), generator=gen, device=device)
+    rows = SC.probe(x)
+    best = max(rows, key=lambda r: r["gbs"])
+    br = best["block_rows"]
+    b = torch.zeros((1, 1), device=device)
+    got = SC.make_reduce(total_rows, SC.COLS, br)(b, x)
+    stats["max_abs_err"] = max(stats["max_abs_err"],
+                               stream_err(got, x, 0.0, br))
+    t_p = time_ms(lambda: SC.reduce_ref(x, b, br), device, reps, flush=False)
+    t_l = time_ms(lambda: torch.sum(x, 0), device, reps, flush=False)
+    nbytes = SC.read_bytes(total_rows, SC.COLS, br) + 8 * SC.COLS * 4 + 4
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = SC.read_bytes(total_rows, SC.COLS, br) / 4 / PEAK_F32_OPS * 1e3
+    stats.update(ms=best["ms"], plain_ms=t_p, library_ms=t_l,
+                 bound_ms=max(t_b, t_o), bytes_ms=t_b, ops_ms=t_o,
+                 launches=launches, ceiling_gbs=best["gbs"])
+    log(case_line(f"{total_rows}x{SC.COLS} f32 block_rows={br}",
+                  "stream_reduce", stats["max_abs_err"], best["ms"], t_p, t_l,
+                  t_b, t_o, err="abs err", library="torch.sum(x, 0)"))
+    log(f"[stream] measured streaming ceiling: {best['gbs']:.1f} GB/s "
+        f"({best['pct']:.1f}% of 3.35 TB/s) at block_rows {br}; "
+        f"{launches} launches in the probe run")
+    del x, got
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return stats
+
+
 def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
                  prompt_len: int = PROMPT, n_predict: int = N_PREDICT,
                  decode_steps: int = 8) -> dict:
@@ -825,16 +816,10 @@ def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
                                  stop_on_eos=False)
     eng.timings = Timings()
 
-    def reset():
-        for mod in (Q, FA, FF, MD):
-            mod.reset_launches()
-
-    def counts():
-        return {**Q.LAUNCHES, **FA.LAUNCHES, **FF.LAUNCHES, **MD.LAUNCHES}
-    reset()
+    reset_port_launches()
     ids_b, _ = eng.generate_fast(prompt, n_predict=n_predict,
                                  stop_on_eos=False)
-    mega_launches = counts()
+    mega_launches = port_launches()
     tm = eng.timings
     steps = len(ids_b) - 1
     out = {"mega_decode_tok_s": steps / tm.t_eval,
@@ -857,7 +842,7 @@ def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
     # decode_one: the forward with the fused FFN and the inkq gemv; one
     # step first, uncounted, loads the kernels' modules
     tok = int(np.argmax(eng.decode_one(0, ids_b[-1])))
-    reset()
+    reset_port_launches()
     t0 = time.perf_counter()
     for _ in range(decode_steps):
         lg = eng.decode_one(0, tok)
@@ -865,7 +850,7 @@ def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
             raise AssertionError("decode_one logits not finite")
         tok = int(np.argmax(lg))
     t_one = time.perf_counter() - t0
-    fused_launches = counts()
+    fused_launches = port_launches()
     out.update(fused_decode_tok_s=decode_steps / t_one,
                fused_launches=fused_launches)
     want = {**{k: 0 for k in fused_launches},
@@ -1202,6 +1187,240 @@ def phase_numerics(device, rng, shape=LLAMA_7B, prompt_len: int = 64,
     return {"cos_prefill": cos_prefill, "cos_decode_min": min(cos_dec)}
 
 
+# -- slice 4: the measurement harness and the batched decode path -------------
+def run_tool(label: str, main, argv: list[str]) -> str:
+    """Run a tool's entry point (its main(argv)), log what it printed and
+    raise unless it returned 0; returns its standard output."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"[{label}] {line}")
+    log(f"[{label}] ran in {time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"{label} {' '.join(argv)} returned {rc}")
+    return text
+
+
+def port_launches() -> dict:
+    return {**Q.LAUNCHES, **FA.LAUNCHES, **FF.LAUNCHES, **MD.LAUNCHES,
+            **SC.LAUNCHES}
+
+
+def reset_port_launches() -> None:
+    for mod in (Q, FA, FF, MD, SC):
+        mod.reset_launches()
+
+
+def expect_launches(what: str, want: dict) -> dict:
+    """Raise unless the port's launch counts are exactly `want` (every
+    other kernel 0); returns them."""
+    got = port_launches()
+    full = {**{k: 0 for k in got}, **want}
+    if got != full:
+        raise AssertionError(f"{what}: launch counts {got} != {full}")
+    return got
+
+
+def count_dtoh(prof) -> int:
+    """Device-to-host copies in a torch.profiler run."""
+    return sum(e.count for e in prof.key_averages() if "DtoH" in e.key)
+
+
+def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
+                  pls=(1, 4, 8), n_pp: int = 128, n_tg: int = 32,
+                  n_ctx: int = 512, pp: int = 512, tg: int = 128,
+                  reps: int = 2, roofline_predict: int = 64,
+                  bench_shape=None, mm_shape=None) -> dict:
+    """Slice 4 at full width on the phase-4 model: the tools' entry points
+    (tpulamm_torch.bench, the perf_report matmul table, cli.bench pp/tg and
+    --batched, decode_roofline at the measured streaming ceiling), each
+    with its launch counts. Inside the --batched run every
+    decode_batch_fast block is checked: exactly qmm_int8, 4 n_layers + 1 a
+    step; at pl 4 the block's greedy tokens against a host loop of
+    decode_batch, and a profile of one block (no device-to-host copy a
+    step)."""
+    from tpulamm_torch import bench
+    from tpulamm_torch.cli import bench as cli_bench
+    from tpulamm_torch.tools import decode_roofline, perf_report
+    out = {}
+    dev = str(device)
+    per_pass = 4 * n_layers + 1
+    reset_port_launches()
+    if bench_shape is None:
+        line = run_tool("bench", bench.main, ["--device", dev])
+        expect_launches("bench", {"qmm": 11 + 2})
+        out["bench"] = json.loads(line.strip().splitlines()[-1])
+    else:                                  # a CPU rehearsal at a small shape
+        out["bench"] = bench.run(shape=bench_shape, device=device)
+    reset_port_launches()
+    if mm_shape is None:
+        out["matmul_table"] = run_tool("perf_report", perf_report.main,
+                                       ["--device", dev])
+        expect_launches("perf_report", {"qmm": 6 * (20 + 2)})
+    else:
+        out["matmul"] = {q: perf_report.bench_matmul(q, shape=mm_shape,
+                                                     device=device)
+                         for q in perf_report.FORMATS}
+    reset_port_launches()
+    out["cli_bench"] = run_tool("cli.bench", cli_bench.main, [
+        "-m", path, "-p", str(pp), "-n", str(tg), "-r", str(reps),
+        "-o", "json", "--device", dev])
+    # each rep (and the warm-up one): a prefill ubatch (qmm); then for tg a
+    # 1-token prefill and 1 step of warm-up, a 1-token prefill, and
+    # generate_fast's 1-token prefill and tg - 1 steps (qmm_int8)
+    expect_launches("cli.bench pp/tg", {
+        "qmm": per_pass * (reps + 1),
+        "qmm_int8": per_pass * (reps + 1) * (tg + 3)})
+    out["blocks"] = blocks = {}
+    orig = Engine.decode_batch_fast
+
+    def checked(eng, toks, n_steps, **kw):
+        """decode_batch_fast as cli.bench --batched calls it (a warm-up
+        block, then the timed one, for each pl), with its launches counted
+        a block; after the warm-up block at pl 4, the host-loop comparison
+        and the profile, each followed by the engine state the block left."""
+        pl = len(toks)
+        reset_port_launches()
+        t0 = time.perf_counter()
+        res = orig(eng, toks, n_steps, **kw)
+        dt = time.perf_counter() - t0
+        expect_launches(f"decode_batch_fast pl={pl}",
+                        {"qmm_int8": per_pass * n_steps})
+        if not all(0 <= t < eng.cfg.vocab_size for v in res.values()
+                   for t in v):
+            raise AssertionError("decode_batch_fast tokens out of range")
+        rows = eng._b_rows(toks) or eng.n_slots
+        log(f"[harness] decode_batch_fast pl={pl} ({rows} rows): {n_steps} "
+            f"steps in {dt:.3f} s, {pl * n_steps / dt:.1f} tok/s aggregate; "
+            f"launches qmm_int8 {per_pass} x {n_steps}, nothing else")
+        if pl in blocks:                                   # the timed block
+            return res
+        blocks[pl] = {"rows": rows, "warm_tok_s": pl * n_steps / dt}
+        if pl == 4:
+            start = {s: int(eng.n_past[s]) - n_steps for s in toks}
+            for s in toks:
+                eng.rollback(s, start[s])
+            host, c = {s: [] for s in toks}, dict(toks)
+            for _ in range(n_steps):
+                lg = eng.decode_batch(c)
+                c = {s: int(np.argmax(lg[s])) for s in c}
+                for s in c:
+                    host[s].append(c[s])
+            if host != res:
+                raise AssertionError("decode_batch_fast greedy tokens differ "
+                                     "from the decode_batch host loop")
+            log(f"[harness] pl=4: decode_batch_fast tokens == {n_steps} steps "
+                "of the decode_batch host loop")
+            if device.type == "cuda":
+                from torch.profiler import ProfilerActivity, profile
+                for s in toks:
+                    eng.rollback(s, start[s])
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    orig(eng, toks, n_steps, **kw)
+                    wall = time.perf_counter() - t0
+                dtoh = count_dtoh(prof)
+                busy = sum(e.self_device_time_total
+                           for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+                log(f"[profile] decode_batch_fast pl=4 block of {n_steps} "
+                    f"steps: {wall * 1e3:.1f} ms wall, device busy "
+                    f"{busy / 1e3:.1f} ms ({busy / 1e3 / (wall * 1e3):.1%}), "
+                    f"{dtoh} device-to-host copies")
+                if not 1 <= dtoh < n_steps:
+                    raise AssertionError(f"{dtoh} device-to-host copies in a "
+                                         f"block of {n_steps} steps")
+                out.update(block_wall_ms=wall * 1e3, block_busy_ms=busy / 1e3,
+                           block_dtoh=dtoh)
+        return res
+
+    Engine.decode_batch_fast = checked
+    try:
+        out["cli_batched"] = run_tool("cli.bench --batched", cli_bench.main, [
+            "-m", path, "--batched", "-p", str(n_pp), "-n", str(n_tg),
+            *[a for pl in pls for a in ("-pl", str(pl))], "-c", str(n_ctx),
+            "-o", "json", "--device", dev])
+    finally:
+        Engine.decode_batch_fast = orig
+    if sorted(blocks) != sorted(pls):
+        raise AssertionError(f"decode_batch_fast ran for pl {sorted(blocks)}")
+    reset_port_launches()
+    out["roofline"] = run_tool("decode_roofline", decode_roofline.main, [
+        "-m", path, "--span", "512", "--n-predict", str(roofline_predict),
+        "--bw-gbs", f"{ceiling_gbs:.1f}", "--device", dev])
+    if {k for k, v in port_launches().items() if v} != {"qmm_int8"}:
+        raise AssertionError(f"decode_roofline launches {port_launches()}")
+    return out
+
+
+def phase_batch_numerics(device, rng, shape=LLAMA_7B, n_slots: int = 3,
+                         prompt_len: int = 32, steps: int = 8) -> dict:
+    """2 layers at full width, 3 slots: decode_batch on the card against
+    the CPU's plain path over teacher-forced steps (cosine >= 0.99 a slot),
+    then decode_batch_sampled at temp 0 with penalty_repeat 1.3 on the card
+    against decode_batch + the host Sampler on the card (equal tokens)."""
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, "llama7b_shape_q4_0_2l_batch.gguf")
+    write_llama_gguf(path, 2, rng, **shape)
+    gpu = Engine(path, n_ctx=512, n_slots=n_slots, device=device)
+    cpu = Engine(path, n_ctx=512, n_slots=n_slots, device="cpu")
+    cur, prompts = {}, {}
+    for s in range(n_slots):
+        prompts[s] = rng.integers(3, shape["vocab"],
+                                  size=prompt_len + 5 * s).tolist()
+        gpu.prefill(s, prompts[s])
+        cur[s] = int(np.argmax(cpu.prefill(s, prompts[s])))
+    cos = []
+    for _ in range(steps):
+        a, b = gpu.decode_batch(cur), cpu.decode_batch(cur)
+        for s in cur:
+            if not (np.isfinite(a[s]).all() and a[s].shape == (shape["vocab"],)):
+                raise AssertionError("decode_batch logits not finite / misshapen")
+            cos.append(cosine(a[s], b[s]))
+        cur = {s: int(np.argmax(b[s])) for s in cur}
+    log(f"[batch-numerics] 2 layers, {n_slots} slots, {steps} teacher-forced "
+        f"decode_batch steps: min cosine card vs CPU {min(cos)!r} (>= 0.99)")
+    if not min(cos) >= 0.99:
+        raise AssertionError(f"decode_batch cosine {min(cos)} < 0.99")
+
+    params = SamplingParams(temp=0.0, penalty_repeat=1.3)
+
+    def samplers():
+        out = {}
+        for s in cur:
+            smp = Sampler(params, shape["vocab"], eos_id=2, nl_id=13)
+            for t in prompts[s] + [cur[s]]:
+                smp.accept(t, apply_grammar=False)
+            out[s] = smp
+        return out
+    start = {s: int(gpu.n_past[s]) for s in cur}
+    host, c, smp = {s: [] for s in cur}, dict(cur), samplers()
+    for _ in range(steps):
+        lg = gpu.decode_batch(c)
+        for s in c:
+            c[s] = smp[s].sample(lg[s])
+            smp[s].accept(c[s])
+            host[s].append(c[s])
+    for s in cur:
+        gpu.rollback(s, start[s])
+    got = gpu.decode_batch_sampled(cur, steps, samplers())
+    log(f"[batch-numerics] decode_batch_sampled (temp 0, penalty_repeat 1.3) "
+        f"{steps} steps: {'equal to' if got == host else 'DIFFERENT from'} "
+        "decode_batch + host Sampler")
+    if got != host:
+        raise AssertionError(f"decode_batch_sampled {got} != host {host}")
+    del gpu, cpu
+    os.remove(path)
+    return {"cos_min": min(cos)}
+
+
 def kernels_line(stats: dict, launches: dict) -> str:
     meta = {
         "qmm": ("tpulamm_torch/csrc/qmm.cu", "tpulamm/ops/pallas_qmm.py:576"),
@@ -1217,6 +1436,8 @@ def kernels_line(stats: dict, launches: dict) -> str:
                       "tpulamm/ops/pallas_ffn.py:188"),
         "mega_decode": ("tpulamm_torch/csrc/mega_decode.cu",
                         "tpulamm/ops/pallas_decode.py:345"),
+        "stream_reduce": ("tpulamm_torch/csrc/stream_reduce.cu",
+                          "tpulamm/tools/stream_ceiling.py:28"),
     }
     out = []
     for name, (src, rep) in meta.items():
@@ -1254,13 +1475,19 @@ def main() -> int:
     done("flash")
     stats.update(phase_decode_kernels(device, rng))
     done("decode kernels")
+    st = phase_stream(device, rng)
+    stats["stream_reduce"] = st
+    done("stream")
     sl = phase_slice(device, rng, keep=True)
     done("slice")
     try:
         oi = phase_opt_in(device, rng, sl["path"], sl["layers"])
+        done("opt-in")
+        phase_harness(device, rng, sl["path"], sl["layers"],
+                      st["ceiling_gbs"])
+        done("harness")
     finally:
         os.remove(sl["path"])
-    done("opt-in")
     lc = phase_long(device, rng)
     done("long")
     phase_numerics(device, rng)
@@ -1269,6 +1496,8 @@ def main() -> int:
     done("shift")
     phase_mega_numerics(device, rng)
     done("mega numerics")
+    phase_batch_numerics(device, rng)
+    done("batch numerics")
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "
         "qmm / qmm_int8 from the slice-1 run (phase 4); flash times at B=1 "
@@ -1277,7 +1506,9 @@ def main() -> int:
         "the 7B FFN, M=1, Q4_0, launches from the decode_one steps of phase "
         "4c; mega_decode at 2 layers of LLaMA-7B width, span 1024, "
         "qmm_int8_inkq and mega_decode launches from the megakernel "
-        "generate_fast run of phase 4c")
+        "generate_fast run of phase 4c; stream_reduce on the 2 GiB buffer "
+        "at its fastest block_rows, launches from the probe's entry point "
+        "(phase 3d)")
     log(f"[device] {smi}")
     launches = {"qmm": sl["launches"]["qmm"],
                 "qmm_int8": sl["launches"]["qmm_int8"],
@@ -1285,7 +1516,8 @@ def main() -> int:
                 "flash_attention": lc["launches"]["flash_attention"],
                 "flash_decode": lc["launches"]["flash_decode"],
                 "ffn_fused": oi["fused_launches"]["ffn_fused"],
-                "mega_decode": oi["mega_launches"]["mega_decode"]}
+                "mega_decode": oi["mega_launches"]["mega_decode"],
+                "stream_reduce": st["launches"]}
     log(kernels_line(stats, launches))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -238,3 +238,83 @@ def test_decode_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="one CUDA device"):
         MD.mega_decode_layers(c["mega"], c["x"], 8, 8, c["kpos"],
                               [k.cpu() for k in c["k"]], c["v"], *c["lanes"])
+
+
+# -- the streaming probe (csrc/stream_reduce.cu) -------------------------------
+# Tolerance as in chip_smoke.py phase 3d: within 1e-5 sum|x| a column of the
+# float64 sum of the rows the kernel reads (whole tiles; the tail skipped).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(3 * 2048 + 777, 1024), (1500, 256),
+                                       (300, 8), (5000, 1028)])
+@pytest.mark.parametrize("block_rows", [512, 1024, 2048])
+def test_stream_reduce_matches_plain(dev, rows, cols, block_rows):
+    from chip_smoke import stream_err
+    from tpulamm_torch.tools import stream_ceiling as SC
+    rng = np.random.default_rng(rows + cols)
+    x = torch.from_numpy(rng.normal(size=(rows, cols)).astype(np.float32)
+                         ).to(dev)
+    b = torch.full((1, 1), -1.25, device=dev)
+    run = SC.make_reduce(rows, cols, block_rows)
+    SC.reset_launches()
+    got = run(b, x)
+    stream_err(got, x, -1.25, block_rows)
+    assert torch.equal(got, run(b, x))                   # fixed order
+    ref = SC.reduce_ref(x, b, block_rows)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(x.abs().sum(0).max())
+    torch.cuda.synchronize()
+    assert SC.LAUNCHES == {"stream_reduce": 2}
+
+
+@pytest.mark.cuda
+def test_stream_reduce_refuses(dev):
+    from tpulamm_torch.tools import stream_ceiling as SC
+    with pytest.raises(ValueError, match="multiple of 4"):
+        SC.make_reduce(64, 6, 512)
+    x = torch.zeros((64, 16), device=dev)
+    run = SC.make_reduce(64, 8, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        run(torch.zeros((1, 1), device=dev), x[:, 4:12])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        run(torch.zeros((1, 1)), x[:, :8].contiguous())
+
+
+# -- the batched decode block on the card --------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_gguf(tmp_path_factory):
+    from tpulamm_torch.tools.synth import write_llama_gguf
+    path = str(tmp_path_factory.mktemp("m") / "tiny.gguf")
+    # widths where every projection has an N the int8 gemv takes
+    write_llama_gguf(path, 2, np.random.default_rng(7), dim=1024, ffn=1024,
+                     n_head=8, vocab=1024)
+    return path
+
+
+@pytest.mark.cuda
+def test_decode_batch_fast_on_card(dev, tiny_gguf):
+    """Greedy block tokens == the decode_batch host loop on the card; the
+    block launches only the int8 gemv (per_pass a step); a seeded sampled
+    block repeats itself."""
+    from tpulamm_torch.runtime.engine import Engine
+
+    def engine():
+        eng = Engine(tiny_gguf, n_ctx=64, n_slots=4, device=dev)
+        eng.prefill(0, [1, 9, 33])
+        eng.prefill(1, [4, 7])
+        return eng
+    eng = engine()
+    cur, host = {0: 11, 1: 25}, {0: [], 1: []}
+    for _ in range(6):
+        lg = eng.decode_batch(cur)
+        cur = {s: int(np.argmax(v)) for s, v in lg.items()}
+        for s in cur:
+            host[s].append(cur[s])
+    eng = engine()
+    Q.reset_launches()
+    assert eng.decode_batch_fast({0: 11, 1: 25}, 6) == host
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES == {"qmm": 0, "qmm_int8": 9 * 6, "qmm_int8_inkq": 0}
+    a = engine().decode_batch_fast({0: 11, 1: 25}, 6, temp=0.9, seed=4)
+    assert a == engine().decode_batch_fast({0: 11, 1: 25}, 6, temp=0.9,
+                                           seed=4)

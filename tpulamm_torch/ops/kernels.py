@@ -63,6 +63,9 @@ LIBS: dict[str, tuple[str, dict[str, list]]] = {
         "tl_mega_blocks": [_IP],
         "tl_mega_decode": [_P, _I, _P],                 # &MegaArgs, blocks
     }),
+    "stream_reduce": ("stream_reduce.cu", {
+        "tl_stream_reduce": [_P, _P, _P, _P, _L, _I, _I, _P],
+    }),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,6 +17,10 @@
 - decode runs one (B, 1) step per token; generate_fast samples on the
   device (greedy argmax, or top-k + torch.multinomial on a seeded
   torch.Generator) and generate samples on the host with Sampler
+- the serving path: decode_batch, decode_batch_fast and
+  decode_batch_sampled run over the first _b_rows slots (active-slot
+  compaction); the two block methods keep n_steps of sampled tokens on the
+  device (the JAX package's lax.scan blocks) and copy them back once
 - the opt-in decode kernels (the JAX package's TPULAMM_MEGAKERNEL,
   TPULAMM_FUSED_FFN and TPULAMM_INT8_INKQ, here Engine options):
   megakernel=True makes each generate_fast step of a one-slot engine one
@@ -39,6 +43,7 @@ import torch
 from tpulamm_torch.models.llama import embed, forward
 from tpulamm_torch.models.loader import load_model
 from tpulamm_torch.models.transformer import _proj
+from tpulamm_torch.ops import device_sampling as ds
 from tpulamm_torch.ops.layers import rms_norm
 from tpulamm_torch.ops.mega_decode import (build_mega, mega_decode_layers,
                                            rope_lane_vectors)
@@ -205,6 +210,30 @@ class Engine:
         span = 1 << (s - 1).bit_length()
         return None if span >= self.n_ctx else int(span)
 
+    def _b_rows(self, ids) -> int | None:
+        """Active-slot compaction bucket (the batch-dimension analogue of
+        _kv_span): a batched step runs over only the first power-of-two
+        many rows that cover every active slot id, so idle slots' KV is
+        not streamed every step. None = the full batch. The slots=None
+        forward reads and writes the FIRST B cache rows, so no renumbering
+        is needed while slots are assigned lowest-free first. The
+        megakernel engine keeps the full batch, as the JAX one does."""
+        if self.mega is not None:
+            return None
+        hi = max(ids) + 1
+        b = 1 << (hi - 1).bit_length() if hi > 1 else 1
+        return None if b >= self.n_slots else b
+
+    @staticmethod
+    def _assert_b_cover(ids, b: int):
+        """The compacted step reads and writes only the first b cache rows,
+        so every active slot id must fit the bucket; a bucket that does not
+        fails here rather than giving silently wrong rows."""
+        bad = [int(i) for i in ids if not 0 <= int(i) < b]
+        if bad:
+            raise AssertionError(
+                f"active slot ids {bad} outside compaction bucket {b}")
+
     @staticmethod
     def _bucket_for(t: int) -> int:
         """Smallest prefill bucket >= t (the JAX engine's padded length;
@@ -328,10 +357,12 @@ class Engine:
         return logits
 
     def decode_batch(self, toks: dict[int, int]) -> dict[int, np.ndarray]:
-        """One decode step for several slots at once; idle slots run
-        masked (position -1, trash cell)."""
+        """One decode step for several slots at once over the first
+        _b_rows slots; idle slots among them run masked (position -1,
+        trash cell)."""
         t0 = time.perf_counter()
-        b = self.n_slots
+        b = self._b_rows(toks) or self.n_slots
+        self._assert_b_cover(toks, b)
         tok = np.zeros((b, 1), np.int32)
         pos = np.full((b, 1), -1, np.int32)
         cel = np.full((b, 1), self.n_ctx, np.int32)
@@ -346,6 +377,147 @@ class Engine:
         self.timings.t_eval += time.perf_counter() - t0
         self.timings.n_eval += len(toks)
         return {slot: out[slot] for slot in toks}
+
+    # -- multi-token decode blocks (the serving path) -------------------------
+    def _block_inputs(self, toks: dict[int, int], n_steps: int, name: str):
+        """The guards of a decode block (contiguous cells, room for
+        n_steps + 1 more), then (B, tok, pos, act) host arrays over the
+        _b_rows bucket."""
+        for s in toks:
+            n = int(self.n_past[s])
+            if not np.array_equal(self.cell_pos[s, :n], np.arange(n)):
+                raise ValueError(f"slot {s}: cells not contiguous; "
+                                 "use decode_batch")
+            if n + n_steps + 1 > self.n_ctx:
+                raise ValueError(f"{name} would overflow n_ctx")
+        b = self._b_rows(toks) or self.n_slots
+        self._assert_b_cover(toks, b)
+        tok = np.zeros(b, np.int64)
+        pos = np.zeros(b, np.int64)
+        act = np.zeros(b, bool)
+        for s, t in toks.items():
+            tok[s] = t
+            pos[s] = self.n_past[s]
+            act[s] = True
+        return b, tok, pos, act
+
+    def _decode_block(self, tok: np.ndarray, pos: np.ndarray, act: np.ndarray,
+                      n_steps: int, sample) -> np.ndarray:
+        """n_steps (B, 1) forward steps with the tokens kept on the device.
+        Positions and cells (cell = position; inactive rows position -1
+        and the trash cell) are known in advance and go to the device in
+        one copy with the tokens; the (n_steps, B) tokens come back in one
+        copy at the end. The attention span is _kv_span(n_steps), fixed for
+        the block as in the JAX scan. sample(lg (B, V) f32, cur (B,),
+        active (B,)) -> next tokens (B,); inactive rows keep their token."""
+        steps = np.arange(n_steps)[:, None]
+        host = np.concatenate([np.where(act, pos + steps, -1),
+                               np.where(act, pos + steps, self.n_ctx),
+                               tok[None], act[None]]).astype(np.int64)
+        dev = torch.from_numpy(host).to(self.device)
+        p, c = dev[:n_steps], dev[n_steps:2 * n_steps]
+        cur, active = dev[-2], dev[-1].to(torch.bool)
+        span = self._kv_span(n_steps)
+        out = torch.empty((n_steps, len(tok)), dtype=torch.int64,
+                          device=self.device)
+        with torch.no_grad():
+            for i in range(n_steps):
+                logits, self.cache = forward(
+                    self.params, self.cfg, cur[:, None], p[i][:, None],
+                    self.cache, None, c[i][:, None], kv_span=span, t_bucket=1)
+                cur = torch.where(active, sample(logits[:, 0], cur, active),
+                                  cur)
+                out[i] = cur
+        return out.cpu().numpy()
+
+    def _finish_block(self, toks: dict[int, int], n_steps: int,
+                      out: np.ndarray, t0: float) -> dict[int, list[int]]:
+        """Advance the host mirrors past a block; {slot: its tokens}."""
+        res = {}
+        for s in toks:
+            start = int(self.n_past[s])
+            self.n_past[s] = start + n_steps
+            self.cell_pos[s, start:start + n_steps] = np.arange(
+                start, start + n_steps)
+            res[s] = [int(t) for t in out[:, s]]
+        self.timings.t_eval += time.perf_counter() - t0
+        self.timings.n_eval += n_steps * len(toks)
+        return res
+
+    def decode_batch_fast(self, toks: dict[int, int], n_steps: int, *,
+                          temp: dict[int, float] | float = 0.0,
+                          top_k: int = 40, seed: int = 0
+                          ) -> dict[int, list[int]]:
+        """Decode n_steps tokens for several slots in one device-resident
+        block (JAX: one lax.scan dispatch).
+
+        Requires contiguous cells per slot (true after reset + prefill, not
+        after a context shift) and plain temp / top-k sampling: greedy
+        argmax, or top-k (0 = the full vocab) at `temp` with one draw a row
+        from a torch.Generator seeded with `seed`; rows with temp <= 0 take
+        the argmax. The draw is the Gumbel-max form of a multinomial draw
+        from softmax(top-k / temp): torch.multinomial checks its input on
+        the host, a sync a step. Returns {slot: [n_steps tokens]}, where
+        result[s][0] is the token AFTER toks[s]."""
+        b, tok, pos, act = self._block_inputs(toks, n_steps,
+                                              "decode_batch_fast")
+        t0 = time.perf_counter()
+        tv = np.zeros(b, np.float32)
+        for s in toks:
+            tv[s] = temp if isinstance(temp, (int, float)) else temp.get(s, 0.0)
+        if np.all(tv[act] <= 0.0):
+            def sample(lg, cur, active):
+                return torch.argmax(lg, dim=-1)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            t_dev = torch.from_numpy(tv).to(self.device)
+
+            def sample(lg, cur, active):
+                vals, idx = ((lg, None) if top_k <= 0
+                             else torch.topk(lg, min(top_k, lg.shape[-1])))
+                j = ds.gumbel_argmax(
+                    vals / torch.clamp(t_dev, min=1e-6)[:, None], gen)
+                pick = j if idx is None else idx.gather(-1, j[:, None])[:, 0]
+                return torch.where(t_dev > 0.0, pick, torch.argmax(lg, dim=-1))
+        out = self._decode_block(tok, pos, act, n_steps, sample)
+        return self._finish_block(toks, n_steps, out, t0)
+
+    def decode_batch_sampled(self, toks: dict[int, int], n_steps: int,
+                             samplers: dict, seed: int = 0
+                             ) -> dict[int, list[int]]:
+        """decode_batch_fast with the full sampler chain on the device
+        (ops.device_sampling: penalties over a token ring, the default
+        queue with per-slot parameters).
+
+        samplers: {slot: runtime.sampling.Sampler} supplies per-slot
+        params and the penalty history (Sampler.prev). The caller must
+        accept() the returned tokens into each Sampler to keep host state
+        canonical for the next block."""
+        b, tok, pos, act = self._block_inputs(toks, n_steps,
+                                              "decode_batch_sampled")
+        t0 = time.perf_counter()
+        sp = ds.params_to(ds.params_from_samplers(samplers, b), self.device)
+        ring, wr = ds.ring_from_prev(
+            {s: smp.prev for s, smp in samplers.items() if smp is not None}, b)
+        ring = torch.from_numpy(ring).to(self.device)
+        vocab = self.cfg.vocab_size
+        eos_id, nl_id = self._eos(), (13 if vocab > 13 else 0)
+        counts = ds.build_counts(ring, wr, sp.last_n, vocab)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+
+        def sample(lg, cur, active):
+            nonlocal ring, wr, counts
+            nxt = torch.where(active, ds.sample_chain(lg, gen, sp, counts,
+                                                      nl_id, eos_id), cur)
+            # host sampler semantics: the sampled token enters the penalty
+            # window at once (accept at sample)
+            ring, wr, counts = ds.push_token(ring, wr, counts, sp.last_n, nxt,
+                                             active)
+            return nxt
+        out = self._decode_block(tok, pos, act, n_steps, sample)
+        return self._finish_block(toks, n_steps, out, t0)
 
     def rollback(self, slot: int, n_past: int):
         """Drop KV cells at positions >= n_past."""
