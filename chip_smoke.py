@@ -11,7 +11,10 @@ Phases (any failure raises, so the exit code is not 0):
      M in {1, 8, 64}, N = 1024, K = 768 (three chunks), then Q4_0 at the
      LLaMA-7B projection shapes (qmm at M = 512, qmm_int8 at M = 1), with
      error, kernel / plain / library time (CUDA events, median of 20
-     launches with a cold L2) and the least time the card could take
+     launches with a cold L2) and the least time the card could take;
+     then qmm in all six formats at the reference shape 4096x11008x128
+     (M = 128) and the 7B gate|up at M = 512: the same bits twice, GFLOPS,
+     the share of the 1-pass bound and of the 2-pass floor
   3b. the flash kernels against flash_attention_ref on the card at the
      FLASH_CASES (bf16 and int8 + scales K/V, hd 64/128/256, G 1/4/8, B = 2
      with different qbase, holes and shifts, a qlen = 0 row, odd S), then
@@ -404,7 +407,48 @@ def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
         del qt, w_bf16
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    stats["qmm"]["formats"] = qmm_formats(device, rng, formats, reps=reps)
     return stats
+
+
+# qmm per format: the reference shape of tpulamm_torch.bench (N 4096, K
+# 11008, M 128) and the fused gate|up at the prefill ubatch (N 22016, K
+# 4096, M 512)
+QMM_FORMAT_SHAPES = [("ref", 4096, 11008, 128), ("gate_up", 22016, 4096, 512)]
+
+
+def qmm_formats(device, rng, formats=FORMATS, shapes=QMM_FORMAT_SHAPES,
+                reps=20) -> dict:
+    """qmm in every format at QMM_FORMAT_SHAPES: held against qmm_ref
+    (TOL_QMM) and the same bits twice, then timed; each case line gives
+    GFLOPS and the share of the 1-pass bound (2MKN at the bf16 peak) and of
+    the 2-pass floor (x_hi and x_lo through the tensor cores)."""
+    out = {}
+    for label, n, k, m in shapes:
+        for qtype in formats:
+            qt = QTensor.from_gguf_raw(random_blocks(qtype, n, k, rng), qtype,
+                                       (n, k), device=device)
+            x = torch.randn((m, k), device=device)
+            got = Q.qmm_cuda(x, qt)
+            rel, _ = rel_err(got, Q.qmm_ref(x, qt))
+            if not rel <= TOL_QMM:
+                raise AssertionError(f"qmm {qtype.name} {label}: relative "
+                                     f"error {rel} > {TOL_QMM}")
+            if not torch.equal(got, Q.qmm_cuda(x, qt)):
+                raise AssertionError(f"qmm {qtype.name} {label}: two calls "
+                                     "gave different bits")
+            t_k = time_ms(lambda: Q.qmm_cuda(x, qt), device, reps)
+            t_b, t_o = bound_parts(qt, m, PEAK_BF16_OPS)
+            gflops = 2.0 * m * k * n / t_k / 1e6
+            out[f"{qtype.name} {label}"] = {"ms": t_k, "gflops": gflops}
+            log(f"[kernels] qmm {qtype.name} {label} M={m} N={n} K={k}: rel "
+                f"{rel:.3e}, same bits twice | kernel {t_k:.4f} ms, "
+                f"{gflops:,.0f} GFLOPS | {max(t_b, t_o) / t_k:.1%} of the "
+                f"1-pass bound, {2 * t_o / t_k:.1%} of the 2-pass floor")
+            del qt, x, got
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 # flash timing at the long-context path's shapes (B = 1, Hkv = 32, hd = 128,

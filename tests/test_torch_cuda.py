@@ -7,8 +7,9 @@ JAX package's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: qmm within 1e-4 of max|out| (the f32 sums
-run in another order), qmm_int8 within 1e-5 with identical activation
+Tolerances as in chip_smoke.py: qmm within 1e-4 of max|out| (its tensor
+cores see x as two bf16 halves, ~2^-17 of each element left), the same
+bits on a second call, qmm_int8 within 1e-5 with identical activation
 codes, qmm_int8_inkq bit-identical to qmm_int8, ffn_fused within 1e-4,
 mega_decode within 1e-2 of max|ref| (bf16 rounding flips of the residual
 stream from the f32 sum order).
@@ -53,15 +54,73 @@ def _rel(got, want):
 def test_kernels_match_plain(dev, qtype, m):
     x, qt = _case(qtype, m, dev)
     Q.reset_launches()
-    assert _rel(Q.qmm_cuda(x, qt), Q.qmm_ref(x, qt)) <= 1e-4
+    got = Q.qmm_cuda(x, qt)
+    assert _rel(got, Q.qmm_ref(x, qt)) <= 1e-4
+    assert torch.equal(got, Q.qmm_cuda(x, qt))            # fixed order
     if m <= Q.INT8_MAX_M:
         qx, sx, _ = Q.quantize_acts_cuda(x, qt.spec.group)
         rq, rs, _ = Q.quantize_acts(x, qt.spec.group)
         assert torch.equal(qx, rq) and torch.equal(sx, rs)
         assert _rel(Q.qmm_int8_cuda(x, qt), Q.qmm_int8_ref(x, qt)) <= 1e-5
     torch.cuda.synchronize()
-    assert Q.LAUNCHES == {"qmm": 1, "qmm_int8": int(m <= Q.INT8_MAX_M),
+    assert Q.LAUNCHES == {"qmm": 2, "qmm_int8": int(m <= Q.INT8_MAX_M),
                           "qmm_int8_inkq": 0}
+
+
+# qmm.cu at the path's widths: every format at M past and inside a 128-row
+# tile, N from the tests' 384 to the fused gate|up 22016 (172 tiles), K of
+# one chunk and of the 7B down projection (43 chunks); within 1e-4 of
+# max|out| of qmm_ref, the same bits on a second call
+QMM_NK = [(384, 256), (384, 11008), (4096, 256), (4096, 11008), (22016, 256),
+          (22016, 11008)]
+QMM_CASES = [(q, n, k, m) for q in FORMATS for n, k in QMM_NK
+             for m in (1, 17, 100, 512, 513)]
+_weights: dict = {}
+
+
+def _planes(qtype, n, k, dev):
+    """Random planes of one (format, N, K), kept while the cases use them."""
+    key = (qtype, n, k)
+    if key not in _weights:
+        _weights.clear()
+        rng = np.random.default_rng(n + k)
+        _weights[key] = QTensor.from_gguf_raw(random_blocks(qtype, n, k, rng),
+                                              qtype, (n, k), device=dev)
+    return _weights[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype,n,k,m", QMM_CASES,
+                         ids=[f"{q.name}-N{n}-K{k}-M{m}"
+                              for q, n, k, m in QMM_CASES])
+def test_qmm_matches_plain_at_path_shapes(dev, qtype, n, k, m):
+    qt = _planes(qtype, n, k, dev)
+    x = torch.randn((m, k), generator=torch.Generator(dev).manual_seed(m),
+                    device=dev)
+    got = Q.qmm_cuda(x, qt)
+    assert torch.isfinite(got).all()
+    assert _rel(got, Q.qmm_ref(x, qt)) <= 1e-4
+    assert torch.equal(got, Q.qmm_cuda(x, qt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", FORMATS, ids=lambda q: q.name)
+def test_qmm_wide_range_row(dev, qtype):
+    """A row of values ~1e-3 with outliers ~1e3 among N(0, 1) rows: each
+    row within 1e-4 of its own max|out| (x_hi + x_lo keep 16 bits of every
+    element, whatever its size)."""
+    rng = np.random.default_rng(11)
+    n, k = 384, 11008
+    qt = _planes(qtype, n, k, dev)
+    x = rng.normal(size=(17, k)).astype(np.float32)
+    x[3] = rng.normal(size=k) * 1e-3
+    hot = rng.choice(k, size=k // 100, replace=False)
+    x[3, hot] = rng.choice([-1e3, 1e3], size=hot.size) * rng.uniform(
+        0.5, 1.5, size=hot.size)
+    x = torch.from_numpy(x).to(dev)
+    got, want = Q.qmm_cuda(x, qt), Q.qmm_ref(x, qt)
+    for r in range(x.shape[0]):
+        assert _rel(got[r], want[r]) <= 1e-4, r
 
 
 @pytest.mark.cuda
@@ -73,6 +132,28 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         Q.qmm_int8_cuda(torch.zeros((17, K), device=dev), qt)
     with pytest.raises(ValueError, match="does not match K"):
         Q.qmm_cuda(torch.zeros((1, K + 256), device=dev), qt)
+
+
+@pytest.mark.cuda
+def test_qmm_refuses_strided_or_misaligned_planes(dev):
+    x, qt = _case(GGMLType.Q4_0, 20, dev)
+    qs = qt.planes["qs"]
+
+    def with_qs(plane):
+        return QTensor(qtype=qt.qtype, shape=qt.shape, layout=qt.layout,
+                       planes={**qt.planes, "qs": plane})
+    wide = torch.zeros((qs.shape[0], 2 * qs.shape[1]), dtype=qs.dtype,
+                       device=dev)
+    wide[:, ::2] = qs
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.qmm_cuda(x, with_qs(wide[:, ::2]))
+    buf = torch.zeros(qs.numel() + 1, dtype=qs.dtype, device=dev)
+    shifted = buf[1:].view(qs.shape)
+    shifted.copy_(qs)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        Q.qmm_cuda(x, with_qs(shifted))
+    assert _rel(Q.qmm_cuda(x, with_qs(shifted.clone())),
+                Q.qmm_ref(x, qt)) <= 1e-4
 
 
 # -- flash attention (csrc/flash_attention.cu) --------------------------------

@@ -142,3 +142,19 @@ def test_path_choice(m, n, cdt, want):
     """qmm_pallas's int8/f32 choice (pallas_qmm.py:648-763)."""
     assert tqmm.use_int8(m, n, cdt) is want
 
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (512, 4096, 4096, 1),      # 4 x 32 output tiles nearly fill 132 SMs
+    (512, 22016, 4096, 1),
+    (128, 4096, 11008, 4),     # the reference shape: 32 tiles
+    (1, 384, 768, 3),          # capped at 4 stages of 64 K a range
+    (1, 384, 256, 1),
+])
+def test_qmm_splits(m, n, k, want):
+    """qmm.cu's K ranges on a 132-SM card, and the workspace they need."""
+    assert tqmm.qmm_splits(m, n, k, 132) == want
+    mpad = -(-m // 128) * 128
+    extra = want * m * n * 4 if want > 1 else 0
+    assert tqmm.qmm_ws_bytes(m, n, k, want) == (mpad * k * 4
+                                                + mpad * k // 2 + extra)
+

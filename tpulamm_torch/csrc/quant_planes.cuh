@@ -2,12 +2,13 @@
 //
 // Shared by every kernel that streams quantized weights (qmm.cu,
 // qmm_int8.cu, ffn_fused.cu, mega_decode.cu), so that they all decode the
-// six formats the same way and dequantize to the same f32 weights as the
-// plain version (ops/qtensor.py::dequant_mm):
+// six formats the same way. The gemv stages dequantize to the same f32
+// weights as the plain version (ops/qtensor.py::dequant_mm),
 //
 //   w[k, n] = (q[k, n] - zero) * scale[g, n] (+ min[g, n]),  g = k / group
 //
-// with the multiply and the add rounded separately (no FMA contraction).
+// with the multiply and the add rounded separately (no FMA contraction);
+// qmm.cu multiplies the integer codes and scales after its products.
 // Plane layouts: tpulamm_torch/quant/repack.py.
 
 #pragma once
@@ -32,31 +33,6 @@ template <int QT> struct Fmt {
   static constexpr bool corr = zero != 0.f || has_min;
   static constexpr int group = QT == Q2_K ? 16 : 32;
 };
-
-// integer code of element (k, n) from the packed planes
-template <int QT>
-__device__ __forceinline__ int code_at(const uint8_t* __restrict__ qa,
-                                       const uint8_t* __restrict__ qb,
-                                       int k, int n, int N) {
-  const int c = k >> 8, e = k & 255;
-  if constexpr (QT == Q8_0) {
-    return (int)(int8_t)qa[(size_t)k * N + n];
-  } else if constexpr (QT == Q2_K) {
-    // q2 row 64c + s holds crumb t = element 256c + s + 64t
-    const int b = qa[(size_t)(64 * c + (e & 63)) * N + n];
-    return (b >> (2 * (e >> 6))) & 3;
-  } else {
-    // qs row 128c + r: low nibble element 256c + r, high 256c + 128 + r
-    const int b = qa[(size_t)(128 * c + (e & 127)) * N + n];
-    int q = (e & 128) ? (b >> 4) : (b & 15);
-    if constexpr (QT == Q5_0 || QT == Q5_1) {
-      // qh row 32c + s holds bit t = element 256c + s + 32t
-      const int h = qb[(size_t)(32 * c + (e & 31)) * N + n];
-      q |= ((h >> (e >> 5)) & 1) << 4;
-    }
-    return q;
-  }
-}
 
 // scale and min of the group holding element k, column n
 template <int QT>

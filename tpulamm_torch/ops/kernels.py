@@ -33,7 +33,7 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 LIBS: dict[str, tuple[str, dict[str, list]]] = {
     "qmm": ("qmm.cu", {
-        "tl_qmm_f32": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "tl_qmm_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     }),
     "qmm_int8": ("qmm_int8.cu", {
         "tl_quantize_acts": [_P, _P, _P, _P, _I, _I, _I, _P],

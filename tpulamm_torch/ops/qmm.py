@@ -1,8 +1,9 @@
 """Quantized matmul over packed planes: the two CUDA kernels, their plain
 versions, and the path choice. Counterpart of tpulamm.ops.pallas_qmm.
 
-- `qmm_ref` / `qmm_cuda`: f32 dequant-matmul (csrc/qmm.cu replaces
-  `_qmm_call`), the path of every prefill projection.
+- `qmm_ref` / `qmm_cuda`: f32-grade dequant-matmul (csrc/qmm.cu, on the
+  tensor cores with x split into two bf16 passes, replaces `_qmm_call`),
+  the path of every prefill projection.
 - `quantize_acts` + `qmm_int8_ref` / `qmm_int8_cuda`: int8-activation gemv
   (csrc/qmm_int8.cu replaces `_qmm_int8_call` and `_quantize_acts`), the
   default for decode.
@@ -83,20 +84,56 @@ def qmm_ref(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return x.to(torch.float32) @ dequant_mm(qt, torch.float32)
 
 
+QMM_TILE = 128          # csrc/qmm.cu: a block's output tile is 128 x 128
+_sm_counts: dict[torch.device, int] = {}
+
+
+def qmm_splits(m: int, n: int, k: int, sms: int) -> int:
+    """K ranges of one qmm.cu launch: 1 where the output tiles fill the
+    SMs; else enough to fill them, each range at least 4 stages of 64 K.
+    The ranges' partials are added in a fixed order."""
+    tiles = -(-m // QMM_TILE) * (n // QMM_TILE)
+    if tiles >= sms:
+        return 1
+    return max(1, min(sms // tiles, k // 64 // 4))
+
+
+def qmm_ws_bytes(m: int, n: int, k: int, splits: int) -> int:
+    """Workspace of one qmm.cu launch: x_hi and x_lo (bf16, rows padded to
+    the tile), the min term's rows of group sums (16 bf16 a row and 64 K)
+    and, where splits > 1, the partials."""
+    mpad = -(-m // QMM_TILE) * QMM_TILE
+    return mpad * k * 4 + mpad * k // 2 + (splits * m * n * 4
+                                           if splits > 1 else 0)
+
+
 def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x (M, K) @ dequant(qt) -> (M, N) f32 through csrc/qmm.cu."""
+    """x (M, K) @ dequant(qt) -> (M, N) f32 through csrc/qmm.cu (the
+    tensor-core kernel; its prologue and split sum are part of the call)."""
     m, n, k = _check_shapes(x, qt)
     if x.device.type == "cpu":
         return qmm_ref(x, qt)
     _on_cuda(x, qt)
     from tpulamm_torch.ops import kernels
     lib = kernels.library("qmm")
+    ptrs = _plane_ptrs(qt)
+    if any(p % 16 for p in ptrs):
+        raise ValueError("qmm: every plane must be 16-byte aligned")
     xf = x.to(torch.float32).contiguous()
+    if xf.data_ptr() % 16:
+        xf = xf.clone()
+    sms = _sm_counts.get(x.device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _sm_counts[x.device] = sms
+    splits = qmm_splits(m, n, k, sms)
+    ws = torch.empty(qmm_ws_bytes(m, n, k, splits), dtype=torch.uint8,
+                     device=x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    qa, qb, sa, sb = _plane_ptrs(qt)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    kernels.check(lib.tl_qmm_f32(int(qt.qtype), xf.data_ptr(), qa, qb, sa, sb,
-                                 out.data_ptr(), m, n, k, stream), "qmm")
+    kernels.check(lib.tl_qmm_f32(int(qt.qtype), xf.data_ptr(), *ptrs,
+                                 out.data_ptr(), ws.data_ptr(), m, n, k,
+                                 splits, stream), "qmm")
     LAUNCHES["qmm"] += 1
     return out
 
