@@ -17,7 +17,8 @@ Phases (any failure raises, so the exit code is not 0):
      the share of the 1-pass bound and of the 2-pass floor
   3b. the flash kernels against flash_attention_ref on the card at the
      FLASH_CASES (bf16 and int8 + scales K/V, hd 64/128/256, G 1/4/8, B = 2
-     with different qbase, holes and shifts, a qlen = 0 row, odd S), then
+     with different qbase, holes and shifts, a qlen = 0 row, odd S, 56
+     decode rows, a first 512-token ubatch), each the same bits twice, then
      timed at the long-context path's shapes (B = 1, Hkv = 32, hd = 128,
      G = 1; flash_attention at T = 512, S in {1024, 16385}; flash_decode at
      T = 1, S in {8193, 16385}; q8 and bf16) beside the plain version,
@@ -42,8 +43,10 @@ Phases (any failure raises, so the exit code is not 0):
      decode step, and both runs must give the same tokens
   4c. the same model through Engine(megakernel=True, fused_ffn=True,
      int8_inkq=True): generate_fast twice as in 4 (launches of the second
-     run: 129 qmm, then per decode step 1 mega_decode and 1 qmm_int8_inkq
-     for the lm head, nothing else; the same tokens), then 8 decode_one
+     run: 129 qmm and 32 flash_attention for the ubatch, which reads the
+     whole cache as the JAX megakernel engine does, then per decode step 1
+     mega_decode and 1 qmm_int8_inkq for the lm head, nothing else; the
+     same tokens), then 8 decode_one
      steps (per step 32 ffn_fused and 65 qmm_int8_inkq, nothing else);
      tok/s and profiles of both kinds of step
   6. the measurement harness on the phase-4 model (32 layers), each entry
@@ -167,11 +170,14 @@ def cosine(a: np.ndarray, b: np.ndarray) -> float:
 
 # -- inputs ------------------------------------------------------------------
 def flash_case(rng, device, *, B=2, Hkv=2, T=8, G=4, S=161, hd=64,
-               kind="bf16", shift=False, empty_row=False, sharp=False):
+               kind="bf16", shift=False, empty_row=False, sharp=False,
+               fresh=False):
     """Inputs of one flash-attention call (as tests/test_flash_attention.py
     builds them): the first `used` cells of each batch row live at
     positions 0..used-1 (the trash cell and the rest empty), the T queries
-    at the last T of those positions; `shift` adds a seq_rm hole and a
+    at the last T of those positions; `fresh`: used = T, so qbase is 0 and
+    the queries see the causal triangle of their own keys (a first
+    ubatch); `shift` adds a seq_rm hole and a
     seq_add shift; `empty_row` gives batch row 1 qlen = 0; `sharp` scales
     q by 4, so that a few keys dominate each softmax and the outputs are
     near the size of v. kind "bf16": bf16 K/V; "q8": int8 codes with
@@ -183,7 +189,7 @@ def flash_case(rng, device, *, B=2, Hkv=2, T=8, G=4, S=161, hd=64,
     kpos = np.full((B, S), -1, np.int32)
     qbase = np.zeros(B, np.int32)
     for b in range(B):
-        used = max(T + 12, S - 1 - 8 * b - (S // 4) * (b % 2))
+        used = T if fresh else max(T + 12, S - 1 - 8 * b - (S // 4) * (b % 2))
         kpos[b, :used] = np.arange(used)
         qbase[b] = used - T
         if shift:
@@ -228,6 +234,11 @@ FLASH_CASES = [
          sharp=True),
     dict(hd=256, G=4, T=16, S=8193, kind="bf16", empty_row=True),
     dict(hd=256, G=1, T=1, S=161, kind="q8", shift=True),
+    # decode at G = 8, T = 7: 56 rows, four m16 row tiles in one block
+    dict(hd=128, G=8, T=7, S=8193, Hkv=2, kind="q8", shift=True,
+         empty_row=True),
+    # a first 512-token ubatch: every live tile is on the causal diagonal
+    dict(hd=128, G=1, T=512, S=1024, Hkv=2, kind="q8", fresh=True),
 ]
 # elementwise |got - ref| <= TOL * (1 + |ref|): the JAX package's kernel
 # tolerance for bf16 operands against the f32 plain version
@@ -332,7 +343,8 @@ def phase_build() -> float:
         logf = kernels.BUILD_DIR / f"{name}.log"
         if logf.exists():
             for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
                     log(f"[build] {name}: {line.strip()}")
     return secs
 
@@ -523,10 +535,14 @@ def phase_flash(device, rng, cases=FLASH_CASES, timing=FLASH_TIMING,
         refs = flash_refs(c, kw)
         errs = []
         for name, fn in fns.items():
-            err, rel, rms = flash_err(run(fn, c, kw), refs, c["qlen"])
+            got = run(fn, c, kw)
+            err, rel, rms = flash_err(got, refs, c["qlen"])
+            if not torch.equal(got, run(fn, c, kw)):
+                raise AssertionError(f"{name} {case}: two calls gave "
+                                     "different bits")
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             errs.append(f"{name} {err:.3e} (bf16-q ref: {rel:.2e} of max, "
-                        f"rms {rms:.2e})")
+                        f"rms {rms:.2e}; same bits twice)")
         log(f"[flash] {case}: max|ref| {float(refs[0].abs().max()):.3e}, "
             f"max abs err {'; '.join(errs)}")
     B, Hkv, hd = shape
@@ -874,13 +890,17 @@ def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
         f"{out['mega_decode_tok_s']:.2f} tok/s, launches {mega_launches}")
     if ids_a != ids_b:
         raise AssertionError("two megakernel runs gave different tokens")
+    # the ubatch's forward reads the whole 2049-cell cache, as the JAX
+    # megakernel engine's does, so each layer runs flash_attention
     want = {**{k: 0 for k in mega_launches}, "qmm": 4 * n_layers + 1,
-            "mega_decode": steps, "qmm_int8_inkq": steps}
+            "flash_attention": n_layers, "mega_decode": steps,
+            "qmm_int8_inkq": steps}
     if mega_launches != want:
         raise AssertionError(f"launch counts {mega_launches} != {want}")
     log(f"[opt-in] launch counts as expected: mega_decode and "
         f"qmm_int8_inkq (lm head) 1 per step x {steps}, qmm {4 * n_layers + 1}"
-        " for the ubatch; two runs gave the same tokens")
+        f" and flash_attention {n_layers} for the ubatch; two runs gave the "
+        "same tokens")
     if device.type == "cuda":
         out.update(profile_steps(eng, "mega", lambda: eng._mega_step(0, 5)))
     # decode_one: the forward with the fused FFN and the inkq gemv; one

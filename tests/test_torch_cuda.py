@@ -191,6 +191,37 @@ def test_flash_kernels_match_plain(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)))
+def test_flash_kernels_same_bits_twice(dev, case):
+    """Both kernels sum in a fixed order (no atomics): a second call gives
+    the same bits."""
+    from tpulamm_torch.ops import flash_attention as FA
+    c, kw = _flash_args(FLASH_CASES[case], dev)
+    for fn in (FA.flash_attention, FA.flash_decode):
+        assert torch.equal(_call(fn, c, kw), _call(fn, c, kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8_side", ["k", "v"])
+@pytest.mark.parametrize("T,S", [(1, 8193), (64, 2049)])
+def test_flash_mixed_kv_types(dev, q8_side, T, S):
+    """K and V stored apart (Engine kv_dtype_v): one side int8 codes with
+    row scales, the other bf16 (the dequantized codes), through both
+    kernels."""
+    from chip_smoke import flash_err, flash_refs
+    from tpulamm_torch.ops import flash_attention as FA
+    c, kw = _flash_args(dict(hd=128, G=1, T=T, S=S, Hkv=4, kind="q8",
+                             shift=True, empty_row=True), dev)
+    other = "v" if q8_side == "k" else "k"
+    c[other] = (c[other].to(torch.float32)
+                * c[other + "s"][..., None]).to(torch.bfloat16)
+    c[other + "s"] = None
+    refs = flash_refs(c, kw)
+    for fn in (FA.flash_attention, FA.flash_decode):
+        flash_err(_call(fn, c, kw), refs, c["qlen"])
+
+
+@pytest.mark.cuda
 def test_flash_strided_span_view(dev):
     """The span view of a longer cache buffer goes to the kernel as it is
     (no copy) and gives the plain version's result."""

@@ -7,6 +7,11 @@
   tolerance for bf16 operands (tests/test_flash_attention.py).
 - flash_choice against the JAX predicates (transformer.py:169-187,
   :249-259), and the engine handing it the bucketed ubatch length.
+- flash_decode's chunk rule (decode_chunking), and a plain torch mirror of
+  the decode kernel's two-level split (warps inside a chunk, then chunks)
+  against flash_attention_ref and the JAX flash_decode in interpret mode
+  on chip_smoke's FLASH_CASES, within 2e-2. The kernels themselves are
+  checked on the card (tests/test_torch_cuda.py, chip_smoke.py phase 3b).
 """
 
 import numpy as np
@@ -16,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_port_models import write_tiny_llama
+from chip_smoke import FLASH_CASES, flash_case
 from tpulamm.ops import flash_attention as JFA
 from tpulamm_torch.models import transformer as TT
 from tpulamm_torch.models.config import ModelConfig
@@ -265,3 +271,139 @@ def test_forward_flash_matches_einsum_cpu(tmp_path, monkeypatch):
     assert calls == [32, 32, 32, 32, 16, 16, 2, 2]
     np.testing.assert_allclose(outs[1], outs[0], rtol=1e-4,
                                atol=1e-4 * np.abs(outs[0]).max())
+
+
+# -- flash_decode's split: the chunk rule and a mirror of the kernel -------
+
+@pytest.mark.parametrize("S,B,Hkv,TG", [
+    (161, 1, 32, 1), (8193, 1, 32, 1), (16385, 1, 32, 1), (16385, 1, 32, 8),
+    (8193, 2, 4, 56), (16385, 4, 32, 1), (161, 2, 2, 280), (1, 1, 1, 1)])
+def test_decode_chunking(S, B, Hkv, TG):
+    """Chunks are whole key tiles, cover every key once, and the grid is at
+    least one block an SM (where there are keys to split) and at most one
+    wave of resident blocks (where the (b, h, rows) groups fit one)."""
+    sms = 132
+    chunk, ns = FA.decode_chunking(S, B, Hkv, TG, sms)
+    assert chunk % FA.DECODE_KEY_TILE == 0 and chunk > 0
+    assert (ns - 1) * chunk < S <= ns * chunk
+    groups = B * Hkv * -(-TG // FA.DECODE_ROWS)
+    grid = groups * ns
+    if groups <= FA.BLOCKS_PER_SM * sms:
+        assert grid <= FA.BLOCKS_PER_SM * sms
+    assert grid >= min(sms, groups * -(-S // FA.DECODE_KEY_TILE))
+
+
+def test_decode_chunking_trash_cell_chunk():
+    """S = n_ctx + 1 may leave the trash cell alone in the last chunk."""
+    chunk, ns = FA.decode_chunking(16385, 1, 12, 1, 132)
+    assert (chunk, ns) == (512, 33)
+    assert 16385 - (ns - 1) * chunk == 1
+
+
+LOG2E = 1.4426950408889634
+
+
+def _decode_mirror(q, k, v, kpos, qbase, qlen, ks, vs, *, scale, g,
+                   causal=True, sms=132):
+    """decode_kernel's arithmetic in plain torch: base-2 scores on bf16 q
+    and K (int8 codes as they are), chunks from decode_chunking; inside a
+    chunk, the m16 row tile of each row and the warps that split its keys
+    (16-key sub-tile u of every 64-key tile goes to split u % nsplit), each
+    warp's (acc, m, l) with p rounded to bf16 after the vs fold; then the
+    warps folded in split order, then the chunks in chunk order."""
+    B, H, TG, hd = q.shape
+    S = k.shape[2]
+    chunk, ns = FA.decode_chunking(S, B, H, TG, sms)
+    bf = lambda x: x.to(torch.bfloat16).to(torch.float32)     # noqa: E731
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    s = torch.einsum("bhrd,bhsd->bhrs", bf(q), kf) * (scale * LOG2E)
+    if ks is not None:
+        s = s * ks[:, :, None, :]
+    live = (kpos >= 0)[:, None, None, :]
+    if causal:
+        t = torch.arange(TG) // g
+        qpos = qbase[:, None].to(torch.int64) + t[None, :]
+        live = live & (kpos[:, None, None, :] <= qpos[:, None, :, None])
+        live = live & (t[None, None, :, None]
+                       < qlen.to(torch.int64)[:, None, None, None])
+    s = torch.where(live, s, -torch.inf)
+    row = torch.arange(TG)
+    nrows = torch.clamp(TG - (row // 64) * 64, max=64)
+    n_rt = (nrows + 15) // 16
+    nsplit = (3 - (row % 64) // 16) // n_rt + 1
+    sub = (torch.arange(S) % chunk % 64) // 16
+    m_c = torch.full((B, H, ns, TG), -torch.inf)
+    l_c = torch.zeros((B, H, ns, TG))
+    acc_c = torch.zeros((B, H, ns, TG, hd))
+    for c in range(ns):
+        keys = torch.arange(c * chunk, min(S, (c + 1) * chunk))
+        for nsp in sorted(set(nsplit.tolist())):
+            rows = torch.nonzero(nsplit == nsp)[:, 0]
+            mx = torch.full((B, H, len(rows)), -torch.inf)
+            parts = []
+            for sp in range(nsp):
+                kk = keys[sub[keys] % nsp == sp]
+                ss = s[:, :, rows][..., kk]
+                m = (ss.amax(-1) if len(kk) else
+                     torch.full((B, H, len(rows)), -torch.inf))
+                p = torch.exp2(ss - torch.where(m == -torch.inf, 0.0,
+                                                m)[..., None])
+                pv = p * vs[:, :, None, kk] if vs is not None else p
+                parts.append((m, p.sum(-1), torch.einsum(
+                    "bhrs,bhsd->bhrd", bf(pv), vf[:, :, kk])))
+                mx = torch.maximum(mx, m)
+            acc = torch.zeros((B, H, len(rows), hd))
+            lsum = torch.zeros((B, H, len(rows)))
+            for m, l, a in parts:                       # split order
+                w = torch.where(mx == -torch.inf, 0.0, torch.exp2(m - mx))
+                acc = acc + w[..., None] * a
+                lsum = lsum + w * l
+            m_c[:, :, c, rows] = mx
+            l_c[:, :, c, rows] = lsum
+            acc_c[:, :, c, rows] = acc
+    m_c = torch.where(m_c == -torch.inf, FA.NEG_INF, m_c)   # dead chunks
+    w = torch.exp2(m_c - m_c.amax(2, keepdim=True))
+    lg = (w * l_c).sum(2)
+    o = (w[..., None] * acc_c).sum(2)
+    return torch.where(lg[..., None] > 0, o / lg[..., None], 0.0)
+
+
+@pytest.mark.parametrize("i", range(len(FLASH_CASES)))
+def test_decode_mirror_matches_ref_and_jax(i):
+    """The mirror of the kernel's two-level split against the port's
+    flash_attention_ref and the JAX flash_decode (interpret mode) on the
+    chip_smoke FLASH_CASES, within 2e-2 as the wrapper tests; rows with
+    qlen 0 are exactly 0."""
+    case = FLASH_CASES[i]
+    c = flash_case(np.random.default_rng(100 + i), torch.device("cpu"),
+                   **case)
+    args = [c[n] for n in _ORDER]
+    kw = dict(scale=float(1.0 / np.sqrt(case["hd"])), g=case["G"])
+    got = _decode_mirror(*args, **kw)
+    want = FA.flash_attention_ref(*args, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-2,
+                               atol=2e-2)
+    jargs = [None if t is None else jnp.asarray(
+        t.to(torch.float32).numpy() if t.dtype == torch.bfloat16
+        else t.numpy()) for t in args]
+    jwant = np.asarray(JFA.flash_decode(*jargs, interpret=True, **kw))
+    np.testing.assert_allclose(got.numpy(), jwant, rtol=2e-2, atol=2e-2)
+    for b in range(got.shape[0]):
+        if int(c["qlen"][b]) == 0:
+            assert bool((got[b] == 0).all())
+
+
+def test_flash_cases_hold_a_dead_chunk():
+    """Some FLASH_CASES chunk of decode_chunking has no live key, so the
+    mirror test runs the combine's dead-chunk weight."""
+    dead = False
+    for i, case in enumerate(FLASH_CASES):
+        c = flash_case(np.random.default_rng(100 + i), torch.device("cpu"),
+                       **case)
+        B, Hkv, TG, _ = c["q"].shape
+        S = c["k"].shape[2]
+        chunk, ns = FA.decode_chunking(S, B, Hkv, TG, 132)
+        kp = c["kpos"].numpy()
+        dead |= any((kp[b, j * chunk:(j + 1) * chunk] < 0).all()
+                    for b in range(B) for j in range(ns))
+    assert dead

@@ -209,3 +209,42 @@ def test_engine_mega_greedy_matches_jax(tmp_path, monkeypatch):
     n = int(te.n_past[0])
     np.testing.assert_array_equal(te.cache.pos[0, :n].numpy(), np.arange(n))
     np.testing.assert_array_equal(te.cell_pos[0, :n], np.arange(n))
+
+
+def test_engine_mega_reads_the_whole_cache_as_jax(tmp_path, monkeypatch):
+    """A megakernel engine's forwards read the whole cache, as the JAX
+    engine's do (engine.py:451), so the flash dispatch sees the same span:
+    after a 300-token prefill at n_ctx 1024 both give _kv_span(0) None,
+    and the prefill's forwards got kv_span None. _mega_step still reads
+    the occupied-span view (the bucket 512)."""
+    path = write_tiny_llama(str(tmp_path / "q4.gguf"), GGMLType.Q4_0, seed=5)
+    monkeypatch.setenv("TPULAMM_MEGAKERNEL", "1")
+    from tpulamm.runtime.engine import Engine as JEngine
+    from tpulamm_torch.runtime import engine as TE
+    prompt = list(np.random.default_rng(5).integers(3, 512, 300))
+    je = JEngine(path, n_ctx=1024)
+    te = TE.Engine(path, n_ctx=1024, megakernel=True, device="cpu")
+    assert je.mega is not None and te.mega is not None
+    spans = []
+    real_forward = TE.forward
+
+    def forward(*a, kv_span=None, **kw):
+        spans.append(kv_span)
+        return real_forward(*a, kv_span=kv_span, **kw)
+    monkeypatch.setattr(TE, "forward", forward)
+    je.prefill(0, prompt)
+    te.prefill(0, prompt)
+    assert je._kv_span(0) is None
+    assert te._kv_span(0) is None
+    assert spans == [None]
+    assert te._occupied_span(0) == 512
+    widths = []
+    real_mega = TE.mega_decode_layers
+
+    def mega(m, x, pos, cell, kpos, *a):
+        widths.append(kpos.shape[1])
+        return real_mega(m, x, pos, cell, kpos, *a)
+    monkeypatch.setattr(TE, "mega_decode_layers", mega)
+    te._mega_step(0, 7)
+    assert widths == [512]
+    assert te._kv_span(0) is None

@@ -2,11 +2,16 @@
 version, and launch counts. Counterpart of tpulamm.ops.flash_attention.
 
 - `flash_attention`: online-softmax attention for prefill ubatches
-  (csrc/flash_attention.cu replaces `flash_attention` / `_kernel`).
-- `flash_decode`: split-S flash decoding for a few query rows; one launch
-  computes each chunk's unnormalised (acc, m, l) and a second combines them
-  (replaces `flash_decode` / `_decode_kernel` and its XLA combine). The
-  pair counts as one launch.
+  (csrc/flash_attention.cu `prefill_kernel` replaces `flash_attention` /
+  `_kernel`): one block of two warpgroups per 128 query rows walks the
+  live key tiles, QK^T and PV on wgmma, K/V through a cp.async ring.
+- `flash_decode`: split-S flash decoding for a few query rows
+  (`decode_kernel` replaces `flash_decode` / `_decode_kernel` and its XLA
+  combine): one block of 4 warps per chunk of keys and up to 64 rows
+  (m16 row tiles), the warps splitting the chunk's keys; each block
+  writes its chunk's unnormalised (acc, m, l) and a second launch combines
+  them in chunk order. The pair counts as one launch. The chunks come
+  from `decode_chunking`.
 - `flash_attention_ref`: the plain version of both, f32 throughout.
 
 Layout as in the JAX package: q (B, Hkv, T*G, hd) f32 with the G query
@@ -14,7 +19,8 @@ heads of a KV head folded into the rows; k / v (B, Hkv, S, hd) in any float
 type or int8 codes with per-row scales ks / vs (B, Hkv, S); kpos (B, S)
 int32 key positions (-1 = empty cell); qbase / qlen (B,) int32, the first
 query position and the live query count of each batch row. Returns
-(B, Hkv, T*G, hd) f32.
+(B, Hkv, T*G, hd) f32. Head dim 256 and f32 / f16 K/V run the kernel's
+older mma.sync body (see the note in the source).
 
 A wrapper takes the plain version only for tensors that lie on the CPU; on
 CUDA tensors it launches its kernel or raises. K, V, kpos and the scales go
@@ -32,13 +38,14 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 LAUNCHES = {"flash_attention": 0, "flash_decode": 0}
 
-# keys per tile of the kernel (its decode chunk is a multiple of it)
-_KEY_TILE = {64: 64, 128: 64, 256: 32}
-_ROWS_PER_BLOCK = 64
-# decode grid size: four blocks for each SM of the card (at hd 128 the
-# kernel's 167 registers a thread let three reside at once, so this is
-# ~1.3 waves; tuning the chunk is open work)
-BLOCKS_PER_SM = 4
+# decode_kernel: the keys a warp takes at once (a chunk is a multiple of
+# them) and the query rows of one block (4 m16 tiles)
+DECODE_KEY_TILE = 16
+DECODE_ROWS = 64
+# decode_kernel blocks resident on one SM: 128 threads at <= 168 registers
+# (launch bounds) and ~52 KB of shared memory (a 3-slot ring of 64-key
+# int8 tiles) at hd 128, so three of them
+BLOCKS_PER_SM = 3
 _TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.int8: 3}
 
@@ -51,6 +58,22 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def decode_chunking(S: int, B: int, Hkv: int, TG: int, sm_count: int
+                    ) -> tuple[int, int]:
+    """(chunk, n_chunks) of flash_decode: the keys one block takes, a
+    multiple of DECODE_KEY_TILE, and the chunks that cover S. The grid,
+    B * Hkv * ceil(TG / DECODE_ROWS) * n_chunks blocks, is as many chunks
+    as fit one wave of resident blocks (BLOCKS_PER_SM * sm_count) and no
+    more, so no block waits for a second wave; at least one chunk, and at
+    most one a key tile. Every key lies in exactly one chunk; the last
+    may be short (one key: the trash cell of S = n_ctx + 1)."""
+    groups = B * Hkv * -(-TG // DECODE_ROWS)
+    n_tiles = max(1, -(-S // DECODE_KEY_TILE))
+    want = max(1, min(n_tiles, BLOCKS_PER_SM * sm_count // groups))
+    chunk = -(-n_tiles // want) * DECODE_KEY_TILE
+    return chunk, -(-S // chunk)
 
 
 def flash_attention_ref(q, k, v, kpos, qbase, qlen, ks=None, vs=None, *,
@@ -145,13 +168,7 @@ def _launch(split: bool, q, k, v, kpos, qbase, qlen, ks, vs, scale, g,
     out = torch.empty((B, Hkv, TG, hd), dtype=torch.float32, device=dev)
     chunk, ns, acc, m, l = S, 1, None, None, None
     if split:
-        bn = _KEY_TILE[hd]
-        n_tiles = -(-S // bn)
-        rows = -(-TG // _ROWS_PER_BLOCK)
-        want = max(1, -(-BLOCKS_PER_SM * _sm_count(dev) // (B * Hkv * rows)))
-        per = -(-n_tiles // min(want, n_tiles))
-        chunk = per * bn
-        ns = -(-S // chunk)
+        chunk, ns = decode_chunking(S, B, Hkv, TG, _sm_count(dev))
         acc = torch.empty((B, Hkv, ns, TG, hd), dtype=torch.float32,
                           device=dev)
         m = torch.empty((B, Hkv, ns, TG), dtype=torch.float32, device=dev)
@@ -175,8 +192,9 @@ def _launch(split: bool, q, k, v, kpos, qbase, qlen, ks, vs, scale, g,
 def flash_attention(q, k, v, kpos, qbase, qlen, ks=None, vs=None, *,
                     scale: float, g: int, causal: bool = True
                     ) -> torch.Tensor:
-    """Online-softmax attention (csrc/flash_attention.cu, one block per
-    (b, h, 64-row tile) looping over S)."""
+    """Online-softmax attention (csrc/flash_attention.cu `prefill_kernel`:
+    one block of two warpgroups per (b, h, 128-row tile) walking the key
+    tiles live for its rows)."""
     if _device(q, k, v, kpos, qbase, qlen, ks, vs).type == "cpu":
         return flash_attention_ref(q, k, v, kpos, qbase, qlen, ks, vs,
                                    scale=scale, g=g, causal=causal)
@@ -188,9 +206,9 @@ def flash_attention(q, k, v, kpos, qbase, qlen, ks=None, vs=None, *,
 
 def flash_decode(q, k, v, kpos, qbase, qlen, ks=None, vs=None, *,
                  scale: float, g: int, causal: bool = True) -> torch.Tensor:
-    """Split-S flash decoding (same contract as flash_attention). The
-    chunk, a multiple of the kernel's key tile, is chosen so that the grid
-    holds about BLOCKS_PER_SM blocks for each SM of the card."""
+    """Split-S flash decoding (same contract as flash_attention): one
+    block per (chunk, 64-row group, h, b), chunks from decode_chunking,
+    then the combine in chunk order."""
     if _device(q, k, v, kpos, qbase, qlen, ks, vs).type == "cpu":
         return flash_attention_ref(q, k, v, kpos, qbase, qlen, ks, vs,
                                    scale=scale, g=g, causal=causal)

@@ -199,9 +199,18 @@ class Engine:
 
     # -- low-level ubatch execution ------------------------------------------
     def _kv_span(self, need: int) -> int | None:
-        """Attention-span bucket: power of two covering every occupied KV
-        cell plus `need` upcoming writes (None = the full cache), so
-        attention reads only span cells."""
+        """Attention-span bucket of a forward: _occupied_span(need), so
+        attention reads only span cells. None (the full cache) on a
+        megakernel engine, as in the JAX one (engine.py:451): its prefill,
+        decode_one and decode_batch then make the JAX kernel choice;
+        _mega_step keeps its own span view."""
+        if self.mega is not None:
+            return None
+        return self._occupied_span(need)
+
+    def _occupied_span(self, need: int) -> int | None:
+        """Power of two covering every occupied KV cell plus `need`
+        upcoming writes (None = the full cache)."""
         cols = np.flatnonzero((self.cell_pos >= 0).any(axis=0))
         occ = int(cols[-1]) + 1 if len(cols) else 0
         s = max(occ + need, self.KV_SPAN_MIN)
@@ -324,7 +333,7 @@ class Engine:
         cfg, params = self.cfg, self.params
         pos = int(self.n_past[slot])
         cell = int(self._cells_for(slot, 1, np.array([pos]))[0])
-        span = self._kv_span(0) or self.cache.pos.shape[1]
+        span = self._occupied_span(0) or self.cache.pos.shape[1]
         tok, p = torch.tensor([token, pos]).to(self.device)
         rows = slice(slot, slot + 1)
         with torch.no_grad():
