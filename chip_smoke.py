@@ -102,7 +102,6 @@ import numpy as np
 import torch
 
 from tpulamm_torch.gguf.constants import GGMLType
-from tpulamm_torch.models.config import ModelConfig
 from tpulamm_torch.ops import ffn_fused as FF
 from tpulamm_torch.ops import flash_attention as FA
 from tpulamm_torch.ops import kernels
@@ -110,10 +109,11 @@ from tpulamm_torch.ops import mega_decode as MD
 from tpulamm_torch.ops import qmm as Q
 from tpulamm_torch.ops.layers import rms_norm, silu
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
-from tpulamm_torch.ops.rope import RopeParams
 from tpulamm_torch.runtime.engine import Engine, Timings
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
+from tpulamm_torch.tools import mega_ablation as MA
 from tpulamm_torch.tools import stream_ceiling as SC
+from tpulamm_torch.tools.mega_ablation import step as mega_call
 from tpulamm_torch.tools.synth import random_blocks, write_llama_gguf
 from tpulamm_torch.tools.timing import nvidia_smi, time_ms
 
@@ -573,56 +573,26 @@ def phase_flash(device, rng, cases=FLASH_CASES, timing=FLASH_TIMING,
 
 
 # -- slice 3: the opt-in decode kernels ----------------------------------------
-def mega_case(rng, device, *, dim: int, ffn: int, n_head: int,
-              n_kv: int | None = None, n_layers: int = 2, span: int = 1024,
-              live: int = 640, qtype=GGMLType.Q4_0, rope_kind: str = "norm",
-              vocab: int = 4096) -> dict:
-    """One megakernel step on a random llama stack: each layer's fused
-    QTensors (random blocks), norms near 1, a bf16 cache of `span` cells
-    whose first `live` hold positions 0.. (the rest empty), x ~ N(0, 1), the
-    position and cell `live`, and a random lm head and out_norm for logits."""
-    n_kv = n_kv or n_head
-    hd = dim // n_head
-    cfg = ModelConfig(arch="llama", dim=dim, n_layers=n_layers,
-                      n_heads=n_head, n_kv_heads=n_kv, ffn_dim=ffn,
-                      rope=RopeParams(n_rot=hd, kind=rope_kind))
-
-    def q(n, k):
-        return QTensor.from_gguf_raw(random_blocks(qtype, n, k, rng), qtype,
-                                     (n, k), device=device)
-
-    def norm():
-        return torch.from_numpy((1.0 + 0.1 * rng.standard_normal(dim)).astype(
-            np.float32)).to(device)
-    layers = [dict(wqkv_fused=q((n_head + 2 * n_kv) * hd, dim),
-                   wo=q(dim, n_head * hd), wgateup_fused=q(2 * ffn, dim),
-                   w_down=q(dim, ffn), attn_norm=norm(), ffn_norm=norm())
-              for _ in range(n_layers)]
-    mega = MD.build_mega({"layers": layers}, cfg)
-    kv = [torch.from_numpy(rng.standard_normal((1, n_kv, span, hd),
-                                               dtype=np.float32)
-                           ).to(device).to(torch.bfloat16)
-          for _ in range(2 * n_layers)]
-    kpos = torch.full((1, span), -1, dtype=torch.int32, device=device)
-    kpos[0, :live] = torch.arange(live, dtype=torch.int32, device=device)
-    lanes = MD.rope_lane_vectors(mega.rope, hd, n_head, n_kv,
-                                 torch.tensor([live], device=device))
-    x = torch.from_numpy(rng.standard_normal((1, dim), dtype=np.float32))
-    return dict(mega=mega, x=x.to(device), pos=live, kpos=kpos,
-                k=kv[:n_layers], v=kv[n_layers:], lanes=lanes,
-                head=q(vocab, dim), out_norm=norm())
-
-
-def mega_call(fn, c):
-    return fn(c["mega"], c["x"], c["pos"], c["pos"], c["kpos"], c["k"],
-              c["v"], *c["lanes"])
+def mega_case(rng, device, *, vocab: int = 4096, qtype=GGMLType.Q4_0,
+              **kw) -> dict:
+    """One megakernel step on a random llama stack
+    (tools/mega_ablation.inputs: widths, layers, span, live cells, format,
+    rope), and a random lm head and out_norm for logits."""
+    c = MA.inputs(rng, device, qtype=qtype, **kw)
+    dim = c["mega"].spec.dim
+    head = QTensor.from_gguf_raw(random_blocks(qtype, vocab, dim, rng), qtype,
+                                 (vocab, dim), device=device)
+    out_norm = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(dim)).astype(
+        np.float32)).to(device)
+    return dict(c, head=head, out_norm=out_norm)
 
 
 def mega_bound(c) -> tuple[float, float]:
     """(ms to move the bytes, ms to do the operations) of one step: every
     layer's planes, the live K / V rows, kpos, the norms, x and the outputs
-    once at the HBM rate; the products' 2 N K and the attention's 4 hd
-    operations a live key and head at the f32 rate (the kernel's type)."""
+    once at the HBM rate; the products' 2 N K operations at the bf16
+    tensor-core rate and the attention's 4 hd a live key and head at the
+    f32 rate (the kernel's types)."""
     spec = c["mega"].spec
     L, H, Hkv, hd = spec.n_layers, spec.n_heads, spec.n_kv_heads, spec.head_dim
     live = int((c["kpos"] >= 0).sum())
@@ -633,8 +603,9 @@ def mega_bound(c) -> tuple[float, float]:
               + 2 * L * Hkv * hd * 4)
     macs = (spec.dim * spec.nqkv + H * hd * spec.dim + spec.dim * 2 * spec.ffn
             + spec.ffn * spec.dim)
-    ops = L * (2 * macs + 4 * H * hd * (live + 1))
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS * 1e3
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            L * (2 * macs / PEAK_BF16_OPS
+                 + 4 * H * hd * (live + 1) / PEAK_F32_OPS) * 1e3)
 
 
 def ffn_bound(x, gu, dn) -> tuple[float, float]:
@@ -730,6 +701,10 @@ def phase_decode_kernels(device, rng, formats=FORMATS, shapes=SHAPES_7B,
             else:
                 log(f"[decode] {case}: ffn_fused rel {rel:.3e}")
         del gu, dn
+    logf = kernels.BUILD_DIR / "mega_decode.log"
+    if logf.exists():
+        for line in MA.ptxas_lines(logf.read_text()):
+            log(f"[decode] mega_decode_kernel ptxas: {line}")
     for i, (label, widths, span, live) in enumerate(mega_cases):
         c = mega_case(rng, device, **widths, span=span, live=live)
         got = mega_call(MD.mega_decode_layers, c)

@@ -305,6 +305,17 @@ MEGA_GPU_CASES = {
                               qtype=GGMLType.Q4_1),
     "q5_0_long_span": dict(dim=256, ffn=512, n_head=4, n_kv=1, span=5000,
                            live=4500, qtype=GGMLType.Q5_0),
+    # LLaMA-7B width: the two code conversions (nibbles, signed bytes)
+    "q4_0_llama7b": dict(dim=4096, ffn=11008, n_head=32, n_layers=1,
+                         span=1024, live=640),
+    "q8_0_llama7b": dict(dim=4096, ffn=11008, n_head=32, n_layers=1,
+                         span=1024, live=640, qtype=GGMLType.Q8_0),
+    # head dim 4: K / V rows read an element at a time (not 16 bytes), and
+    # more heads than blocks; ffn of 129 chunks: the down product's K in
+    # two windows of the kernel's shared memory
+    "q4_0_hd4_rows": dict(dim=768, ffn=512, n_head=192, span=40, live=30),
+    "q8_0_two_windows": dict(dim=256, ffn=33024, n_head=2, span=16, live=8,
+                             qtype=GGMLType.Q8_0),
 }
 
 
@@ -328,6 +339,20 @@ def test_mega_decode_matches_plain(dev, case):
         assert torch.equal(a, c2)                      # fixed order
     torch.cuda.synchronize()
     assert MD.LAUNCHES == {"mega_decode": 2}
+
+
+@pytest.mark.cuda
+def test_mega_decode_merges_many_chunks(dev, monkeypatch):
+    # 2,050 chunks of 2 keys a head: phase B's merge takes its chunks in
+    # two tiles of MAX_CHUNK (a span past 2M cells gives such counts)
+    monkeypatch.setattr(MD, "attn_chunks", lambda S, b, h: (-(-S // 2), 2))
+    c = mega_case(np.random.default_rng(5), dev, dim=256, ffn=512, n_head=4,
+                  span=4100, live=4000)
+    got = mega_call(MD.mega_decode_layers, c)
+    want = mega_call(MD.mega_decode_layers_ref, c)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel(a, b) <= 1e-2
 
 
 @pytest.mark.cuda

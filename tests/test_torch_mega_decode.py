@@ -178,6 +178,20 @@ def test_build_mega_ineligible():
     assert M.build_mega(tp, tcfg) is None
 
 
+@pytest.mark.parametrize("S,blocks,H", [
+    (1, 132, 32), (7, 132, 32), (1024, 132, 32), (1025, 132, 4),
+    (5000, 132, 1), (4097, 8, 64), (2**21 + 1, 132, 32), (2**23 + 3, 132, 8)])
+def test_attn_chunks(S, blocks, H):
+    """Phase B's items cover the span with no empty chunk, at most
+    MAX_CHUNK keys each; past 2M cells there are more chunks than half a
+    MAX_CHUNK (the kernel's merge takes any number)."""
+    nch, chunk = M.attn_chunks(S, blocks, H)
+    assert 1 <= chunk <= M.MAX_CHUNK
+    assert (nch - 1) * chunk < S <= nch * chunk
+    assert nch >= min(blocks // H, -(-S // 8))
+    assert (nch > M.MAX_CHUNK // 2) == (S > 2**21)
+
+
 def test_step_refuses_a_batch():
     _, _, tcfg, tp, rng = make_pair(47)
     mega = M.build_mega(tp, tcfg)

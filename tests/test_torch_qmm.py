@@ -120,7 +120,7 @@ def test_library_name_follows_its_headers(tmp_path, monkeypatch):
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", csrc)
     assert [p.name for p in kernels.sources("mega_decode")] == [
-        "mega_decode.cu", "gemv_stage.cuh", "quant_planes.cuh"]
+        "mega_decode.cu", "gemv_tc.cuh", "gemv_stage.cuh", "quant_planes.cuh"]
     before = {n: kernels.lib_path(n) for n in kernels.LIBS}
     with open(csrc / "quant_planes.cuh", "a") as f:
         f.write("// edited\n")

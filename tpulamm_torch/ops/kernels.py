@@ -60,7 +60,8 @@ LIBS: dict[str, tuple[str, dict[str, list]]] = {
                          _I, _I, _I, _I, _I, _I, _I, _P],
     }),
     "mega_decode": ("mega_decode.cu", {
-        "tl_mega_blocks": [_IP],
+        "tl_mega_blocks": [_L, _IP],                    # kmax, &blocks
+        "tl_mega_scratch": [_P, _I, _P],                # &MegaArgs, blocks, &n
         "tl_mega_decode": [_P, _I, _P],                 # &MegaArgs, blocks
     }),
     "stream_reduce": ("stream_reduce.cu", {

@@ -28,7 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
-from tpulamm_torch.ops.ffn_fused import ACTS, TK, _act_fn, _split
+from tpulamm_torch.ops.ffn_fused import ACTS, TK, _act_fn
 from tpulamm_torch.ops.layers import rms_norm
 from tpulamm_torch.ops.qmm import _plane_ptrs
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
@@ -256,9 +256,8 @@ def mega_decode_layers_ref(mega: MegaModel, x, qpos: int, cell: int, kpos,
 
 # -- the kernel's arguments (csrc/mega_decode.cu, struct MegaArgs) ------------
 _INTS = ("L", "dim", "H", "Hkv", "hd", "ffn", "S", "cell", "qpos", "act",
-         "rope_kind", "n_rot", "qt_qkv", "qt_wo", "qt_gu", "qt_dn", "ks_qkv",
-         "ks_wo", "ks_gu", "ks_dn", "nch", "chunk", "kv_hstride",
-         "kv_rstride")
+         "rope_kind", "n_rot", "qt_qkv", "qt_wo", "qt_gu", "qt_dn", "nch",
+         "chunk", "kv_hstride", "kv_rstride", "kv_vec")
 _PTRS = ("planes", "kcache", "vcache", "attn_norm", "ffn_norm", "kpos", "x",
          "cosq", "sinq", "cosk", "sink", "x_out", "k_new", "v_new", "xres",
          "qkv", "ao", "mid", "apart", "partial", "counters", "bar")
@@ -271,13 +270,25 @@ class _MegaArgs(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks(dev: torch.device) -> int:
-    """The cooperative grid of the kernel on this card."""
+def _blocks(dev: torch.device, kmax: int) -> int:
+    """The cooperative grid of the kernel on this card, for a stack whose
+    largest product K (which sizes the kernel's shared memory) is kmax."""
     from tpulamm_torch.ops import kernels
     n = ctypes.c_int(0)
     kernels.check(kernels.library("mega_decode").tl_mega_blocks(
-        ctypes.byref(n)), "mega_decode: cooperative launch")
+        kmax, ctypes.byref(n)), "mega_decode: cooperative launch")
     return n.value
+
+
+def attn_chunks(S: int, blocks: int, n_heads: int) -> tuple[int, int]:
+    """Phase B's items: (nch, chunk), S cut into nch chunks of `chunk`
+    keys (the last may be short, none empty), one item (head, chunk) a
+    block where the heads allow, at most MAX_CHUNK keys an item and, where
+    S allows, no fewer than 8."""
+    nch = max(blocks // n_heads, -(-S // MAX_CHUNK), 1)
+    nch = min(nch, -(-S // 8))
+    chunk = -(-S // nch)
+    return -(-S // chunk), chunk
 
 
 def _table(mega: MegaModel, key, ptrs, dev) -> torch.Tensor:
@@ -300,9 +311,12 @@ def _plane_table(mega: MegaModel, dev) -> torch.Tensor:
                 n.device != dev for n in mega.norms.values()):
             raise ValueError("the megakernel needs its weights on the CUDA "
                              f"device of x ({dev})")
-        t = mega.tables["planes"] = torch.tensor(
-            [p for q in qts for p in _plane_ptrs(q)], dtype=torch.int64,
-            device=dev)
+        ptrs = [p for q in qts for p in _plane_ptrs(q)]
+        if any(p % 16 for p in ptrs):
+            raise ValueError("the megakernel reads its planes in 16-byte "
+                             "words: every plane must start 16-byte aligned")
+        t = mega.tables["planes"] = torch.tensor(ptrs, dtype=torch.int64,
+                                                 device=dev)
     return t
 
 
@@ -341,15 +355,11 @@ def mega_decode_layers(mega: MegaModel, x, qpos: int, cell: int, kpos,
         raise ValueError("kpos must be int32 with stride 1 along S")
     from tpulamm_torch.ops import kernels
     lib = kernels.library("mega_decode")
-    blocks = _blocks(dev)
-    nch = max(-(-blocks // H), -(-S // MAX_CHUNK))
-    nch = min(nch, -(-S // 8))
-    chunk = -(-S // nch)
-    nch = -(-S // chunk)
-    ks = {"qkv": _split(blocks, nqkv // 128, dim),
-          "wo": _split(blocks, dim // 128, nq),
-          "gu": _split(blocks, ffn // 128, dim),
-          "dn": _split(blocks, dim // 128, ffn)}
+    blocks = _blocks(dev, max(dim, nq, ffn))
+    nch, chunk = attn_chunks(S, blocks, H)
+    # K / V rows as 16-byte words: hd a multiple of 8, every row aligned
+    kv_vec = int(hd % 8 == 0 and st[1] % 8 == 0 and st[2] % 8 == 0
+                 and all(t.data_ptr() % 16 == 0 for t in views))
     planes = _plane_table(mega, dev)
     kc = _table(mega, "k", tuple(t.data_ptr() for t in k_cache), dev)
     vc = _table(mega, "v", tuple(t.data_ptr() for t in v_cache), dev)
@@ -369,8 +379,6 @@ def mega_decode_layers(mega: MegaModel, x, qpos: int, cell: int, kpos,
     x_out, k_new, v_new = f32(1, dim), f32(L, 1, Hkv * hd), f32(L, 1, Hkv * hd)
     xres, qkv, ao, mid = bf(dim), f32(nqkv), bf(nq), bf(ffn)
     apart = f32(H * nch * (hd + 2))
-    partial = f32(max(ks["qkv"] * nqkv, ks["wo"] * dim,
-                      ks["gu"] * 2 * ffn, ks["dn"] * dim))
     xf, cq, sq, ck, sk = (t.to(torch.float32).contiguous()
                           for t in (x, cosq, sinq, cosk, sink))
     qt = [int(q) for q in spec.qtypes]
@@ -379,8 +387,8 @@ def mega_decode_layers(mega: MegaModel, x, qpos: int, cell: int, kpos,
         qpos=qpos, act=ACTS.get(spec.act, 2),
         rope_kind=ROPE_KINDS[spec.rope_kind], n_rot=spec.n_rot,
         qt_qkv=qt[0], qt_wo=qt[1], qt_gu=qt[2], qt_dn=qt[3],
-        ks_qkv=ks["qkv"], ks_wo=ks["wo"], ks_gu=ks["gu"], ks_dn=ks["dn"],
         nch=nch, chunk=chunk, kv_hstride=st[1], kv_rstride=st[2],
+        kv_vec=kv_vec,
         eps=spec.eps, scale=1.0 / math.sqrt(hd),
         planes=planes.data_ptr(), kcache=kc.data_ptr(), vcache=vc.data_ptr(),
         attn_norm=mega.norms["attn_norm"].data_ptr(),
@@ -389,8 +397,13 @@ def mega_decode_layers(mega: MegaModel, x, qpos: int, cell: int, kpos,
         cosk=ck.data_ptr(), sink=sk.data_ptr(), x_out=x_out.data_ptr(),
         k_new=k_new.data_ptr(), v_new=v_new.data_ptr(), xres=xres.data_ptr(),
         qkv=qkv.data_ptr(), ao=ao.data_ptr(), mid=mid.data_ptr(),
-        apart=apart.data_ptr(), partial=partial.data_ptr(),
-        counters=zeros.data_ptr(), bar=zeros[-2:].data_ptr())
+        apart=apart.data_ptr(), counters=zeros.data_ptr(),
+        bar=zeros[-2:].data_ptr())
+    n = ctypes.c_longlong(0)
+    kernels.check(lib.tl_mega_scratch(ctypes.addressof(a), blocks,
+                                      ctypes.byref(n)), "mega_decode")
+    partial = f32(n.value)              # the products' per-warp sums
+    a.partial = partial.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     kernels.check(lib.tl_mega_decode(ctypes.addressof(a), blocks, stream),
                   "mega_decode")

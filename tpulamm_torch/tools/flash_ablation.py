@@ -48,23 +48,37 @@ SHAPES = [("flash_attention", 512, "q8"), ("flash_attention", 512, "bf16"),
           ("flash_decode", 1, "q8"), ("flash_decode", 1, "bf16")]
 
 
-def build(names) -> dict[str, ctypes.CDLL]:
-    """as_is and each ablation as its own library under build/."""
-    src = (kernels.CSRC / "flash_attention.cu").read_text()
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def ablated_sources(lib: str, subs) -> dict[str, str]:
+    """The source of library `lib` and the csrc headers it includes, by
+    file name, with each (text, replacement) of `subs` made in the files
+    that hold the text."""
+    texts = {p.name: p.read_text() for p in kernels.sources(lib)}
+    for old, new in subs:
+        hit = [f for f, t in texts.items() if old in t]
+        if not hit:
+            raise RuntimeError(f"{lib}: the source no longer holds {old!r}")
+        for f in hit:
+            texts[f] = texts[f].replace(old, new)
+    return texts
+
+
+def build(names, ablations=None, lib: str = "flash_attention"
+          ) -> dict[str, ctypes.CDLL]:
+    """as_is and each named ablation of library `lib` (default: this
+    tool's kernels and ABLATIONS) as a library of its own under build/:
+    the ablated sources written to a directory of the ablation and
+    compiled there, one nvcc process each, all at once."""
+    ablations = ABLATIONS if ablations is None else ablations
     procs = {}
     for name in names:
-        text = src
-        for old, new in ABLATIONS.get(name, ("", []))[1]:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer holds "
-                                   f"{old!r}")
-            text = text.replace(old, new)
-        cu = kernels.BUILD_DIR / f"ablate_{name}.cu"
-        cu.write_text(text)
-        so = kernels.BUILD_DIR / f"libablate_{name}.so"
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I",
-               str(kernels.CSRC), "-o", str(so), str(cu)]
+        d = kernels.BUILD_DIR / f"ablate_{lib}_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        subs = ablations.get(name, ("", []))[1]
+        for f, t in ablated_sources(lib, subs).items():
+            (d / f).write_text(t)
+        so = d / f"lib{lib}.so"
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(d), "-o",
+               str(so), str(d / kernels.LIBS[lib][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        so)
@@ -73,11 +87,12 @@ def build(names) -> dict[str, ctypes.CDLL]:
         out = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{out[-3000:]}")
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in kernels.LIBS["flash_attention"][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+        (so.parent / "nvcc.log").write_text(out)
+        dll = ctypes.CDLL(str(so))
+        for fn, argtypes in kernels.LIBS[lib][1].items():
+            getattr(dll, fn).argtypes = argtypes
+            getattr(dll, fn).restype = ctypes.c_int
+        libs[name] = dll
     return libs
 
 
