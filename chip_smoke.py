@@ -9,9 +9,11 @@ Phases (any failure raises, so the exit code is not 0):
      source, all at once) and report the seconds
   3. kernels against their plain versions on the card: all six formats at
      M in {1, 8, 64}, N = 1024, K = 768 (three chunks), then Q4_0 at the
-     LLaMA-7B projection shapes (qmm at M = 512, qmm_int8 at M = 1), with
+     LLaMA-7B projection shapes (qmm at M = 512, qmm_int8 at M = 1, and
+     qmm_int8 also at M = 8 and 16, timed with no limit), with
      error, kernel / plain / library time (CUDA events, median of 20
      launches with a cold L2) and the least time the card could take;
+     the int8 gemv's and prologue's ptxas register and spill lines;
      then qmm in all six formats at the reference shape 4096x11008x128
      (M = 128) and the 7B gate|up at M = 512: the same bits twice, GFLOPS,
      the share of the 1-pass bound and of the 2-pass floor
@@ -111,6 +113,7 @@ from tpulamm_torch.ops.layers import rms_norm, silu
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
 from tpulamm_torch.runtime.engine import Engine, Timings
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
+from tpulamm_torch.tools import int8_ablation as IA
 from tpulamm_torch.tools import mega_ablation as MA
 from tpulamm_torch.tools import stream_ceiling as SC
 from tpulamm_torch.tools.mega_ablation import step as mega_call
@@ -351,13 +354,19 @@ def phase_build() -> float:
 
 def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
                   small_m=(1, 8, 64), shapes=SHAPES_7B, prefill_m=PREFILL_M,
-                  reps=20) -> dict:
+                  batch_m=(8, 16), reps=20) -> dict:
     """Hold each kernel against its plain version and time every case;
-    the sums over the 7B shapes feed the kernels line."""
+    the sums over the 7B shapes feed the kernels line. qmm_int8 is also
+    timed over the 7B shapes at the batched decode's rows (batch_m)."""
     stats = {name: {"max_abs_err": 0.0, "ms": 0.0,
                     "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                     "bytes_ms": 0.0, "ops_ms": 0.0}
              for name in ("qmm", "qmm_int8")}
+    batch: dict[int, float] = {}
+    logf = kernels.BUILD_DIR / "qmm_int8.log"
+    if logf.exists():
+        for line in IA.ptxas_lines(logf.read_text()):
+            log(f"[kernels] qmm_int8 ptxas: {line}")
 
     def note(name, rel, ab):
         s = stats[name]
@@ -416,9 +425,22 @@ def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
             s["ops_ms"] += t_o
             log(case_line(f"Q4_0 {label} M={m} N={n} K={k}", name, rel,
                           t_k, t_p, t_l, t_b, t_o))
+        for m in batch_m:            # the batched decode's rows: no limit
+            x = torch.randn((m, k), device=device)
+            check_codes(x, qt)
+            rel, ab = rel_err(Q.qmm_int8_cuda(x, qt), Q.qmm_int8_ref(x, qt))
+            note("qmm_int8", rel, ab)
+            t_m = time_ms(lambda: Q.qmm_int8_cuda(x, qt), device, reps)
+            batch[m] = batch.get(m, 0.0) + t_m
+            log(f"[kernels] Q4_0 {label} M={m} N={n} K={k}: qmm_int8 rel "
+                f"{rel:.3e} | kernel {t_m:.4f} ms")
         del qt, w_bf16
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    for m, t in batch.items():
+        log(f"[kernels] qmm_int8 Q4_0 five 7B shapes M={m}: {t:.4f} ms, "
+            f"{t / stats['qmm_int8']['ms']:.2f}x the M=1 {stats['qmm_int8']['ms']:.4f}"
+            " ms (reported, no limit)")
     stats["qmm"]["formats"] = qmm_formats(device, rng, formats, reps=reps)
     return stats
 
@@ -1155,8 +1177,8 @@ def phase_slice(device, rng, n_layers: int = 32, shape=LLAMA_7B,
 
 def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
     """torch.profiler over `steps` calls of `step`: wall ms per call, the
-    device's busy share (kernel time / wall) and the top ops by device
-    and by host time."""
+    device's busy share (kernel time / wall), the top ops by device time
+    (and every kernel of the port's csrc) and by host time."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1182,7 +1204,11 @@ def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
         f"{busy:.3f} ms ({busy / wall:.1%}), {launches} kernel launches "
         "(cudaLaunchKernel + cudaLaunchCooperativeKernel) per call")
     host = [e for e in events if e.device_type != DeviceType.CUDA]
-    for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+    ranked = sorted(kern, key=dev_us, reverse=True)
+    # the top 8, then the port's own kernels (csrc/, anonymous namespaces)
+    # that ran fewer ms
+    for e in ranked[:8] + [e for e in ranked[8:]
+                           if "(anonymous namespace)" in e.key]:
         log(f"[profile] {label} kernel {dev_us(e) / 1e3 / steps:9.3f} ms/call "
             f"x{e.count // steps:<5d} {e.key[:90]}")
     for e in sorted(host, key=lambda e: e.self_cpu_time_total,

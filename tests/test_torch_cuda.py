@@ -123,6 +123,56 @@ def test_qmm_wide_range_row(dev, qtype):
         assert _rel(got[r], want[r]) <= 1e-4, r
 
 
+# qmm_int8.cu carries 1, 8 or 16 rows a launch: rows past M and inside a
+# carrier, each format; activation codes and scales identical to the plain
+# quantize_acts, within 1e-5 of max|out| of qmm_int8_ref, the same bits on
+# a second call
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", FORMATS, ids=lambda q: q.name)
+@pytest.mark.parametrize("m", [2, 8, 9, 16])
+def test_qmm_int8_matches_plain_at_batch_rows(dev, qtype, m):
+    x, qt = _case(qtype, m, dev, seed=m)
+    qx, sx, _ = Q.quantize_acts_cuda(x, qt.spec.group)
+    rq, rs, _ = Q.quantize_acts(x, qt.spec.group)
+    assert torch.equal(qx, rq) and torch.equal(sx, rs)
+    got = Q.qmm_int8_cuda(x, qt)
+    assert torch.isfinite(got).all()
+    assert _rel(got, Q.qmm_int8_ref(x, qt)) <= 1e-5
+    assert torch.equal(got, Q.qmm_int8_cuda(x, qt))
+
+
+# the 7B down projection (N 4096, K 11008: 43 chunks, a split K)
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q8_0],
+                         ids=lambda q: q.name)
+@pytest.mark.parametrize("m", [1, 16])
+def test_qmm_int8_at_llama_7b_width(dev, qtype, m):
+    qt = _planes(qtype, 4096, 11008, dev)
+    x = torch.randn((m, 11008), generator=torch.Generator(dev).manual_seed(m),
+                    device=dev)
+    qx, sx, _ = Q.quantize_acts_cuda(x, qt.spec.group)
+    rq, rs, _ = Q.quantize_acts(x, qt.spec.group)
+    assert torch.equal(qx, rq) and torch.equal(sx, rs)
+    got = Q.qmm_int8_cuda(x, qt)
+    assert _rel(got, Q.qmm_int8_ref(x, qt)) <= 1e-5
+    assert torch.equal(got, Q.qmm_int8_cuda(x, qt))
+    assert torch.equal(Q.qmm_int8_inkq_cuda(x, qt), got)
+
+
+# one block taking three units of other K ranges: it stages each window
+# anew and is the last of the tile's three partials
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q2_K],
+                         ids=lambda q: q.name)
+@pytest.mark.parametrize("m", [1, 9])
+def test_qmm_int8_block_with_several_units(dev, qtype, m, monkeypatch):
+    x, qt = _case(qtype, m, dev, seed=3)
+    monkeypatch.setattr(Q, "int8_plan", lambda *_: (3, 1))
+    got = Q.qmm_int8_cuda(x, qt)
+    assert _rel(got, Q.qmm_int8_ref(x, qt)) <= 1e-5
+    assert torch.equal(Q.qmm_int8_inkq_cuda(x, qt), got)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x, qt = _case(GGMLType.Q4_0, 1, dev)
@@ -258,7 +308,7 @@ def test_flash_wrappers_refuse(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qtype", FORMATS, ids=lambda q: q.name)
-@pytest.mark.parametrize("m", [1, 5, 16])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 16])
 def test_inkq_is_bit_identical_to_qmm_int8(dev, qtype, m):
     x, qt = _case(qtype, m, dev)
     Q.reset_launches()

@@ -38,9 +38,9 @@ LIBS: dict[str, tuple[str, dict[str, list]]] = {
     "qmm_int8": ("qmm_int8.cu", {
         "tl_quantize_acts": [_P, _P, _P, _P, _I, _I, _I, _P],
         "tl_qmm_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _P],        # M N K ks grid
         "tl_qmm_int8_inkq": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P],
     }),
     "flash_attention": ("flash_attention.cu", {
         "tl_flash": [_I, _I, _P,

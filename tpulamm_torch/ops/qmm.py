@@ -119,14 +119,8 @@ def qmm_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     ptrs = _plane_ptrs(qt)
     if any(p % 16 for p in ptrs):
         raise ValueError("qmm: every plane must be 16-byte aligned")
-    xf = x.to(torch.float32).contiguous()
-    if xf.data_ptr() % 16:
-        xf = xf.clone()
-    sms = _sm_counts.get(x.device)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        _sm_counts[x.device] = sms
-    splits = qmm_splits(m, n, k, sms)
+    xf = _f32_aligned(x)
+    splits = qmm_splits(m, n, k, _sm_count(x.device))
     ws = torch.empty(qmm_ws_bytes(m, n, k, splits), dtype=torch.uint8,
                      device=x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -209,25 +203,59 @@ def quantize_acts_cuda(x: torch.Tensor, group: int):
         return quantize_acts(x, group)
     from tpulamm_torch.ops import kernels
     lib = kernels.library("qmm_int8")
-    return _launch_quantize_acts(lib, x.to(torch.float32).contiguous(), group)
+    return _launch_quantize_acts(lib, _f32_aligned(x), group)
 
 
 _counters: dict[torch.device, torch.Tensor] = {}
-SM_TARGET_WARPS = 132 * 32    # H100: 132 SMs, enough warps to hide latency
+# K chunks (256 elements) of one unit's window at 1, <= 8 and <= 16 rows
+# (csrc/qmm_int8.cu win_chunks)
+INT8_WIN_CHUNKS = {1: 64, 8: 20, 16: 10}
+INT8_GROUP_TILES = 8         # column tiles of a unit: one a warp of a block
 
 
-def _split_k(n: int, k: int, m: int) -> int:
-    """Blocks that share one column tile's K units (see qmm_int8.cu)."""
-    tiles = (n // 128) * (1 if m == 1 else -(-m // 4))
-    units = (k // 256) * 4
-    want = max(1, round(SM_TARGET_WARPS / (tiles * 8)))
-    return max(1, min(-(-units // 8), want))
+def int8_rows(m: int) -> int:
+    """Rows one gemv launch carries for M rows: 1, 8 or 16."""
+    return 1 if m == 1 else (8 if m <= 8 else 16)
 
 
-def _gemv_scratch(x: torch.Tensor, n: int, k: int, m: int):
-    """(ks, out, partial, counters) of one split-K gemv launch."""
-    ks = _split_k(n, k, m)
-    tiles = (n // 128) * (1 if m == 1 else -(-m // 4))
+def int8_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """(ks, grid) of one gemv launch (csrc/qmm_int8.cu). Its units are
+    (column group, K range) pairs: 8 neighbouring 128-column tiles over ks
+    ranges of whole chunks, each within the window; a block takes units
+    b, b + grid, .... ks is the one of least cost: the waves of units
+    times the chunks of the widest unit (plus half a chunk for a unit's
+    start and end), plus the split sum, whose last warp of a tile reads ks
+    partials of its rows; the weights follow a sweep of every ks on an H100
+    (tools/int8_ablation.py --sweep). grid spreads the waves evenly, at most
+    one block an SM."""
+    tiles, kch = n // 128, k // 256
+    groups = -(-tiles // INT8_GROUP_TILES)
+    rows = int8_rows(m)
+    best = None
+    for ks in range(-(-kch // INT8_WIN_CHUNKS[rows]), kch + 1):
+        units = groups * ks
+        waves = -(-units // sms)
+        cost = waves * (-(-kch // ks) + 0.5) + (ks - 1) * rows / 256
+        if best is None or cost < best[0] - 1e-9:
+            best = (cost, ks, -(-units // waves))
+    return best[1], best[2]
+
+
+def _sm_count(device: torch.device) -> int:
+    sms = _sm_counts.get(device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device] = sms
+    return sms
+
+
+def _gemv_scratch(x: torch.Tensor, n: int, k: int, m: int, sms: int):
+    """(ks, grid, out, partial, counters) of one gemv launch: out (M, N)
+    f32; partial (ks, M, N) f32 when ks > 1 (else out); N / 128 zeroed
+    counters, shared by the launches of a device (each leaves them
+    zeroed). All from torch on x's device."""
+    ks, grid = int8_plan(m, n, k, sms)
+    tiles = n // 128
     cnt = _counters.get(x.device)
     if cnt is None or cnt.numel() < tiles:
         cnt = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=x.device)
@@ -235,7 +263,22 @@ def _gemv_scratch(x: torch.Tensor, n: int, k: int, m: int):
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     partial = (torch.empty((ks, m, n), dtype=torch.float32, device=x.device)
                if ks > 1 else out)
-    return ks, out, partial, cnt
+    return ks, grid, out, partial, cnt
+
+
+def _int8_inputs(x: torch.Tensor, qt: QTensor) -> tuple:
+    """x as contiguous 16-byte aligned f32 (the kernels read float4s) and
+    the planes' pointers, each checked 16-byte aligned (the gemv's 16-byte
+    copies)."""
+    ptrs = _plane_ptrs(qt)
+    if any(p % 16 for p in ptrs):
+        raise ValueError("qmm_int8: every plane must be 16-byte aligned")
+    return _f32_aligned(x), ptrs
+
+
+def _f32_aligned(x: torch.Tensor) -> torch.Tensor:
+    xf = x.to(torch.float32).contiguous()
+    return xf.clone() if xf.data_ptr() % 16 else xf
 
 
 def qmm_int8_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
@@ -249,15 +292,15 @@ def qmm_int8_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     _on_cuda(x, qt)
     from tpulamm_torch.ops import kernels
     lib = kernels.library("qmm_int8")
-    qx, sx, gsum = _launch_quantize_acts(lib, x.to(torch.float32).contiguous(),
-                                         qt.spec.group)
-    ks, out, partial, cnt = _gemv_scratch(x, n, k, m)
-    qa, qb, sa, sb = _plane_ptrs(qt)
+    xf, (qa, qb, sa, sb) = _int8_inputs(x, qt)
+    qx, sx, gsum = _launch_quantize_acts(lib, xf, qt.spec.group)
+    ks, grid, out, partial, cnt = _gemv_scratch(x, n, k, m,
+                                                _sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     kernels.check(lib.tl_qmm_int8(int(qt.qtype), qx.data_ptr(), sx.data_ptr(),
                                   gsum.data_ptr(), qa, qb, sa, sb,
                                   out.data_ptr(), partial.data_ptr(),
-                                  cnt.data_ptr(), m, n, k, ks, stream),
+                                  cnt.data_ptr(), m, n, k, ks, grid, stream),
                   "qmm_int8")
     LAUNCHES["qmm_int8"] += 1
     return out
@@ -270,7 +313,7 @@ qmm_int8_inkq_ref = qmm_int8_ref
 
 def qmm_int8_inkq_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """qmm_int8_cuda's product in one launch: each block of the gemv
-    quantizes the activations of the K slices it reads
+    quantizes the activations of the K ranges it reads
     (csrc/qmm_int8.cu, tl_qmm_int8_inkq). Bit-identical to qmm_int8_cuda."""
     m, n, k = _check_shapes(x, qt)
     if m > INT8_MAX_M:
@@ -280,14 +323,15 @@ def qmm_int8_inkq_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     _on_cuda(x, qt)
     from tpulamm_torch.ops import kernels
     lib = kernels.library("qmm_int8")
-    xf = x.to(torch.float32).contiguous()
-    ks, out, partial, cnt = _gemv_scratch(x, n, k, m)
-    qa, qb, sa, sb = _plane_ptrs(qt)
+    xf, (qa, qb, sa, sb) = _int8_inputs(x, qt)
+    ks, grid, out, partial, cnt = _gemv_scratch(x, n, k, m,
+                                                _sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     kernels.check(lib.tl_qmm_int8_inkq(int(qt.qtype), xf.data_ptr(), qa, qb,
                                        sa, sb, out.data_ptr(),
                                        partial.data_ptr(), cnt.data_ptr(),
-                                       m, n, k, ks, stream), "qmm_int8_inkq")
+                                       m, n, k, ks, grid, stream),
+                  "qmm_int8_inkq")
     LAUNCHES["qmm_int8_inkq"] += 1
     return out
 

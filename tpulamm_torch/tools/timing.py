@@ -6,7 +6,10 @@ On CUDA: CUDA events around each call and the median of `reps` calls,
 after one warm-up call. With `flush`, the 50 MB L2 is overwritten before
 each call (a decode step finds every weight cold), and a spin kernel ahead
 of the flush keeps the card busy while the host enqueues the call, so a
-wrapper's host time does not count as device time. No scan and no slope:
+wrapper's host time does not count as device time. Zeroing the buffer
+leaves the L2 full of dirty lines, whose write-back a call that reads
+more than the L2 holds pays (up to 50 MB at 3.35 TB/s, ~15 us); `clean`
+reads the buffer instead. No scan and no slope:
 eager launches need no hoist-proofing. On the CPU (the tests, `--device
 cpu`): the host's wall clock, which is no device metric.
 """
@@ -27,8 +30,11 @@ _flush_buf: dict = {}
 
 
 def time_samples(fn, device: torch.device, reps: int = 20,
-                 flush: bool = True) -> list[float]:
-    """ms of each of `reps` calls of fn (CPU: max(2, reps // 10) calls)."""
+                 flush: bool = True, clean: bool = False) -> list[float]:
+    """ms of each of `reps` calls of fn (CPU: max(2, reps // 10) calls).
+    clean: flush the L2 by reading the buffer instead of zeroing it, so
+    the call finds it full of clean lines and pays no write-back (as a
+    kernel does inside a decode step)."""
     if device.type != "cuda":
         out = []
         for _ in range(max(2, reps // 10)):
@@ -45,7 +51,9 @@ def time_samples(fn, device: torch.device, reps: int = 20,
     ev = []
     for _ in range(reps):
         torch.cuda._sleep(SPIN_CYCLES)
-        if flush:
+        if flush and clean:
+            torch.sum(buf)
+        elif flush:
             buf.zero_()
         a, b = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
@@ -58,9 +66,9 @@ def time_samples(fn, device: torch.device, reps: int = 20,
 
 
 def time_ms(fn, device: torch.device, reps: int = 20,
-            flush: bool = True) -> float:
+            flush: bool = True, clean: bool = False) -> float:
     """Median ms of time_samples."""
-    return float(np.median(time_samples(fn, device, reps, flush)))
+    return float(np.median(time_samples(fn, device, reps, flush, clean)))
 
 
 def nvidia_smi() -> str:
