@@ -27,8 +27,9 @@ Phases (any failure raises, so the exit code is not 0):
      scaled_dot_product_attention and the bound
   3c. the opt-in decode kernels against their plain versions on the card:
      qmm_int8_inkq bit for bit against qmm_int8 at the five 7B shapes in
-     all six formats; ffn_fused at the 7B FFN (4096 -> 11008 -> 4096), M 1
-     and 16, all six formats (rel <= 1e-4); mega_decode at 2 layers of
+     all six formats; ffn_fused at the 7B FFN (4096 -> 11008 -> 4096), M 1,
+     4, 5, 8, 9 and 16, all six formats, silu and gelu (rel <= 1e-4, the
+     same bits twice; Q4_0 timed at M 1, 8 and 16); mega_decode at 2 layers of
      LLaMA-7B and TinyLlama-1.1B width, spans 1024 and 2049 (max error <=
      1e-2 max|ref|, logits cosine >= 0.9999, the new K/V rows written into
      the cache); Q4_0 timed (ms, plain, library, bound)
@@ -50,7 +51,7 @@ Phases (any failure raises, so the exit code is not 0):
      mega_decode and 1 qmm_int8_inkq for the lm head, nothing else; the
      same tokens), then 8 decode_one
      steps (per step 32 ffn_fused and 65 qmm_int8_inkq, nothing else);
-     tok/s and profiles of both kinds of step
+     tok/s and profiles of both kinds of step (ffn_fused's ms a step)
   6. the measurement harness on the phase-4 model (32 layers), each entry
      point with its launch counts: tpulamm_torch.bench (Q4_0 4096x11008x128
      GFLOPS, its gate and JSON line), the perf_report matmul table (seven
@@ -97,6 +98,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import sys
 import time
 
@@ -109,11 +111,12 @@ from tpulamm_torch.ops import flash_attention as FA
 from tpulamm_torch.ops import kernels
 from tpulamm_torch.ops import mega_decode as MD
 from tpulamm_torch.ops import qmm as Q
-from tpulamm_torch.ops.layers import rms_norm, silu
+from tpulamm_torch.ops.layers import rms_norm
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
 from tpulamm_torch.runtime.engine import Engine, Timings
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
 from tpulamm_torch.tools import int8_ablation as IA
+from tpulamm_torch.tools import ffn_ablation as FAB
 from tpulamm_torch.tools import mega_ablation as MA
 from tpulamm_torch.tools import stream_ceiling as SC
 from tpulamm_torch.tools.mega_ablation import step as mega_call
@@ -630,16 +633,6 @@ def mega_bound(c) -> tuple[float, float]:
                  + 4 * H * hd * (live + 1) / PEAK_F32_OPS) * 1e3)
 
 
-def ffn_bound(x, gu, dn) -> tuple[float, float]:
-    """(bytes ms, operations ms) of one fused FFN: the planes, x and the
-    output once; 2 M dim (2 ffn) + 2 M ffn dim f32 operations."""
-    m, dim = x.shape
-    ffn = dn.mm_dims[1]
-    nbytes = gu.n_bytes + dn.n_bytes + 2 * m * dim * 4
-    return (nbytes / HBM_BYTES_PER_S * 1e3,
-            6.0 * m * dim * ffn / PEAK_F32_OPS * 1e3)
-
-
 # phase-3c megakernel cases: (label, widths, span, live cells); 2 layers
 MEGA_CASES = [("LLaMA-7B", dict(dim=4096, ffn=11008, n_head=32), 1024, 640),
               ("LLaMA-7B", dict(dim=4096, ffn=11008, n_head=32), 2049, 2047),
@@ -648,13 +641,16 @@ MEGA_CASES = [("LLaMA-7B", dict(dim=4096, ffn=11008, n_head=32), 1024, 640),
 
 
 def phase_decode_kernels(device, rng, formats=FORMATS, shapes=SHAPES_7B,
-                         ffn_dims=(4096, 11008), ffn_m=(1, 16),
-                         mega_cases=MEGA_CASES, reps=20) -> dict:
+                         ffn_dims=(4096, 11008), ffn_m=(1, 4, 5, 8, 9, 16),
+                         ffn_timed=(1, 8, 16), mega_cases=MEGA_CASES,
+                         reps=20) -> dict:
     """The three opt-in decode kernels against their plain versions on the
     card: qmm_int8_inkq bit for bit against qmm_int8 at the 7B shapes in
-    every format; ffn_fused at the 7B FFN in every format, M 1 and 16;
-    mega_decode at 2 layers of two widths and two spans. Timed at Q4_0
-    (M = 1; mega at the first case)."""
+    every format; ffn_fused at the 7B FFN in every format at each M of
+    ffn_m, silu and gelu, the same bits twice; mega_decode at 2 layers of
+    two widths and two spans. Timed at Q4_0 (the int8 gemv at M = 1;
+    ffn_fused at each M of ffn_timed, the kernels line at M = 1; mega at
+    the first case)."""
     stats = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                     "bound_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
                     "ops_ms": 0.0}
@@ -695,33 +691,40 @@ def phase_decode_kernels(device, rng, formats=FORMATS, shapes=SHAPES_7B,
         log(f"[decode] {qtype.name}: qmm_int8_inkq == qmm_int8 bit for bit "
             "at the five 7B shapes")
     dim, ffn = ffn_dims
+    logf = kernels.BUILD_DIR / "ffn_fused.log"
+    if logf.exists():
+        for line in FAB.ptxas_lines(logf.read_text()):
+            log(f"[decode] ffn_fused ptxas: {line}")
     for qtype in formats:
         gu, dn = q(qtype, 2 * ffn, dim), q(qtype, dim, ffn)
+        rels = []
         for m in ffn_m:
-            x = torch.randn((m, dim), device=device)
-            rel, ab = rel_err(FF.ffn_fused(x, gu, dn), FF.ffn_fused_ref(x, gu, dn))
-            stats["ffn_fused"]["max_abs_err"] = max(
-                stats["ffn_fused"]["max_abs_err"], ab)
-            if not rel <= TOL_FFN:
-                raise AssertionError(f"ffn_fused {qtype.name} M={m}: "
-                                     f"relative error {rel} > {TOL_FFN}")
-            case = f"{qtype.name} M={m} dim={dim} ffn={ffn}"
-            if qtype == GGMLType.Q4_0 and m == 1:
-                wg = dequant_mm(gu, torch.bfloat16)
-                wd = dequant_mm(dn, torch.bfloat16)
-                xb = x.to(torch.bfloat16)
-
-                def library():       # bf16 torch.matmul, weights dequantized
-                    g = torch.matmul(xb, wg)
-                    return torch.matmul(silu(g[:, :ffn]) * g[:, ffn:], wd)
+            for act in ("silu", "gelu"):
+                x = torch.randn((m, dim), device=device)
+                got = FF.ffn_fused(x, gu, dn, act=act)
+                if not torch.equal(got, FF.ffn_fused(x, gu, dn, act=act)):
+                    raise AssertionError(f"ffn_fused {qtype.name} M={m} {act}: "
+                                         "two runs differ")
+                rel, ab = rel_err(got, FF.ffn_fused_ref(x, gu, dn, act=act))
+                stats["ffn_fused"]["max_abs_err"] = max(
+                    stats["ffn_fused"]["max_abs_err"], ab)
+                if not (rel <= TOL_FFN and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"ffn_fused {qtype.name} M={m} {act}: "
+                                         f"relative error {rel} > {TOL_FFN}")
+                rels.append(f"M={m} {act} {rel:.2e}")
+                if qtype != GGMLType.Q4_0 or act != "silu" or m not in ffn_timed:
+                    continue
                 t = (time_ms(lambda: FF.ffn_fused(x, gu, dn), device, reps),
                      time_ms(lambda: FF.ffn_fused_ref(x, gu, dn), device,
                              reps),
-                     time_ms(library, device, reps)) + ffn_bound(x, gu, dn)
-                add("ffn_fused", *t)
-                log(case_line(case, "ffn_fused", rel, *t))
-            else:
-                log(f"[decode] {case}: ffn_fused rel {rel:.3e}")
+                     time_ms(FAB.library(x, gu, dn), device, reps)
+                     ) + FAB.bound_ms(m, gu, dn)
+                if m == 1:
+                    add("ffn_fused", *t)
+                log(case_line(f"Q4_0 M={m} dim={dim} ffn={ffn}", "ffn_fused",
+                              rel, *t, library="2 bf16 matmul + silu"))
+        log(f"[decode] {qtype.name} dim={dim} ffn={ffn}: ffn_fused the same "
+            f"bits twice, rel {', '.join(rels)}")
         del gu, dn
     logf = kernels.BUILD_DIR / "mega_decode.log"
     if logf.exists():
@@ -925,6 +928,10 @@ def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
         f"qmm_int8_inkq {2 * n_layers + 1} per step, qmm_int8 0")
     if device.type == "cuda":
         out.update(profile_steps(eng, "fused", lambda: eng.decode_one(0, 5)))
+        ms, n = out["fused_port_ms"].get("ffn_fused_kernel", (0.0, 0))
+        log(f"[opt-in] ffn_fused in a decode_one step: {ms:.3f} ms of device "
+            f"time over {n} launches, in {out['fused_wall_ms']:.3f} ms of wall "
+            f"time with {out['fused_busy_ms']:.3f} ms of device time")
     del eng
     return out
 
@@ -1203,6 +1210,13 @@ def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
     log(f"[profile] {label}: {wall:.3f} ms wall per call, device busy "
         f"{busy:.3f} ms ({busy / wall:.1%}), {launches} kernel launches "
         "(cudaLaunchKernel + cudaLaunchCooperativeKernel) per call")
+    # the port's own kernels (csrc/), by entry name: ms and launches a call
+    port = {}
+    for e in kern:
+        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.key)
+        if m:
+            ms, n = port.get(m.group(1), (0.0, 0))
+            port[m.group(1)] = (ms + dev_us(e) / 1e3 / steps, n + e.count // steps)
     host = [e for e in events if e.device_type != DeviceType.CUDA]
     ranked = sorted(kern, key=dev_us, reverse=True)
     # the top 8, then the port's own kernels (csrc/, anonymous namespaces)
@@ -1215,7 +1229,8 @@ def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
                     reverse=True)[:8]:
         log(f"[profile] {label} host   {e.self_cpu_time_total / 1e3 / steps:9.3f}"
             f" ms/call x{e.count // steps:<5d} {e.key[:90]}")
-    return {f"{label}_wall_ms": wall, f"{label}_busy_ms": busy}
+    return {f"{label}_wall_ms": wall, f"{label}_busy_ms": busy,
+            f"{label}_port_ms": port}
 
 
 def phase_numerics(device, rng, shape=LLAMA_7B, prompt_len: int = 64,

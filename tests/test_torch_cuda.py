@@ -332,7 +332,8 @@ def _ffn_case(qtype, m, dev, seed=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qtype", FORMATS, ids=lambda q: q.name)
-@pytest.mark.parametrize("m,act", [(1, "silu"), (7, "gelu"), (16, "silu")])
+@pytest.mark.parametrize("m", [1, 4, 5, 7, 8, 9, 16])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_ffn_fused_matches_plain(dev, qtype, m, act):
     x, gu, dn = _ffn_case(qtype, m, dev)
     FF.reset_launches()
@@ -341,6 +342,30 @@ def test_ffn_fused_matches_plain(dev, qtype, m, act):
     assert torch.equal(got, FF.ffn_fused(x, gu, dn, act=act))  # fixed order
     torch.cuda.synchronize()
     assert FF.LAUNCHES == {"ffn_fused": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["llama7b_q4_0_m16", "llama7b_q2_k_m1",
+                                  "bf16_valued_x", "relu"])
+def test_ffn_fused_cases(dev, case):
+    """The 7B FFN (43 chunks of down K, windows at M = 16); x whose
+    values are bf16 already, so every lo half is 0; the relu act."""
+    rng = np.random.default_rng(2)
+    qtype = GGMLType.Q2_K if "q2_k" in case else GGMLType.Q4_0
+    dim, ffn = (4096, 11008) if case.startswith("llama7b") else (DIM, FFN)
+    m = 1 if case.endswith("m1") else (16 if case.endswith("m16") else 3)
+    gu = QTensor.from_gguf_raw(random_blocks(qtype, 2 * ffn, dim, rng), qtype,
+                               (2 * ffn, dim), device=dev)
+    dn = QTensor.from_gguf_raw(random_blocks(qtype, dim, ffn, rng), qtype,
+                               (dim, ffn), device=dev)
+    x = torch.from_numpy(rng.normal(size=(m, dim)).astype(np.float32)).to(dev)
+    if case == "bf16_valued_x":
+        x = x.to(torch.bfloat16).to(torch.float32)
+    act = "relu" if case == "relu" else "silu"
+    got = FF.ffn_fused(x, gu, dn, act=act)
+    assert bool(torch.isfinite(got).all()) and got.shape == (m, dim)
+    assert _rel(got, FF.ffn_fused_ref(x, gu, dn, act=act)) <= 1e-4
+    assert torch.equal(got, FF.ffn_fused(x, gu, dn, act=act))
 
 
 MEGA_GPU_CASES = {

@@ -25,10 +25,10 @@
 // Design: one cooperative launch, one block of 8 warps an SM (every block
 // resident, so grid barriers cannot deadlock; 255 registers a thread and
 // ~140 KB of shared memory for the products' rings); a grid barrier
-// between the five phases of a layer, 5 L in all (gemv_stage.cuh::
-// grid_sync). The four products run on the
-// tensor cores through gemv_tc.cuh::tc_gemv, their work spread over every
-// warp of the grid; the planes are read in place through a table of
+// between the five phases of a layer, 5 L in all (gemv_stage.cuh's
+// grid_sync). The four products run on the tensor cores through
+// gemv_tc.cuh::tc_gemv, their work spread over every warp of the grid;
+// the planes are read in place through a table of
 // per-layer pointers (no stacked copy), copied into shared memory a layer
 // ahead. Each block stages a product's x once into shared memory (phases
 // A and D recompute the rms norm for themselves, from the norm weight the

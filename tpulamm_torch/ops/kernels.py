@@ -56,7 +56,7 @@ LIBS: dict[str, tuple[str, dict[str, list]]] = {
         "tl_ffn_fused": [_I, _I, _P,
                          _P, _P, _P, _P,                # gate|up planes
                          _P, _P, _P, _P,                # down planes
-                         _P, _P, _P, _P, _P,            # mid out partial ...
+                         _P, _P, _P, _P,                # mid out partial bar
                          _I, _I, _I, _I, _I, _I, _I, _P],
     }),
     "mega_decode": ("mega_decode.cu", {
