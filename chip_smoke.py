@@ -39,11 +39,19 @@ Phases (any failure raises, so the exit code is not 0):
      streaming probe's entry point (tools/stream_ceiling.py) on a 2 GiB
      buffer, and the kernel timed there beside its plain version,
      torch.sum(x, 0) and the bound: the card's measured streaming ceiling
+  Every decode step below runs as a replay of a captured CUDA graph
+  (runtime/decode_graph.py): each decode path holds its block's tokens
+  against the same step called eagerly from the same cache (16-32 steps),
+  counts the launches of the steps the blocks ran (an over-run included),
+  prints the engine's graphs (capture seconds, count, pool memory) and
+  profiles a step: wall and device ms, kernel launches (cudaLaunchKernel +
+  cudaLaunchCooperativeKernel) apart from graph launches (cudaGraphLaunch)
   4. the slice at full width: a LLaMA-7B-shape Q4_0 GGUF (random blocks
      from a seed) served by Engine(n_ctx=2048) -- generate_fast on a
-     512-token prompt for 128 greedy tokens, twice; the launch counts of
-     the second run must be 129 qmm (one ubatch) and 129 qmm_int8 per
-     decode step, and both runs must give the same tokens
+     512-token prompt for 128 greedy tokens (one block of 128 steps),
+     twice; the launch counts of the second run must be 129 qmm (one
+     ubatch) and 129 qmm_int8 per decode step, and both runs must give the
+     same tokens; profiles of a 16-step block and of a decode_one step
   4c. the same model through Engine(megakernel=True, fused_ffn=True,
      int8_inkq=True): generate_fast twice as in 4 (launches of the second
      run: 129 qmm and 32 flash_attention for the ubatch, which reads the
@@ -51,7 +59,8 @@ Phases (any failure raises, so the exit code is not 0):
      mega_decode and 1 qmm_int8_inkq for the lm head, nothing else; the
      same tokens), then 8 decode_one
      steps (per step 32 ffn_fused and 65 qmm_int8_inkq, nothing else);
-     tok/s and profiles of both kinds of step (ffn_fused's ms a step)
+     tok/s and profiles of a 16-step megakernel block, a megakernel step
+     and a decode_one step (ffn_fused's ms a step)
   6. the measurement harness on the phase-4 model (32 layers), each entry
      point with its launch counts: tpulamm_torch.bench (Q4_0 4096x11008x128
      GFLOPS, its gate and JSON line), the perf_report matmul table (seven
@@ -60,14 +69,16 @@ Phases (any failure raises, so the exit code is not 0):
      the measured streaming ceiling; inside the --batched run every
      decode_batch_fast block is checked (exactly qmm_int8 129 x 32,
      nothing else), and after pl 4's warm-up block its greedy tokens
-     against a host loop of decode_batch and a profile of one block (one
-     device-to-host copy a block, none a step)
+     against a host loop of decode_batch and against the eager steps of
+     its graph, and a profile of one block (one device-to-host copy a
+     block, none a step)
   4b. the long-context path at full width and depth: a CodeLlama-7B-shape
      Q4_0 GGUF (32 layers, vocab 32016, rope base 1e6, context 16384)
      served by Engine(n_ctx=16384, kv_dtype="q8_0") -- generate_fast on a
-     12,000-token prompt (24 ubatches) for 64 greedy tokens; the launch
-     counts must be flash_attention 23 x 32, flash_decode 63 x 32, qmm
-     24 x 129 and qmm_int8 63 x 129
+     12,000-token prompt (24 ubatches) for 64 greedy tokens (one block of
+     64 steps); the launch counts must be flash_attention 23 x 32,
+     flash_decode 64 x 32, qmm 24 x 128 and qmm_int8 64 x 128 (the lm
+     head is dense); a profile of a 16-step block
   5. end-to-end numerics: the same width at 2 layers, the GPU engine
      against the port's plain path on the CPU (last prefill logits cosine
      >= 0.999; 8 teacher-forced decode steps cosine >= 0.99, the int8
@@ -85,7 +96,9 @@ Phases (any failure raises, so the exit code is not 0):
      on the card against the CPU's plain path over 8 teacher-forced steps
      (cosine >= 0.99 a slot and step), then decode_batch_sampled at temp 0
      with penalty_repeat 1.3, whose tokens must equal decode_batch + the
-     host Sampler on the card
+     host Sampler on the card; then decode_batch_fast blocks, greedy and
+     at temp 0.9, against the eager steps of their graphs with the same
+     seed (the same seed repeats, another does not)
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -113,7 +126,8 @@ from tpulamm_torch.ops import mega_decode as MD
 from tpulamm_torch.ops import qmm as Q
 from tpulamm_torch.ops.layers import rms_norm
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
-from tpulamm_torch.runtime.engine import Engine, Timings
+from tpulamm_torch.runtime import decode_graph as DG
+from tpulamm_torch.runtime.engine import Engine, Timings, forward
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
 from tpulamm_torch.tools import int8_ablation as IA
 from tpulamm_torch.tools import ffn_ablation as FAB
@@ -881,12 +895,13 @@ def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
                                  stop_on_eos=False)
     mega_launches = port_launches()
     tm = eng.timings
-    steps = len(ids_b) - 1
-    out = {"mega_decode_tok_s": steps / tm.t_eval,
+    steps = tm.n_step                  # the blocks' steps, over-run included
+    out = {"mega_decode_tok_s": (len(ids_b) - 1) / tm.t_eval,
            "mega_prefill_tok_s": tm.n_prefill / tm.t_prefill,
            "mega_launches": mega_launches}
     log(f"[opt-in] generate_fast through the megakernel: prefill "
-        f"{out['mega_prefill_tok_s']:.1f} tok/s, decode {steps} steps "
+        f"{out['mega_prefill_tok_s']:.1f} tok/s, decode {len(ids_b) - 1} "
+        f"tokens ({steps} steps in graph blocks) "
         f"{out['mega_decode_tok_s']:.2f} tok/s, launches {mega_launches}")
     if ids_a != ids_b:
         raise AssertionError("two megakernel runs gave different tokens")
@@ -901,10 +916,23 @@ def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
         f"qmm_int8_inkq (lm head) 1 per step x {steps}, qmm {4 * n_layers + 1}"
         f" and flash_attention {n_layers} for the ubatch; two runs gave the "
         "same tokens")
+    check_against_eager(eng, "opt-in", ids_b, prompt_len, "mega")
     if device.type == "cuda":
+        base = int(eng.n_past[0])
+        out.update(profile_steps(
+            eng, "mega_block",
+            lambda: (eng.rollback(0, base),
+                     eng._block("mega", 0, [5], [base], [1], 16, [0.0], 40,
+                                0)),
+            steps=2, per=16))
+        eng.rollback(0, base)
+        out["mega_step_ms"] = wall_ms(lambda: eng._mega_step(0, 5))
+        eng.rollback(0, base)
+        log(f"[opt-in] _mega_step (one graph replay, logits copied back): "
+            f"{out['mega_step_ms']:.3f} ms a step, no profiler")
         out.update(profile_steps(eng, "mega", lambda: eng._mega_step(0, 5)))
-    # decode_one: the forward with the fused FFN and the inkq gemv; one
-    # step first, uncounted, loads the kernels' modules
+    # decode_one: the forward with the fused FFN and the inkq gemv, one
+    # graph replay a step; one step first, uncounted, captures it
     tok = int(np.argmax(eng.decode_one(0, ids_b[-1])))
     reset_port_launches()
     t0 = time.perf_counter()
@@ -932,6 +960,7 @@ def phase_opt_in(device, rng, path: str, n_layers: int, shape=LLAMA_7B,
         log(f"[opt-in] ffn_fused in a decode_one step: {ms:.3f} ms of device "
             f"time over {n} launches, in {out['fused_wall_ms']:.3f} ms of wall "
             f"time with {out['fused_busy_ms']:.3f} ms of device time")
+    out.update(graph_report(eng, "opt-in"))
     del eng
     return out
 
@@ -954,8 +983,8 @@ def phase_mega_numerics(device, rng, shape=LLAMA_7B, prompt_len: int = 64,
     base.prefill(0, prompt)
     cos_cpu, cos_base = [], []
     for _ in range(steps):
-        a = gpu._mega_step(0, tok).cpu().numpy()
-        b = cpu._mega_step(0, tok).numpy()
+        a = gpu._mega_step(0, tok)
+        b = cpu._mega_step(0, tok)
         c = base.decode_one(0, tok)
         if not (np.isfinite(a).all() and a.shape == (shape["vocab"],)):
             raise AssertionError("megakernel logits not finite / misshapen")
@@ -1016,16 +1045,17 @@ def phase_long(device, rng, n_layers: int = 32, shape=CODELLAMA_7B,
     peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
             else 0)
     tm = eng.timings
-    steps = len(ids) - 1
+    steps = tm.n_step                  # the blocks' steps, over-run included
     out = {"layers": n_layers, "load_s": t_load,
            "prefill_tok_s": tm.n_prefill / tm.t_prefill,
-           "decode_tok_s": steps / tm.t_eval, "peak_mem_gb": peak / 1e9,
-           "launches": launches, "tokens": len(ids)}
+           "decode_tok_s": (len(ids) - 1) / tm.t_eval,
+           "peak_mem_gb": peak / 1e9, "launches": launches,
+           "tokens": len(ids)}
     log(f"[long] {n_layers} layers, n_ctx {n_ctx}, q8_0 KV: prefill "
         f"{prompt_len} tokens {out['prefill_tok_s']:.1f} tok/s "
-        f"({tm.t_prefill:.3f} s), decode {steps} steps "
-        f"{out['decode_tok_s']:.2f} tok/s, peak memory "
-        f"{out['peak_mem_gb']:.3f} GB, launches {launches}")
+        f"({tm.t_prefill:.3f} s), decode {len(ids) - 1} tokens ({steps} "
+        f"steps in graph blocks) {out['decode_tok_s']:.2f} tok/s, peak "
+        f"memory {out['peak_mem_gb']:.3f} GB, launches {launches}")
     n_ub = -(-prompt_len // n_ubatch)
     # four fused projections a layer, plus the lm head where it is
     # quantized: a vocab that is not a multiple of 128 (32016) is stored
@@ -1038,15 +1068,32 @@ def phase_long(device, rng, n_layers: int = 32, shape=CODELLAMA_7B,
             "qmm_int8_inkq": 0,
             "flash_attention": n_layers * (n_ub - 1),
             "flash_decode": n_layers * steps}
-    if launches != want or steps != n_predict - 1:
+    if launches != want or steps != DG.pick_block(n_predict - 1, n_ctx):
         raise AssertionError(f"launch counts {launches} != {want} "
                              f"({steps} decode steps)")
+    check_against_eager(eng, "long", ids, prompt_len, "step", steps=16)
     lg = eng.decode_one(0, ids[-1])
     if not (np.isfinite(lg).all() and lg.shape == (shape["vocab"],)
             and all(0 <= t < shape["vocab"] for t in ids)):
         raise AssertionError("long-context logits not finite / misshapen")
     log(f"[long] launch counts as expected: {want}; logits finite")
     if device.type == "cuda":
+        base = int(eng.n_past[0])
+        # the run above captured its graph inside its timing: a block of
+        # the same 64 steps again, its graph captured first
+        out["block_ms"] = wall_ms(lambda: (
+            eng.rollback(0, base), eng.decode_batch_fast({0: 5}, 64)), n=2) / 64
+        eng.rollback(0, base)
+        out["decode_one_ms"] = wall_ms(lambda: eng.decode_one(0, 5))
+        eng.rollback(0, base)
+        log(f"[long] a 64-step block: {out['block_ms']:.3f} ms a step "
+            f"({1e3 / out['block_ms']:.2f} tok/s); decode_one "
+            f"{out['decode_one_ms']:.3f} ms a step; no profiler")
+        out.update(profile_steps(
+            eng, "decode16k_block",
+            lambda: (eng.rollback(0, base),
+                     eng.decode_batch_fast({0: 5}, 16)),
+            steps=2, per=16))
         # one more 512-token ubatch at the full 16385-cell span, then
         # decode steps: where the device time of each goes
         chunk = prompt[:n_ubatch]
@@ -1054,6 +1101,7 @@ def phase_long(device, rng, n_layers: int = 32, shape=CODELLAMA_7B,
                                  lambda: eng.prefill(0, chunk), steps=1))
         out.update(profile_steps(eng, "decode16k",
                                  lambda: eng.decode_one(0, 5)))
+    out.update(graph_report(eng, "long"))
     del eng
     os.remove(path)
     if device.type == "cuda":
@@ -1143,37 +1191,46 @@ def phase_slice(device, rng, n_layers: int = 32, shape=LLAMA_7B,
     eng.timings = Timings()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    Q.reset_launches()
+    reset_port_launches()
     ids_b, _ = eng.generate_fast(prompt, n_predict=n_predict,
                                  stop_on_eos=False)
     launches = dict(Q.LAUNCHES)
     peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
             else 0)
     tm = eng.timings
-    steps = len(ids_b) - 1
+    steps = tm.n_step                  # the blocks' steps, over-run included
     out = {"layers": n_layers, "load_s": t_load,
            "prefill_tok_s": tm.n_prefill / tm.t_prefill,
-           "decode_tok_s": steps / tm.t_eval, "peak_mem_gb": peak / 1e9,
-           "launches": launches, "tokens": len(ids_b)}
+           "decode_tok_s": (len(ids_b) - 1) / tm.t_eval,
+           "peak_mem_gb": peak / 1e9, "launches": launches,
+           "tokens": len(ids_b), "steps": steps}
     log(f"[slice] {n_layers} layers: prefill {prompt_len} tokens "
-        f"{out['prefill_tok_s']:.1f} tok/s, decode {steps} steps "
-        f"{out['decode_tok_s']:.2f} tok/s, peak memory "
-        f"{out['peak_mem_gb']:.3f} GB, launches {launches}")
+        f"{out['prefill_tok_s']:.1f} tok/s, decode {len(ids_b) - 1} tokens "
+        f"({steps} steps in graph blocks) {out['decode_tok_s']:.2f} tok/s, "
+        f"peak memory {out['peak_mem_gb']:.3f} GB, launches {launches}")
     if ids_a != ids_b:
         raise AssertionError("two greedy runs on the card disagree")
     per_pass = 4 * n_layers + 1
-    want = {"qmm": per_pass, "qmm_int8": per_pass * steps,
-            "qmm_int8_inkq": 0}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+    expect_launches("slice", {"qmm": per_pass, "qmm_int8": per_pass * steps})
     log(f"[slice] launch counts as expected: qmm {per_pass} for the ubatch, "
         f"qmm_int8 {per_pass} per decode step x {steps}; two runs gave the "
         "same tokens")
+    check_against_eager(eng, "slice", ids_b, prompt_len, "step")
     if device.type == "cuda":
+        base = int(eng.n_past[0])
+        out["decode_one_ms"] = wall_ms(lambda: eng.decode_one(0, 5))
+        eng.rollback(0, base)
+        log(f"[slice] decode_one (one graph replay, logits copied back): "
+            f"{out['decode_one_ms']:.3f} ms a step, no profiler")
+        out.update(profile_steps(
+            eng, "block", lambda: (eng.rollback(0, base),
+                                   eng.decode_batch_fast({0: 5}, 16)),
+            steps=2, per=16))
         out.update(profile_steps(eng, "decode", lambda: eng.decode_one(0, 5)))
         out.update(profile_steps(
             eng, "prefill", lambda: (eng.reset_slot(0), eng.prefill(0, prompt)),
             steps=1))
+    out.update(graph_report(eng, "slice"))
     del eng
     if keep:
         out["path"] = path
@@ -1182,9 +1239,85 @@ def phase_slice(device, rng, n_layers: int = 32, shape=LLAMA_7B,
     return out
 
 
-def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
-    """torch.profiler over `steps` calls of `step`: wall ms per call, the
-    device's busy share (kernel time / wall), the top ops by device time
+# -- slice 11: the decode blocks as CUDA graphs -------------------------------
+def eager_block(eng, path: str, slots, tok, pos, act, n_steps: int,
+                temp=None, top_k: int = 40, seed: int = 0) -> np.ndarray:
+    """The reference of a block: the step its graph captured (the (B, 1)
+    forward, or the megakernel step, then the sampler), called eagerly
+    n_steps times from the same inputs, with its own buffers and, where it
+    samples, its own generator seeded `seed` -> (n_steps, B) tokens. Its
+    launches run eagerly and are counted."""
+    B = len(tok)
+    act = np.asarray(act, bool)
+    temp = (np.zeros(B, np.float32) if temp is None
+            else np.asarray(temp, np.float32))
+    bufs = DG.StepBuffers(B, eng.device)
+    if np.all(temp[act] <= 0.0):
+        sample = DG.greedy
+    else:
+        gen = torch.Generator(device=eng.device)
+        gen.manual_seed(seed)
+        sample = DG.top_k_sampler(bufs, top_k, gen)
+    if path == "mega":
+        body = DG.mega_step(eng, MD.mega_decode_layers, bufs,
+                            eng._mega_span(n_steps), slots, sample)
+    else:
+        body = DG.forward_step(eng, forward, bufs, eng._kv_span(n_steps),
+                               slots, sample)
+    bufs.stage(tok, pos, pos, act, temp)
+    with torch.no_grad():
+        for _ in range(n_steps):
+            body()
+    return bufs.out[1:1 + n_steps].cpu().numpy()
+
+
+def check_against_eager(eng, label: str, ids: list, start0: int, path: str,
+                        steps: int = 32) -> None:
+    """Hold a generate_fast run's tokens (its first token at position
+    start0) against eager_block from the same cache: the slot is rolled
+    back to start0, the reference runs `steps` steps, and the slot is
+    rolled back again."""
+    eng.rollback(0, start0)
+    ref = eager_block(eng, path, 0, [ids[0]], [start0], [1], steps)[:, 0]
+    eng.rollback(0, start0)
+    n = min(steps, len(ids) - 1)
+    same = [int(t) for t in ref[:n]] == ids[1:1 + n]
+    log(f"[{label}] the graph block's first {n} tokens "
+        f"{'equal' if same else 'DIFFER FROM'} {n} eager steps of the same "
+        "step")
+    if not same:
+        raise AssertionError(f"{label}: graph tokens {ids[1:1 + n]} != eager "
+                             f"{ref[:n].tolist()}")
+
+
+def wall_ms(call, n: int = 8) -> float:
+    """Host wall ms of one call, over n calls after one more (which may
+    capture a graph), with no profiler attached."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def graph_report(eng, label: str) -> dict:
+    """Capture seconds, number of graphs and pool memory of an engine."""
+    g = eng.graphs
+    out = {"graphs": len(g.graphs), "capture_s": g.capture_s,
+           "pool_mb": g.pool_bytes() / 2 ** 20}
+    log(f"[{label}] decode graphs: {out['graphs']} captured in "
+        f"{out['capture_s']:.2f} s, pool {out['pool_mb']:.1f} MiB "
+        f"(keys {sorted(map(str, g.graphs))})")
+    return out
+
+
+def profile_steps(eng, label: str, step, steps: int = 4,
+                  per: int = 1) -> dict:
+    """torch.profiler over `steps` calls of `step`, each `per` decode
+    steps: wall ms per decode step, the device's busy share (kernel time /
+    wall), kernel launches and graph launches, the top ops by device time
     (and every kernel of the port's csrc) and by host time."""
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -1195,7 +1328,7 @@ def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
+        wall = (time.perf_counter() - t0) * 1e3 / steps / per
     events = prof.key_averages()
     from torch.autograd import DeviceType
 
@@ -1203,14 +1336,18 @@ def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
         return e.self_device_time_total
     # kernel rows only: an operator's row repeats its kernels' time
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(dev_us(e) for e in kern) / 1e3 / steps
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel",
-                                "cudaLaunchCooperativeKernel")) // steps
-    log(f"[profile] {label}: {wall:.3f} ms wall per call, device busy "
-        f"{busy:.3f} ms ({busy / wall:.1%}), {launches} kernel launches "
-        "(cudaLaunchKernel + cudaLaunchCooperativeKernel) per call")
-    # the port's own kernels (csrc/), by entry name: ms and launches a call
+    busy = sum(dev_us(e) for e in kern) / 1e3 / steps / per
+
+    def calls(*keys):
+        return sum(e.count for e in events if e.key in keys) / steps / per
+    launches = calls("cudaLaunchKernel", "cudaLaunchCooperativeKernel")
+    graphs = calls("cudaGraphLaunch")
+    steps = steps * per
+    log(f"[profile] {label}: {wall:.3f} ms wall per step, device busy "
+        f"{busy:.3f} ms ({busy / wall:.1%}), {launches:g} kernel launches "
+        f"(cudaLaunchKernel + cudaLaunchCooperativeKernel) and {graphs:g} "
+        "graph launches (cudaGraphLaunch) per step")
+    # the port's own kernels (csrc/), by entry name: ms and launches a step
     port = {}
     for e in kern:
         m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", e.key)
@@ -1223,14 +1360,15 @@ def profile_steps(eng, label: str, step, steps: int = 4) -> dict:
     # that ran fewer ms
     for e in ranked[:8] + [e for e in ranked[8:]
                            if "(anonymous namespace)" in e.key]:
-        log(f"[profile] {label} kernel {dev_us(e) / 1e3 / steps:9.3f} ms/call "
+        log(f"[profile] {label} kernel {dev_us(e) / 1e3 / steps:9.3f} ms/step "
             f"x{e.count // steps:<5d} {e.key[:90]}")
     for e in sorted(host, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]:
         log(f"[profile] {label} host   {e.self_cpu_time_total / 1e3 / steps:9.3f}"
-            f" ms/call x{e.count // steps:<5d} {e.key[:90]}")
+            f" ms/step x{e.count // steps:<5d} {e.key[:90]}")
     return {f"{label}_wall_ms": wall, f"{label}_busy_ms": busy,
-            f"{label}_port_ms": port}
+            f"{label}_port_ms": port, f"{label}_kernel_launches": launches,
+            f"{label}_graph_launches": graphs}
 
 
 def phase_numerics(device, rng, shape=LLAMA_7B, prompt_len: int = 64,
@@ -1351,11 +1489,13 @@ def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
         "-m", path, "-p", str(pp), "-n", str(tg), "-r", str(reps),
         "-o", "json", "--device", dev])
     # each rep (and the warm-up one): a prefill ubatch (qmm); then for tg a
-    # 1-token prefill and 1 step of warm-up, a 1-token prefill, and
-    # generate_fast's 1-token prefill and tg - 1 steps (qmm_int8)
+    # 1-token prefill and a block of warm-up (n_predict 2: 16 steps), a
+    # 1-token prefill, and generate_fast's 1-token prefill and its blocks
+    # for tg - 1 tokens (qmm_int8)
+    tg_steps = 3 + DG.pick_block(1, 2048) + DG.pick_block(tg - 1, 2048)
     expect_launches("cli.bench pp/tg", {
         "qmm": per_pass * (reps + 1),
-        "qmm_int8": per_pass * (reps + 1) * (tg + 3)})
+        "qmm_int8": per_pass * (reps + 1) * tg_steps})
     out["blocks"] = blocks = {}
     orig = Engine.decode_batch_fast
 
@@ -1379,6 +1519,7 @@ def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
             f"steps in {dt:.3f} s, {pl * n_steps / dt:.1f} tok/s aggregate; "
             f"launches qmm_int8 {per_pass} x {n_steps}, nothing else")
         if pl in blocks:                                   # the timed block
+            blocks[pl]["tok_s"] = pl * n_steps / dt
             return res
         blocks[pl] = {"rows": rows, "warm_tok_s": pl * n_steps / dt}
         if pl == 4:
@@ -1396,6 +1537,22 @@ def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
                                      "from the decode_batch host loop")
             log(f"[harness] pl=4: decode_batch_fast tokens == {n_steps} steps "
                 "of the decode_batch host loop")
+            for s in toks:
+                eng.rollback(s, start[s])
+            b, tok, pos, act = eng._block_inputs(toks, n_steps, "reference")
+            ref = eager_block(eng, "step", None, tok, pos, act, n_steps)
+            for s in toks:
+                eng.rollback(s, start[s])
+            if {s: [int(t) for t in ref[:, s]] for s in toks} != res:
+                raise AssertionError("decode_batch_fast tokens differ from "
+                                     "the eager steps of its graph")
+            log(f"[harness] pl=4: decode_batch_fast tokens == {n_steps} eager "
+                f"steps of its graph's step ({b} rows)")
+            graph_report(eng, "harness")
+            reset_port_launches()
+            orig(eng, toks, n_steps, **kw)
+            expect_launches("decode_batch_fast pl=4, again",
+                            {"qmm_int8": per_pass * n_steps})
             if device.type == "cuda":
                 from torch.profiler import ProfilerActivity, profile
                 for s in toks:
@@ -1417,7 +1574,8 @@ def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
                 if not 1 <= dtoh < n_steps:
                     raise AssertionError(f"{dtoh} device-to-host copies in a "
                                          f"block of {n_steps} steps")
-                out.update(block_wall_ms=wall * 1e3, block_busy_ms=busy / 1e3,
+                out.update(block_steps=n_steps, block_wall_ms=wall * 1e3,
+                           block_busy_ms=busy / 1e3,
                            block_dtoh=dtoh)
         return res
 
@@ -1496,9 +1654,76 @@ def phase_batch_numerics(device, rng, shape=LLAMA_7B, n_slots: int = 3,
         "decode_batch + host Sampler")
     if got != host:
         raise AssertionError(f"decode_batch_sampled {got} != host {host}")
+    # the greedy and the sampled block graph against the eager steps of
+    # their step, the same seed; a reseeded block repeats, another seed not
+    for temp in (0.0, 0.9):
+        for s in cur:
+            gpu.rollback(s, start[s])
+        got = gpu.decode_batch_fast(cur, 2 * steps, temp=temp, seed=5)
+        for s in cur:
+            gpu.rollback(s, start[s])
+        b, tok, pos, act = gpu._block_inputs(cur, 2 * steps, "reference")
+        ref = eager_block(gpu, "step", None, tok, pos, act, 2 * steps,
+                          temp=np.where(act, temp, 0.0), seed=5)
+        for s in cur:
+            gpu.rollback(s, start[s])
+        again = gpu.decode_batch_fast(cur, 2 * steps, temp=temp, seed=5)
+        for s in cur:
+            gpu.rollback(s, start[s])
+        other = gpu.decode_batch_fast(cur, 2 * steps, temp=temp, seed=6)
+        ok = ({s: [int(t) for t in ref[:, s]] for s in cur} == got == again
+              and (temp == 0.0) == (other == got))
+        log(f"[batch-numerics] decode_batch_fast temp {temp}, {2 * steps} "
+            f"steps: graph tokens {'equal' if ok else 'DIFFER FROM'} the "
+            "eager steps (seed 5); seed 5 again gives the same, seed 6 "
+            f"{'the same' if other == got else 'others'}")
+        if not ok:
+            raise AssertionError(f"decode_batch_fast temp {temp}: graph {got}"
+                                 f", eager {ref.T.tolist()}, again {again}, "
+                                 f"seed 6 {other}")
+    graph_report(gpu, "batch-numerics")
     del gpu, cpu
     os.remove(path)
     return {"cos_min": min(cos)}
+
+
+# what the decode paths were predicted to do on CUDA graphs, written before
+# the graphs' first chip run (PERF.md section 5): tok/s, or ms a step
+GRAPH_PREDICTIONS = {
+    "default generate_fast": "80-110 tok/s",
+    "megakernel generate_fast": "220-240 tok/s",
+    "fused FFN + inkq decode_one": "11-13 ms a step",
+    "16k generate_fast": "75-90 tok/s",
+    "batched pl 1 / 4 / 8": "85-110 / 300-400 / 550-750 tok/s",
+}
+
+
+def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
+    """One line for each decode path: tok/s (or ms a step), the profiled
+    wall and device ms a step of its graph replays, beside the prediction."""
+    def prof(d, label):
+        return (f"{d[label + '_wall_ms']:.3f} ms wall, "
+                f"{d[label + '_busy_ms']:.3f} ms busy a step (profiled)")
+    bl = hs["blocks"]
+    rows = [
+        ("default generate_fast", f"{sl['decode_tok_s']:.2f} tok/s; "
+         f"decode_one {sl['decode_one_ms']:.3f} ms", prof(sl, "block")),
+        ("megakernel generate_fast", f"{oi['mega_decode_tok_s']:.2f} tok/s; "
+         f"_mega_step {oi['mega_step_ms']:.3f} ms", prof(oi, "mega_block")),
+        ("fused FFN + inkq decode_one",
+         f"{1e3 / oi['fused_decode_tok_s']:.3f} ms a step", prof(oi, "fused")),
+        ("16k generate_fast", f"{lc['decode_tok_s']:.2f} tok/s with its "
+         f"capture, a 64-step block {1e3 / lc['block_ms']:.2f} tok/s",
+         prof(lc, "decode16k_block")),
+        ("batched pl 1 / 4 / 8", " / ".join(
+            f"{bl[pl]['tok_s']:.1f}" for pl in sorted(bl)) + " tok/s",
+         f"pl 4 block {hs['block_wall_ms'] / hs['block_steps']:.3f} ms wall,"
+         f" {hs['block_busy_ms'] / hs['block_steps']:.3f} ms busy a step "
+         "(profiled)"),
+    ]
+    for name, got, where in rows:
+        log(f"[decode-paths] {name}: {got}; {where}; predicted "
+            f"{GRAPH_PREDICTIONS[name]}")
 
 
 def kernels_line(stats: dict, launches: dict) -> str:
@@ -1563,8 +1788,8 @@ def main() -> int:
     try:
         oi = phase_opt_in(device, rng, sl["path"], sl["layers"])
         done("opt-in")
-        phase_harness(device, rng, sl["path"], sl["layers"],
-                      st["ceiling_gbs"])
+        hs = phase_harness(device, rng, sl["path"], sl["layers"],
+                           st["ceiling_gbs"])
         done("harness")
     finally:
         os.remove(sl["path"])
@@ -1578,6 +1803,7 @@ def main() -> int:
     done("mega numerics")
     phase_batch_numerics(device, rng)
     done("batch numerics")
+    decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "
         "qmm / qmm_int8 from the slice-1 run (phase 4); flash times at B=1 "

@@ -530,3 +530,167 @@ def test_decode_batch_fast_on_card(dev, tiny_gguf):
     a = engine().decode_batch_fast({0: 11, 1: 25}, 6, temp=0.9, seed=4)
     assert a == engine().decode_batch_fast({0: 11, 1: 25}, 6, temp=0.9,
                                            seed=4)
+
+
+# -- the decode blocks as CUDA graphs (runtime/decode_graph.py) ----------------
+# A graph's tokens equal the eager steps of the step it captured (the same
+# kernels in the same order: the same bits); the counts add the capture's
+# launches on every replay; the cache keeps its storage; the megakernel
+# flags a cell outside its span instead of writing it.
+
+def _slots_engine(path, dev, B, **kw):
+    from tpulamm_torch.runtime.engine import Engine
+    eng = Engine(path, n_ctx=64, n_slots=4, device=dev, **kw)
+    for s in range(B):
+        eng.prefill(s, [1, 9 + s, 33, 4 + s])
+    return eng, {s: 11 + s for s in range(B)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("temp", [0.0, 0.9], ids=["greedy", "sampled"])
+def test_step_graph_tokens_equal_eager_steps(dev, tiny_gguf, B, temp):
+    from chip_smoke import eager_block
+    eng, toks = _slots_engine(tiny_gguf, dev, B)
+    start = {s: int(eng.n_past[s]) for s in toks}
+    got = eng.decode_batch_fast(toks, 12, temp=temp, seed=3)
+    again = []
+    for seed in (3, 4):
+        for s in toks:
+            eng.rollback(s, start[s])
+        again.append(eng.decode_batch_fast(toks, 12, temp=temp, seed=seed))
+    for s in toks:
+        eng.rollback(s, start[s])
+    b, tok, pos, act = eng._block_inputs(toks, 12, "reference")
+    ref = eager_block(eng, "step", None, tok, pos, act, 12,
+                      temp=np.where(act, temp, 0.0), seed=3)
+    assert got == {s: [int(t) for t in ref[:, s]] for s in toks}
+    assert again[0] == got                          # reseeded: the same
+    assert (again[1] == got) == (temp == 0.0)       # another seed: others
+    assert len(eng.graphs.graphs) == 1
+    if temp > 0.0:
+        # the same inputs without a reseed: the replays draw on from where
+        # the last block left the generator, so the tokens differ
+        (g,) = eng.graphs.graphs.values()
+        g.bufs.stage(tok, pos, pos, act, np.where(act, temp, 0.0))
+        drawn_on = g.run(12)
+        assert {s: [int(t) for t in drawn_on[:, s]] for s in toks} != got
+
+
+@pytest.mark.cuda
+def test_mega_graph_tokens_equal_eager_steps(dev, tiny_gguf):
+    """The megakernel's step graph (one cooperative launch captured with
+    the lm head and the sampler) against its eager steps."""
+    from chip_smoke import eager_block
+    from tpulamm_torch.runtime.engine import Engine
+    eng = Engine(tiny_gguf, n_ctx=64, megakernel=True, device=dev)
+    assert eng.mega is not None
+    prompt = [1, 9, 33, 4, 17]
+    MD.reset_launches()
+    ids, _ = eng.generate_fast(prompt, n_predict=17, stop_on_eos=False)
+    torch.cuda.synchronize()
+    assert MD.LAUNCHES == {"mega_decode": 16} and eng.timings.n_step == 16
+    eng.rollback(0, len(prompt))
+    ref = eager_block(eng, "mega", 0, [ids[0]], [len(prompt)], [1], 16)
+    assert [int(t) for t in ref[:, 0]] == ids[1:17]
+
+
+@pytest.mark.cuda
+def test_fused_ffn_graph_logits_equal_eager_forward(dev, tiny_gguf):
+    """decode_one replays the graph of the forward alone; with fused_ffn and
+    int8_inkq it captures the cooperative ffn_fused launch. Its logits
+    equal the eager forward's at the same cell (within 1e-5 of max|logit|:
+    the einsum attention's library products may pick another algorithm
+    under capture)."""
+    from tpulamm_torch.runtime.engine import Engine
+    eng = Engine(tiny_gguf, n_ctx=64, fused_ffn=True, int8_inkq=True,
+                 device=dev)
+    eng.prefill(0, [1, 9, 33])
+    n = int(eng.n_past[0])
+    FF.reset_launches()
+    a = eng.decode_one(0, 7)
+    b = eng.decode_one(0, 8)
+    torch.cuda.synchronize()
+    assert FF.LAUNCHES == {"ffn_fused": 2 * 2}      # 2 layers, 2 replays
+    eng.rollback(0, n)
+    for tok, want in ((7, a), (8, b)):
+        pos = int(eng.n_past[0])
+        cells = eng._cells_for(0, 1, np.array([pos]))
+        got = eng._run(0, np.array([tok]), np.array([pos]), cells)[0]
+        eng.n_past[0] += 1
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_replay_adds_the_capture_launches(dev, tiny_gguf):
+    eng, toks = _slots_engine(tiny_gguf, dev, 1)
+    Q.reset_launches()
+    eng.decode_batch_fast(toks, 5)
+    (g,) = eng.graphs.graphs.values()
+    assert g.delta[0] == {"qmm_int8": 9}            # 4 a layer + lm head
+    assert Q.LAUNCHES["qmm_int8"] == 9 * 5          # the warm-up not counted
+    g.bufs.stage([5], [int(eng.n_past[0])], [int(eng.n_past[0])], [1])
+    g.replay()
+    assert Q.LAUNCHES["qmm_int8"] == 9 * 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,n_predict", [
+    (dict(kv_dtype="q8_0"), 60), (dict(grp_attn_n=2, grp_attn_w=8), 24)],
+    ids=["context_shift", "self_extend"])
+def test_cache_storage_stays_across_surgery(dev, tiny_gguf, kw, n_predict):
+    """Context shift (seq_rm, seq_add, defrag) and self-extend (seq_add,
+    seq_div: positions regrouped, no cell freed, so the window holds the
+    whole run) write the cache in place, so the captured graphs go on
+    reading it."""
+    from tpulamm_torch.runtime.engine import Engine
+    from tpulamm_torch.runtime.sampling import SamplingParams
+    eng = Engine(tiny_gguf, n_ctx=32, device=dev, **kw)
+    c = eng.cache
+
+    def ptrs():
+        return [t.data_ptr() for t in c.k + c.v + (c.ks or []) + (c.vs or [])
+                + [c.pos]]
+    before = ptrs()
+    ids, _ = eng.generate([1, 9, 33, 4], n_predict=n_predict,
+                          sampling=SamplingParams(temp=0.0), stop_on_eos=False)
+    assert len(ids) == n_predict and eng.cache is c and ptrs() == before
+    assert (eng.ga_i[0] > 0) if "grp_attn_n" in kw else (eng.n_past[0] < 60)
+    np.testing.assert_array_equal(c.pos[0, :32].cpu().numpy(), eng.cell_pos[0])
+
+
+@pytest.mark.cuda
+def test_mega_error_word(dev, tiny_gguf):
+    """A cell outside the span: the kernel sets the error word and writes
+    nothing; a block whose step sets it raises."""
+    c = mega_case(np.random.default_rng(6), dev, dim=256, ffn=512, n_head=4,
+                  span=16, live=8)
+    before = [t.clone() for t in c["k"] + c["v"]]
+    w = torch.tensor([8, 16], dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    MD.mega_decode_layers(c["mega"], c["x"], w[:1], w[1:], c["kpos"], c["k"],
+                          c["v"], *c["lanes"], err)
+    torch.cuda.synchronize()
+    assert int(err) == 1
+    for t, u in zip(c["k"] + c["v"], before):
+        assert torch.equal(t, u)
+    w[1] = 8                                         # in range: no error
+    err.zero_()
+    got = MD.mega_decode_layers(c["mega"], c["x"], w[:1], w[1:], c["kpos"],
+                                c["k"], c["v"], *c["lanes"], err)
+    want = mega_call(MD.mega_decode_layers, c)
+    assert int(err) == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    from tpulamm_torch.runtime.engine import Engine
+    # n_ctx 512: the span view (256) ends before the row, so the step's
+    # position write at the cell stays inside it
+    eng = Engine(tiny_gguf, n_ctx=512, megakernel=True, device=dev)
+    eng.prefill(0, [1, 9, 33])
+    span = eng._mega_span(16)
+    assert span == 256
+    g = eng._graph("mega", 1, span, 0, "greedy")
+    g.bufs.stage([5], [span], [span], [1])
+    with pytest.raises(RuntimeError, match="outside its span"):
+        g.run(1)

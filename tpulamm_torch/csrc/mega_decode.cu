@@ -16,7 +16,11 @@
 // output, mid = act(gate) * up and each residual add rounded to bf16. The
 // new K / V rows leave as f32 (k_new, v_new) and, rounded to bf16, are
 // written into the cache in place at `cell` (whose position is still -1
-// during the step, so no block reads it).
+// during the step, so no block reads it). The position and the cell are
+// read from two int32 device words, as the JAX kernel takes qpos from an
+// array (pallas_decode.py:345), so a captured launch reads each step's own;
+// a cell outside the span sets the error word and the launch writes
+// nothing.
 //
 // What bounds it on an H100: the bytes of every layer's planes plus the
 // live K / V rows, read once a step (LLaMA-7B Q4_0 at span 1024: 4.05 GB
@@ -59,12 +63,15 @@ static_assert(NT >= MAX_HD, "phase B's merge gives each thread one element");
 // Every field is 8 bytes wide (ops/mega_decode.py builds the same struct
 // with ctypes).
 struct MegaArgs {
-  long long L, dim, H, Hkv, hd, ffn, S, cell, qpos, act, rope_kind, n_rot;
+  long long L, dim, H, Hkv, hd, ffn, S, act, rope_kind, n_rot;
   long long qt_qkv, qt_wo, qt_gu, qt_dn;        // formats of the 4 weights
   long long nch, chunk;                         // attention: chunks of S
   long long kv_hstride, kv_rstride;             // cache strides (elements)
   long long kv_vec;                             // K / V rows in 16-byte words
   double eps, scale;
+  const int* qpos;          // the token's position (a device word)
+  const int* cell;          // its cache cell, in [0, S) (a device word)
+  int* err;                 // set to 1 when *cell is outside [0, S)
   const long long* planes;  // (L, 4, 4): qa qb sa sb of wqkv, wo, gu, down
   const long long* kcache;  // (L) bf16 K view of the slot: [Hkv][S][hd]
   const long long* vcache;  // (L) bf16 V view
@@ -196,8 +203,8 @@ template <> struct RowFrag<1> {
 // 32 when EPL = 1), so a warp reads RPI = 32 / LPR rows at once, and each
 // lane loads NB rows before it uses them.
 template <int EPL>
-__device__ __noinline__ void attention(const MegaArgs& a, int l,
-                                       const __nv_bfloat16* Kc,
+__device__ __noinline__ void attention(const MegaArgs& a, int l, int qpos,
+                                       int cell, const __nv_bfloat16* Kc,
                                        const __nv_bfloat16* Vc, AttnSmem& sm,
                                        float* buf) {
   __shared__ bool last;
@@ -205,7 +212,7 @@ __device__ __noinline__ void attention(const MegaArgs& a, int l,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = (int)a.H, Hkv = (int)a.Hkv, hd = (int)a.hd, S = (int)a.S;
   const int G = H / Hkv, nq = H * hd, nkv = Hkv * hd;
-  const int nch = (int)a.nch, chunk = (int)a.chunk, qpos = (int)a.qpos;
+  const int nch = (int)a.nch, chunk = (int)a.chunk;
   const float scale = (float)a.scale;
   const long long hs = a.kv_hstride, rs = a.kv_rstride;
   int LPR = 32;
@@ -231,8 +238,8 @@ __device__ __noinline__ void attention(const MegaArgs& a, int l,
     __syncthreads();
     TL_MARK(10);
     if (c == 0 && h == j * G) {         // one block a KV head: the new row
-      __nv_bfloat16* kr = (__nv_bfloat16*)Kc + j * hs + (long long)a.cell * rs;
-      __nv_bfloat16* vr = (__nv_bfloat16*)Vc + j * hs + (long long)a.cell * rs;
+      __nv_bfloat16* kr = (__nv_bfloat16*)Kc + j * hs + (long long)cell * rs;
+      __nv_bfloat16* vr = (__nv_bfloat16*)Vc + j * hs + (long long)cell * rs;
       for (int d = tid; d < hd; d += NT) {
         a.k_new[((size_t)l * Hkv + j) * hd + d] = sm.k[d];
         a.v_new[((size_t)l * Hkv + j) * hd + d] = sm.v[d];
@@ -475,12 +482,12 @@ __device__ __forceinline__ void prefetch_l2(const float* p, int n) {
 }
 
 // phase B: the 16-byte path where the head dim and the cache rows allow
-__device__ __forceinline__ void attend(const MegaArgs& a, int l,
-                                       const __nv_bfloat16* Kc,
+__device__ __forceinline__ void attend(const MegaArgs& a, int l, int qpos,
+                                       int cell, const __nv_bfloat16* Kc,
                                        const __nv_bfloat16* Vc, AttnSmem& sm,
                                        float* buf) {
-  if (a.kv_vec) attention<8>(a, l, Kc, Vc, sm, buf);
-  else attention<1>(a, l, Kc, Vc, sm, buf);
+  if (a.kv_vec) attention<8>(a, l, qpos, cell, Kc, Vc, sm, buf);
+  else attention<1>(a, l, qpos, cell, Kc, Vc, sm, buf);
 }
 
 __global__ void __launch_bounds__(NT, MAX_BLOCKS_PER_SM)
@@ -489,9 +496,18 @@ __global__ void __launch_bounds__(NT, MAX_BLOCKS_PER_SM)
   __shared__ float buf[WARPS];
   // the arguments in shared memory: read by every thread, held by none
   __shared__ MegaArgs a;
-  if (threadIdx.x == 0) a = args;
+  __shared__ int qpos, cell;
+  if (threadIdx.x == 0) {
+    a = args;
+    qpos = __ldcg(args.qpos);           // this step's, written before it
+    cell = __ldcg(args.cell);
+  }
   TL_START();
   __syncthreads();
+  if (cell < 0 || cell >= a.S) {        // every block leaves, no write
+    if (blockIdx.x == 0 && threadIdx.x == 0) *a.err = 1;
+    return;
+  }
   const int L = (int)a.L, dim = (int)a.dim, ffn = (int)a.ffn;
   const int nq = (int)(a.H * a.hd), nqkv = (int)((a.H + 2 * a.Hkv) * a.hd);
   const int tid = threadIdx.x;
@@ -532,7 +548,7 @@ __global__ void __launch_bounds__(NT, MAX_BLOCKS_PER_SM)
                                                  a.partial, a.counters, &a, 0, l)))
     grid_sync(a.bar);
     // B: rope + attention, the new K / V row into the cache
-    attend(a, l, kv[l & 1][0], kv[l & 1][1], at, buf);
+    attend(a, l, qpos, cell, kv[l & 1][0], kv[l & 1][1], at, buf);
     grid_sync(a.bar);
     // C: attention output projection + residual
     TLG_SWITCH_FMT((int)a.qt_wo,
@@ -602,7 +618,7 @@ extern "C" int tl_mega_decode(const MegaArgs* args, int blocks, void* stream) {
       a.hd > MAX_HD || a.dim % 256 || (a.H * a.hd) % 256 || a.ffn % 256 ||
       ((a.H + 2 * a.Hkv) * a.hd) % TILE_N || a.S < 1 || a.nch < 1 ||
       a.chunk < 1 || a.chunk > MAX_CHUNK || a.nch * a.chunk < a.S ||
-      a.cell < 0 || a.cell >= a.S || a.rope_kind < 0 || a.rope_kind > 2 ||
+      !a.qpos || !a.cell || !a.err || a.rope_kind < 0 || a.rope_kind > 2 ||
       a.act < 0 || a.act > 2 || !known_format(a.qt_qkv) ||
       !known_format(a.qt_wo) || !known_format(a.qt_gu) ||
       !known_format(a.qt_dn) || (a.kv_vec && a.hd % 8) || blocks < 1 ||

@@ -12,6 +12,12 @@ llama-family stack. Counterpart of tpulamm.ops.pallas_decode.
   `mega_decode_layers_ref`, its plain version, for CPU ones. `LAUNCHES`
   counts the kernel launches.
 
+The step's position and cell are two int32 device words (the JAX kernel
+takes qpos as an array), so a launch captured in a CUDA graph reads each
+replay's own; the kernel checks the cell against the span on the device
+and, where it is outside, sets an error word and writes nothing. Both
+functions also take the two as host ints, checked on the host.
+
 Both write the new K / V rows, rounded to bf16, into the cache in place at
 the cell the engine allocated (the JAX scan writes them after the kernel),
 and return them as f32 too. They read the cache through the engine's span
@@ -201,15 +207,50 @@ def _check_step(mega: MegaModel, x, kpos, k_cache, v_cache) -> int:
     return S
 
 
-def mega_decode_layers_ref(mega: MegaModel, x, qpos: int, cell: int, kpos,
-                           k_cache, v_cache, cosq, sinq, cosk, sink):
+def error_word(mega: MegaModel, dev) -> torch.Tensor:
+    """The MegaModel's own int32 error word on `dev` (zeroed once), used
+    where a call passes none."""
+    key = ("err", str(dev))
+    w = mega.tables.get(key)
+    if w is None:
+        w = mega.tables[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return w
+
+
+def _step_words(qpos, cell, S: int, dev):
+    """(qpos, cell) as int32 device words of `dev`: host ints are checked
+    (cell in [0, S)) and copied over; words are taken as they are."""
+    if isinstance(qpos, int) and isinstance(cell, int):
+        if not 0 <= cell < S:
+            raise ValueError(f"cell {cell} is outside the span {S}")
+        w = torch.tensor([qpos, cell], dtype=torch.int32).to(dev)
+        return w[:1], w[1:]
+    for name, t in (("qpos", qpos), ("cell", cell)):
+        if not (isinstance(t, torch.Tensor) and t.dtype == torch.int32
+                and t.numel() >= 1 and t.device == dev):
+            raise ValueError(f"{name} must be a host int or an int32 word "
+                             f"on {dev}")
+    return qpos, cell
+
+
+def mega_decode_layers_ref(mega: MegaModel, x, qpos, cell, kpos,
+                           k_cache, v_cache, cosq, sinq, cosk, sink,
+                           err=None):
     """Plain version: a loop over layers at the JAX kernel's rounding
     points (pallas_decode.py:205-339); the softmax over the live cells
     only (an empty cell adds exact zeros). Same contract as
     mega_decode_layers."""
     spec = mega.spec
-    _check_step(mega, x, kpos, k_cache, v_cache)
+    S = _check_step(mega, x, kpos, k_cache, v_cache)
+    qw, cw = _step_words(qpos, cell, S, x.device)
+    qpos, cell = int(qw.reshape(-1)[0]), int(cw.reshape(-1)[0])
     f32, bf16 = torch.float32, torch.bfloat16
+    L, nkv = spec.n_layers, spec.n_kv_heads * spec.head_dim
+    if not 0 <= cell < S:               # the kernel's error word
+        (error_word(mega, x.device) if err is None else err).fill_(1)
+        return (x.new_zeros((1, spec.dim), dtype=f32),
+                x.new_zeros((L, 1, nkv), dtype=f32),
+                x.new_zeros((L, 1, nkv), dtype=f32))
     torch.backends.cuda.matmul.allow_tf32 = False       # a full-f32 reference
     H, Hkv, hd, ffn = spec.n_heads, spec.n_kv_heads, spec.head_dim, spec.ffn
     G, nq, nkv = H // Hkv, H * hd, Hkv * hd
@@ -255,10 +296,11 @@ def mega_decode_layers_ref(mega: MegaModel, x, qpos: int, cell: int, kpos,
 
 
 # -- the kernel's arguments (csrc/mega_decode.cu, struct MegaArgs) ------------
-_INTS = ("L", "dim", "H", "Hkv", "hd", "ffn", "S", "cell", "qpos", "act",
-         "rope_kind", "n_rot", "qt_qkv", "qt_wo", "qt_gu", "qt_dn", "nch",
-         "chunk", "kv_hstride", "kv_rstride", "kv_vec")
-_PTRS = ("planes", "kcache", "vcache", "attn_norm", "ffn_norm", "kpos", "x",
+_INTS = ("L", "dim", "H", "Hkv", "hd", "ffn", "S", "act", "rope_kind",
+         "n_rot", "qt_qkv", "qt_wo", "qt_gu", "qt_dn", "nch", "chunk",
+         "kv_hstride", "kv_rstride", "kv_vec")
+_PTRS = ("qpos", "cell", "err", "planes", "kcache", "vcache", "attn_norm",
+         "ffn_norm", "kpos", "x",
          "cosq", "sinq", "cosk", "sink", "x_out", "k_new", "v_new", "xres",
          "qkv", "ao", "mid", "apart", "partial", "counters", "bar")
 
@@ -292,12 +334,13 @@ def attn_chunks(S: int, blocks: int, n_heads: int) -> tuple[int, int]:
 
 
 def _table(mega: MegaModel, key, ptrs, dev) -> torch.Tensor:
-    """A device int64 table of pointers, made once for each set."""
-    t = mega.tables.get(key)
-    if t is None or t[0] != ptrs:
-        t = mega.tables[key] = (ptrs, torch.tensor(ptrs, dtype=torch.int64,
-                                                   device=dev))
-    return t[1]
+    """A device int64 table of pointers, made once for each set and kept
+    (a captured launch goes on reading the table it was given)."""
+    t = mega.tables.get((key, ptrs))
+    if t is None:
+        t = mega.tables[(key, ptrs)] = torch.tensor(ptrs, dtype=torch.int64,
+                                                    device=dev)
+    return t
 
 
 def _plane_table(mega: MegaModel, dev) -> torch.Tensor:
@@ -320,12 +363,15 @@ def _plane_table(mega: MegaModel, dev) -> torch.Tensor:
     return t
 
 
-def mega_decode_layers(mega: MegaModel, x, qpos: int, cell: int, kpos,
-                       k_cache, v_cache, cosq, sinq, cosk, sink):
+def mega_decode_layers(mega: MegaModel, x, qpos, cell, kpos,
+                       k_cache, v_cache, cosq, sinq, cosk, sink, err=None):
     """One decode step through every layer.
 
-    x: (1, dim) f32 hidden (embedding output); qpos: the token's position;
-    cell: its cache cell; kpos: (1, S) int32 cell positions (-1 = empty;
+    x: (1, dim) f32 hidden (embedding output); qpos: the token's position
+    and cell its cache cell, both host ints or both int32 device words;
+    err: an int32 device word set to 1 where the cell is outside the span
+    (then nothing is written; None: error_word(mega));
+    kpos: (1, S) int32 cell positions (-1 = empty;
     the cell's own is still -1); k_cache / v_cache: one (1, Hkv, S, hd)
     bf16 view of the slot's cache rows a layer (any strides with the last
     one 1); cos* / sin*: rope_lane_vectors. Writes the new K / V rows
@@ -334,15 +380,17 @@ def mega_decode_layers(mega: MegaModel, x, qpos: int, cell: int, kpos,
     S = _check_step(mega, x, kpos, k_cache, v_cache)
     if x.device.type == "cpu":
         return mega_decode_layers_ref(mega, x, qpos, cell, kpos, k_cache,
-                                      v_cache, cosq, sinq, cosk, sink)
+                                      v_cache, cosq, sinq, cosk, sink, err)
     spec = mega.spec
     dev = x.device
     L, H, Hkv, hd = spec.n_layers, spec.n_heads, spec.n_kv_heads, spec.head_dim
     dim, ffn, nq, nqkv = spec.dim, spec.ffn, H * hd, spec.nqkv
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd}: the kernel takes <= {MAX_HEAD_DIM}")
-    if not 0 <= cell < S:
-        raise ValueError(f"cell {cell} is outside the span {S}")
+    qw, cw = _step_words(qpos, cell, S, dev)
+    err = error_word(mega, dev) if err is None else err
+    if err.dtype != torch.int32 or err.device != dev:
+        raise ValueError(f"err must be an int32 word on {dev}")
     views = list(k_cache) + list(v_cache)
     if any(t.device != dev for t in [kpos, cosq, sinq, cosk, sink, *views]):
         raise ValueError("the megakernel needs every operand on one CUDA "
@@ -383,13 +431,14 @@ def mega_decode_layers(mega: MegaModel, x, qpos: int, cell: int, kpos,
                           for t in (x, cosq, sinq, cosk, sink))
     qt = [int(q) for q in spec.qtypes]
     a = _MegaArgs(
-        L=L, dim=dim, H=H, Hkv=Hkv, hd=hd, ffn=ffn, S=S, cell=cell,
-        qpos=qpos, act=ACTS.get(spec.act, 2),
+        L=L, dim=dim, H=H, Hkv=Hkv, hd=hd, ffn=ffn, S=S,
+        act=ACTS.get(spec.act, 2),
         rope_kind=ROPE_KINDS[spec.rope_kind], n_rot=spec.n_rot,
         qt_qkv=qt[0], qt_wo=qt[1], qt_gu=qt[2], qt_dn=qt[3],
         nch=nch, chunk=chunk, kv_hstride=st[1], kv_rstride=st[2],
         kv_vec=kv_vec,
         eps=spec.eps, scale=1.0 / math.sqrt(hd),
+        qpos=qw.data_ptr(), cell=cw.data_ptr(), err=err.data_ptr(),
         planes=planes.data_ptr(), kcache=kc.data_ptr(), vcache=vc.data_ptr(),
         attn_norm=mega.norms["attn_norm"].data_ptr(),
         ffn_norm=mega.norms["ffn_norm"].data_ptr(), kpos=kpos.data_ptr(),

@@ -14,18 +14,26 @@
 - a full context is handled as the JAX engine does: context shift (drop
   half of the tokens after the first n_keep, re-rope the rest, defrag) or,
   with grp_attn_n > 1, self-extend
-- decode runs one (B, 1) step per token; generate_fast samples on the
-  device (greedy argmax, or top-k + torch.multinomial on a seeded
-  torch.Generator) and generate samples on the host with Sampler
+- every decode step is a step graph (runtime.decode_graph): on CUDA one
+  captured CUDA graph for each (path, B, kv_span, slot, sampler), replayed
+  with no Python between its kernels; on the CPU the same step run
+  eagerly. generate_fast decodes in blocks of DECODE_BUCKETS steps as the
+  JAX engine's lax.scan blocks do (greedy argmax, or top-k + a Gumbel-max
+  draw from the engine's torch.Generator, seeded seed + len(out) a block),
+  checks EOS between blocks and rolls the cache back to the returned
+  tokens; decode_one and decode_batch replay the graph of the forward
+  alone and copy the logits back; generate samples on the host with
+  Sampler
 - the serving path: decode_batch, decode_batch_fast and
   decode_batch_sampled run over the first _b_rows slots (active-slot
   compaction); the two block methods keep n_steps of sampled tokens on the
-  device (the JAX package's lax.scan blocks) and copy them back once
+  device and copy them back once (decode_batch_sampled's sampler chain
+  runs eagerly after each replay of the forward's graph)
 - the opt-in decode kernels (the JAX package's TPULAMM_MEGAKERNEL,
   TPULAMM_FUSED_FFN and TPULAMM_INT8_INKQ, here Engine options):
   megakernel=True makes each generate_fast step of a one-slot engine one
-  launch through every layer (ops.mega_decode); fused_ffn and int8_inkq
-  change the kernels the forward runs on CUDA
+  launch through every layer (ops.mega_decode) in its own step graph;
+  fused_ffn and int8_inkq change the kernels the forward runs on CUDA
 - per-phase timings mirror llama_print_timings (llama.h:949)
 
 Entry points run on CUDA unless the caller asks for the CPU; with no
@@ -40,14 +48,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpulamm_torch.models.llama import embed, forward
+from tpulamm_torch.models.llama import forward
 from tpulamm_torch.models.loader import load_model
-from tpulamm_torch.models.transformer import _proj
 from tpulamm_torch.ops import device_sampling as ds
-from tpulamm_torch.ops.layers import rms_norm
-from tpulamm_torch.ops.mega_decode import (build_mega, mega_decode_layers,
-                                           rope_lane_vectors)
+from tpulamm_torch.ops.mega_decode import build_mega, mega_decode_layers
 from tpulamm_torch.ops.qtensor import QTensor
+from tpulamm_torch.runtime import decode_graph as dg
 from tpulamm_torch.runtime import kvcache as kv
 from tpulamm_torch.runtime.kvcache import KVCache
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
@@ -75,6 +81,7 @@ class Timings:
     n_prefill: int = 0
     t_eval: float = 0.0
     n_eval: int = 0
+    n_step: int = 0         # decode steps run on the device (whole blocks)
 
 
 class Engine:
@@ -140,6 +147,9 @@ class Engine:
         self.cell_pos = np.full((n_slots, n_ctx), -1, np.int64)
         self.ga_i = np.zeros(n_slots, np.int64)     # self-extend group index
         self.mega = self._build_mega() if megakernel else None
+        # the step graphs (one memory pool) and the generator of their draws
+        self.graphs = dg.DecodeGraphs(self.device, n_ctx)
+        self._gen = torch.Generator(device=self.device)
         self.timings = Timings()
         self.timings.t_load = time.perf_counter() - t0
 
@@ -250,16 +260,16 @@ class Engine:
         return next(b for b in PREFILL_BUCKETS if b >= t)
 
     def _step(self, tok: np.ndarray, pos: np.ndarray, cel: np.ndarray,
-              slots: int | None) -> torch.Tensor:
-        """One forward over a (B, T) batch: one slot's row (slots an int)
-        or every slot (None); returns device logits."""
+              slot: int) -> torch.Tensor:
+        """One eager forward over one slot's (1, T) prefill ubatch; returns
+        device logits (decode steps replay graphs: _graph)."""
         n = tok.shape[1]
         # one host-to-device copy for tokens, positions and cells
         host = torch.from_numpy(np.stack([tok, pos, cel]).astype(np.int64))
         t, p, c = host.to(self.device)
         with torch.no_grad():
             logits, self.cache = forward(self.params, self.cfg, t, p,
-                                         self.cache, slots, c,
+                                         self.cache, slot, c,
                                          kv_span=self._kv_span(0),
                                          t_bucket=(self._bucket_for(n)
                                                    if n > 1 else 1))
@@ -317,50 +327,87 @@ class Engine:
         self.timings.n_prefill += len(toks)
         return np.concatenate(out) if logits_all else out[-1][0]
 
-    def _decode_device(self, slot: int, token: int) -> torch.Tensor:
-        pos = np.array([self.n_past[slot]], np.int32)
-        cells = self._cells_for(slot, 1, pos)
-        logits = self._run_device(slot, np.array([token], np.int32), pos,
-                                  cells)
-        self.n_past[slot] += 1
-        return logits[0]
+    # -- decode steps: the step graphs (runtime.decode_graph) ----------------
+    def _graph(self, path: str, B: int, span, slots, sampler) -> dg.StepGraph:
+        """The step graph of one key. path "step" (the (B, 1) forward) or
+        "mega" (the megakernel step, B = 1); span: the forward's kv_span or
+        the megakernel's span view; slots: an int slot or None (the first
+        B); sampler "logits" (the forward alone, its logits kept),
+        "greedy" or ("top_k", k)."""
+        def make():
+            bufs = dg.StepBuffers(B, self.device, self.cfg.vocab_size
+                                  if sampler == "logits" else None)
+            gen, sample = None, None
+            if sampler == "greedy":
+                sample = dg.greedy
+            elif sampler != "logits":
+                gen = self._gen
+                sample = dg.top_k_sampler(bufs, sampler[1], gen)
+            if path == "mega":
+                body = dg.mega_step(self, mega_decode_layers, bufs, span,
+                                    slots, sample)
+            else:
+                body = dg.forward_step(self, forward, bufs, span, slots,
+                                       sample)
+            return bufs, body, gen
+        return self.graphs.get((path, B, span, slots, sampler), make)
 
-    def _mega_step(self, slot: int, token: int) -> torch.Tensor:
-        """One decode step of a fresh-slot stream through the megakernel:
-        embed, rope lane vectors, the kernel (every layer; it writes the
-        K/V rows at the token's cell), final norm, lm head, then the cell's
-        position; returns (vocab,) device logits."""
-        cfg, params = self.cfg, self.params
+    def _mega_span(self, need: int) -> int:
+        """The megakernel's span view: _occupied_span(need), else the whole
+        cache row."""
+        return self._occupied_span(need) or self.cache.pos.shape[1]
+
+    def _block(self, path: str, slots, tok, pos, act, n_steps: int,
+               temp, top_k: int, seed: int) -> np.ndarray:
+        """n_steps decode steps of a block (JAX: one lax.scan dispatch)
+        from (B,) host tokens, positions and active flags: cell = position,
+        the span fixed for the block (_kv_span(n_steps), or the
+        megakernel's view). The inputs go over in one copy, the step graph
+        replays n_steps times and the (n_steps, B) tokens come back in one
+        copy; temp (B,) picks the sampler: greedy where every active row
+        is at temp <= 0, else top-k with the generator seeded `seed`."""
+        act = np.asarray(act, bool)
+        temp = np.asarray(temp, np.float32)
+        sampler = ("greedy" if np.all(temp[act] <= 0.0)
+                   else ("top_k", int(top_k)))
+        span = (self._mega_span(n_steps) if path == "mega"
+                else self._kv_span(n_steps))
+        g = self._graph(path, len(tok), span, slots, sampler)
+        g.bufs.stage(tok, pos, pos, act, temp)
+        if sampler != "greedy":
+            self._gen.manual_seed(seed)
+        out = g.run(n_steps)
+        self.timings.n_step += n_steps
+        return out
+
+    def _step_logits(self, slots, tok, pos, cel, act) -> np.ndarray:
+        """One (B, 1) forward step through the graph of the forward alone
+        (JAX: one jitted dispatch) -> (B, vocab) host logits."""
+        g = self._graph("step", len(tok), self._kv_span(0), slots, "logits")
+        g.bufs.stage(tok, pos, cel, act)
+        self.timings.n_step += 1
+        return g.logits()
+
+    def _mega_step(self, slot: int, token: int) -> np.ndarray:
+        """One decode step of a fresh-slot stream through the megakernel's
+        graph (span _occupied_span(0)); returns (vocab,) host logits."""
         pos = int(self.n_past[slot])
         cell = int(self._cells_for(slot, 1, np.array([pos]))[0])
-        span = self._occupied_span(0) or self.cache.pos.shape[1]
-        tok, p = torch.tensor([token, pos]).to(self.device)
-        rows = slice(slot, slot + 1)
-        with torch.no_grad():
-            h = embed(params, cfg, tok.view(1, 1))
-            if cfg.emb_scale != 1.0:
-                h = (h.to(torch.float32) * cfg.emb_scale).to(cfg.cdtype)
-            lanes = rope_lane_vectors(self.mega.rope, cfg.head_dim,
-                                      cfg.n_heads, cfg.n_kv_heads, p.view(1))
-            x_out, _, _ = mega_decode_layers(
-                self.mega, h[:, 0].to(torch.float32), pos, cell,
-                self.cache.pos[rows, :span],
-                [k[rows, :, :span] for k in self.cache.k],
-                [v[rows, :, :span] for v in self.cache.v], *lanes)
-            hh = rms_norm(x_out.to(cfg.cdtype), params["out_norm"],
-                          cfg.norm_eps)
-            if cfg.logit_scale != 1.0:
-                hh = (hh.to(torch.float32) * cfg.logit_scale).to(cfg.cdtype)
-            logits = _proj(hh, params["output"], cfg, params.get("output_b"))
-            self.cache.pos[slot, cell] = pos
+        g = self._graph("mega", 1, self._mega_span(0), slot, "logits")
+        g.bufs.stage([token], [pos], [cell], [1])
+        self.timings.n_step += 1
+        lg = g.logits()[0]
         self.n_past[slot] += 1
-        return logits[0, :cfg.vocab_size].to(torch.float32)
+        return lg
 
     def decode_one(self, slot: int, token: int) -> np.ndarray:
         """One decode step; returns (vocab,) logits."""
         t0 = time.perf_counter()
         self._maybe_shift(slot)
-        logits = self._decode_device(slot, token).cpu().numpy()
+        pos = int(self.n_past[slot])
+        cell = self._cells_for(slot, 1, np.array([pos]))[0]
+        logits = self._step_logits(int(slot), [token], [pos], [cell], [1])[0]
+        self.n_past[slot] += 1
         self.timings.t_eval += time.perf_counter() - t0
         self.timings.n_eval += 1
         return logits
@@ -372,17 +419,17 @@ class Engine:
         t0 = time.perf_counter()
         b = self._b_rows(toks) or self.n_slots
         self._assert_b_cover(toks, b)
-        tok = np.zeros((b, 1), np.int32)
-        pos = np.full((b, 1), -1, np.int32)
-        cel = np.full((b, 1), self.n_ctx, np.int32)
+        tok = np.zeros(b, np.int32)
+        pos = np.full(b, -1, np.int32)
+        cel = np.full(b, self.n_ctx, np.int32)
+        act = np.zeros(b, np.int32)
         for slot, t in toks.items():
             self._maybe_shift(slot)
             p = self.n_past[slot]
-            tok[slot, 0] = t
-            pos[slot, 0] = p
-            cel[slot, 0] = self._cells_for(slot, 1, np.array([p]))[0]
+            tok[slot], pos[slot], act[slot] = t, p, 1
+            cel[slot] = self._cells_for(slot, 1, np.array([p]))[0]
             self.n_past[slot] += 1
-        out = self._step(tok, pos, cel, None)[:, 0].cpu().numpy()
+        out = self._step_logits(None, tok, pos, cel, act)
         self.timings.t_eval += time.perf_counter() - t0
         self.timings.n_eval += len(toks)
         return {slot: out[slot] for slot in toks}
@@ -410,35 +457,6 @@ class Engine:
             act[s] = True
         return b, tok, pos, act
 
-    def _decode_block(self, tok: np.ndarray, pos: np.ndarray, act: np.ndarray,
-                      n_steps: int, sample) -> np.ndarray:
-        """n_steps (B, 1) forward steps with the tokens kept on the device.
-        Positions and cells (cell = position; inactive rows position -1
-        and the trash cell) are known in advance and go to the device in
-        one copy with the tokens; the (n_steps, B) tokens come back in one
-        copy at the end. The attention span is _kv_span(n_steps), fixed for
-        the block as in the JAX scan. sample(lg (B, V) f32, cur (B,),
-        active (B,)) -> next tokens (B,); inactive rows keep their token."""
-        steps = np.arange(n_steps)[:, None]
-        host = np.concatenate([np.where(act, pos + steps, -1),
-                               np.where(act, pos + steps, self.n_ctx),
-                               tok[None], act[None]]).astype(np.int64)
-        dev = torch.from_numpy(host).to(self.device)
-        p, c = dev[:n_steps], dev[n_steps:2 * n_steps]
-        cur, active = dev[-2], dev[-1].to(torch.bool)
-        span = self._kv_span(n_steps)
-        out = torch.empty((n_steps, len(tok)), dtype=torch.int64,
-                          device=self.device)
-        with torch.no_grad():
-            for i in range(n_steps):
-                logits, self.cache = forward(
-                    self.params, self.cfg, cur[:, None], p[i][:, None],
-                    self.cache, None, c[i][:, None], kv_span=span, t_bucket=1)
-                cur = torch.where(active, sample(logits[:, 0], cur, active),
-                                  cur)
-                out[i] = cur
-        return out.cpu().numpy()
-
     def _finish_block(self, toks: dict[int, int], n_steps: int,
                       out: np.ndarray, t0: float) -> dict[int, list[int]]:
         """Advance the host mirrors past a block; {slot: its tokens}."""
@@ -458,15 +476,16 @@ class Engine:
                           top_k: int = 40, seed: int = 0
                           ) -> dict[int, list[int]]:
         """Decode n_steps tokens for several slots in one device-resident
-        block (JAX: one lax.scan dispatch).
+        block (JAX: one lax.scan dispatch): n_steps replays of the step
+        graph with its sampler inside.
 
         Requires contiguous cells per slot (true after reset + prefill, not
         after a context shift) and plain temp / top-k sampling: greedy
         argmax, or top-k (0 = the full vocab) at `temp` with one draw a row
-        from a torch.Generator seeded with `seed`; rows with temp <= 0 take
-        the argmax. The draw is the Gumbel-max form of a multinomial draw
-        from softmax(top-k / temp): torch.multinomial checks its input on
-        the host, a sync a step. Returns {slot: [n_steps tokens]}, where
+        from the engine's generator seeded with `seed`; rows with temp <= 0
+        take the argmax. The draw is the Gumbel-max form of a multinomial
+        draw from softmax(top-k / temp): torch.multinomial checks its input
+        on the host, a sync a step. Returns {slot: [n_steps tokens]}, where
         result[s][0] is the token AFTER toks[s]."""
         b, tok, pos, act = self._block_inputs(toks, n_steps,
                                               "decode_batch_fast")
@@ -474,22 +493,8 @@ class Engine:
         tv = np.zeros(b, np.float32)
         for s in toks:
             tv[s] = temp if isinstance(temp, (int, float)) else temp.get(s, 0.0)
-        if np.all(tv[act] <= 0.0):
-            def sample(lg, cur, active):
-                return torch.argmax(lg, dim=-1)
-        else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            t_dev = torch.from_numpy(tv).to(self.device)
-
-            def sample(lg, cur, active):
-                vals, idx = ((lg, None) if top_k <= 0
-                             else torch.topk(lg, min(top_k, lg.shape[-1])))
-                j = ds.gumbel_argmax(
-                    vals / torch.clamp(t_dev, min=1e-6)[:, None], gen)
-                pick = j if idx is None else idx.gather(-1, j[:, None])[:, 0]
-                return torch.where(t_dev > 0.0, pick, torch.argmax(lg, dim=-1))
-        out = self._decode_block(tok, pos, act, n_steps, sample)
+        out = self._block("step", None, tok, pos, act, n_steps, tv, top_k,
+                          seed)
         return self._finish_block(toks, n_steps, out, t0)
 
     def decode_batch_sampled(self, toks: dict[int, int], n_steps: int,
@@ -497,7 +502,10 @@ class Engine:
                              ) -> dict[int, list[int]]:
         """decode_batch_fast with the full sampler chain on the device
         (ops.device_sampling: penalties over a token ring, the default
-        queue with per-slot parameters).
+        queue with per-slot parameters). Each step replays the graph of
+        the forward alone; the chain runs eagerly after it, on the device
+        (its ring cursor is a host int), and feeds the token back into the
+        graph's buffers.
 
         samplers: {slot: runtime.sampling.Sampler} supplies per-slot
         params and the penalty history (Sampler.prev). The caller must
@@ -515,18 +523,25 @@ class Engine:
         counts = ds.build_counts(ring, wr, sp.last_n, vocab)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-
-        def sample(lg, cur, active):
-            nonlocal ring, wr, counts
-            nxt = torch.where(active, ds.sample_chain(lg, gen, sp, counts,
-                                                      nl_id, eos_id), cur)
-            # host sampler semantics: the sampled token enters the penalty
-            # window at once (accept at sample)
-            ring, wr, counts = ds.push_token(ring, wr, counts, sp.last_n, nxt,
-                                             active)
-            return nxt
-        out = self._decode_block(tok, pos, act, n_steps, sample)
-        return self._finish_block(toks, n_steps, out, t0)
+        g = self._graph("step", b, self._kv_span(n_steps), None, "logits")
+        bufs = g.bufs
+        bufs.stage(tok, pos, pos, act)
+        active = bufs.act.bool()
+        out = torch.empty((n_steps, b), dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            for i in range(n_steps):
+                g.replay()
+                nxt = torch.where(active, ds.sample_chain(
+                    bufs.logits, gen, sp, counts, nl_id, eos_id),
+                    bufs.tok.long())
+                # host sampler semantics: the sampled token enters the
+                # penalty window at once (accept at sample)
+                ring, wr, counts = ds.push_token(ring, wr, counts, sp.last_n,
+                                                 nxt, active)
+                bufs.tok.copy_(nxt)
+                out[i] = nxt
+        self.timings.n_step += n_steps
+        return self._finish_block(toks, n_steps, out.cpu().numpy(), t0)
 
     def rollback(self, slot: int, n_past: int):
         """Drop KV cells at positions >= n_past."""
@@ -608,43 +623,48 @@ class Engine:
     def _eos(self) -> int:
         return self.tokenizer.vocab.eos_id if self.tokenizer else 2
 
-    @staticmethod
-    def _sample_next(lg: torch.Tensor, temp: float, top_k: int,
-                     gen: torch.Generator) -> int:
-        """Device sampler: greedy argmax, else top-k (0 = full vocab) +
-        softmax at `temp` + one multinomial draw from `gen`."""
-        if temp <= 0.0:
-            return int(torch.argmax(lg))
-        vals, idx = ((lg, None) if top_k <= 0
-                     else torch.topk(lg, min(top_k, lg.shape[-1])))
-        probs = torch.softmax(vals / max(temp, 1e-6), dim=-1)
-        j = torch.multinomial(probs, 1, generator=gen)
-        return int(j if idx is None else idx[j])
-
     def generate_fast(self, prompt, *, n_predict: int = 128,
                       temp: float = 0.0, top_k: int = 40, seed: int = 0,
                       slot: int = 0, stop_on_eos: bool = True):
-        """Prefill, then a host loop of single-token decode steps with the
-        sampling on the device. Returns (token_ids, text)."""
+        """Prefill, then decode blocks on the device as the JAX engine runs
+        them (engine.py:1519-1612): the first token greedy; blocks of
+        DECODE_BUCKETS steps (decode_graph.pick_block), each seeded seed +
+        len(out), with EOS checked between blocks; step i of a block writes
+        the KV of the token it carries at cell = position. Afterwards the
+        cache is rolled back to start + min(len(out), steps written): it
+        holds the returned tokens, all but the last where the output
+        filled the blocks exactly. The megakernel serves a one-slot engine
+        (engine.py:1538-1544). Needs a fresh slot (it is reset). Returns
+        (token_ids, text)."""
         tokens = self._encode(prompt)
         self.reset_slot(slot)
         logits = self.prefill(slot, tokens)
         t0 = time.perf_counter()
         first = int(np.argmax(logits))   # first token greedy, as in JAX
         eos = self._eos()
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        # the megakernel serves the one-slot stream (engine.py:1538-1544)
-        step = (self._mega_step if self.mega is not None and self.n_slots == 1
-                else self._decode_device)
+        path = ("mega" if self.mega is not None and self.n_slots == 1
+                else "step")
+        start0 = int(self.n_past[slot])
         out = [first]
-        while len(out) < n_predict and not (stop_on_eos and out[-1] == eos):
-            if self.n_ctx - self.n_past[slot] - 1 <= 0:
+        while len(out) < n_predict and not (stop_on_eos and eos in out):
+            n = dg.pick_block(n_predict - len(out),
+                              self.n_ctx - int(self.n_past[slot]) - 1)
+            if n <= 0:
                 break                  # context full: no shift, as in JAX
-            lg = step(slot, out[-1])
-            out.append(self._sample_next(lg, temp, top_k, gen))
+            startb = int(self.n_past[slot])
+            toks = self._block(path, int(slot), [out[-1]], [startb], [1], n,
+                               [temp], top_k, seed + len(out))
+            self.n_past[slot] = startb + n
+            self.cell_pos[slot, startb:startb + n] = np.arange(startb,
+                                                               startb + n)
+            out.extend(int(t) for t in toks[:, 0])
+        total_written = int(self.n_past[slot]) - start0
+        out = out[:n_predict]
         if stop_on_eos and eos in out:
             out = out[:out.index(eos)]
+        target = start0 + min(len(out), total_written)
+        if target != int(self.n_past[slot]):
+            self.rollback(slot, target)
         self.timings.t_eval += time.perf_counter() - t0
         self.timings.n_eval += len(out)
         text = self.tokenizer.decode(out) if self.tokenizer else ""

@@ -38,7 +38,8 @@ from tpulamm_torch.tools.synth import random_blocks
 from tpulamm_torch.tools.timing import device_label, time_ms, time_samples
 
 # name -> (what is removed, [(text in the sources, replacement)])
-_NO_ATTN = ("    attend(a, l, kv[l & 1][0], kv[l & 1][1], at, buf);\n", "")
+_NO_ATTN = ("    attend(a, l, qpos, cell, kv[l & 1][0], kv[l & 1][1], at, "
+            "buf);\n", "")
 _NO_PRODUCTS = [("  Planes pw[NW];                          // in registers\n",
                  "  return;\n  Planes pw[NW];\n")]
 ABLATIONS = {
@@ -184,15 +185,19 @@ def inputs(rng, device, *, dim: int = 4096, ffn: int = 11008,
     lanes = MD.rope_lane_vectors(mega.rope, hd, n_head, n_kv,
                                  torch.tensor([live], device=device))
     x = torch.from_numpy(rng.standard_normal((1, dim), dtype=np.float32))
-    return dict(mega=mega, x=x.to(device), pos=live, kpos=kpos,
+    # the position and the cell as the engine's step graphs pass them:
+    # int32 device words, made once (a host int would add a copy a call)
+    words = torch.tensor([live, live], dtype=torch.int32, device=device)
+    return dict(mega=mega, x=x.to(device), pos=live, words=words, kpos=kpos,
                 k=kv[:n_layers], v=kv[n_layers:], lanes=lanes)
 
 
 def step(fn, c):
     """One decode step of case c through fn (mega_decode_layers or its
-    plain version)."""
-    return fn(c["mega"], c["x"], c["pos"], c["pos"], c["kpos"], c["k"],
-              c["v"], *c["lanes"])
+    plain version), position and cell in the case's device words."""
+    w = c["words"]
+    return fn(c["mega"], c["x"], w[:1], w[1:], c["kpos"], c["k"], c["v"],
+              *c["lanes"])
 
 
 def ptxas_lines(log: str) -> list[str]:
