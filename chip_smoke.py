@@ -72,6 +72,20 @@ Phases (any failure raises, so the exit code is not 0):
      against a host loop of decode_batch and against the eager steps of
      its graph, and a profile of one block (one device-to-host copy a
      block, none a step)
+  7. the HTTP server (tpulamm_torch/server/server.py) on the phase-4 model
+     with 4 slots, n_ctx 2048 and a bf16 cache, over loopback HTTP: four
+     concurrent greedy streamed /completion requests (prompts of 40, 200,
+     500 and 1,200 tokens, 64 tokens each), each then served alone and
+     held to the concurrent text token for token (a parting only at a
+     near tie of the alone run, top-two gap <= 1e-2 of max|logit|); a
+     streamed chat completion against the same request unstreamed; a
+     sampled request with penalties twice with one seed (the same text,
+     the sampled tier); a GBNF request (its text parses); /embedding; a
+     cache_prompt repeat; /metrics with each decode tier > 0; then
+     /embedding of a 2-layer model of the same widths against the CPU
+     plain embed (cosine >= 0.999); TTFT, tok/s a request (cold or warm)
+     and in aggregate, graphs and pool, the tier counters and the launches
+     (qmm, qmm_int8 and flash_attention each > 0)
   4b. the long-context path at full width and depth: a CodeLlama-7B-shape
      Q4_0 GGUF (32 layers, vocab 32016, rope base 1e6, context 16384)
      served by Engine(n_ctx=16384, kv_dtype="q8_0") -- generate_fast on a
@@ -113,12 +127,16 @@ import json
 import os
 import re
 import sys
+import threading
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from tpulamm_torch.gguf.constants import GGMLType
+from tpulamm_torch.grammar.engine import Grammar
 from tpulamm_torch.ops import ffn_fused as FF
 from tpulamm_torch.ops import flash_attention as FA
 from tpulamm_torch.ops import kernels
@@ -129,6 +147,7 @@ from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
 from tpulamm_torch.runtime import decode_graph as DG
 from tpulamm_torch.runtime.engine import Engine, Timings, forward
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
+from tpulamm_torch.server import server as SV
 from tpulamm_torch.tools import int8_ablation as IA
 from tpulamm_torch.tools import ffn_ablation as FAB
 from tpulamm_torch.tools import mega_ablation as MA
@@ -1558,11 +1577,16 @@ def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
                 for s in toks:
                     eng.rollback(s, start[s])
                 torch.cuda.synchronize()
+                # acc_events and the synchronize keep the block's one copy
+                # back in the profile: a run without them once recorded
+                # the block's kernels but not its copy
                 with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+                                         ProfilerActivity.CUDA],
+                             acc_events=True) as prof:
                     t0 = time.perf_counter()
                     orig(eng, toks, n_steps, **kw)
                     wall = time.perf_counter() - t0
+                    torch.cuda.synchronize()
                 dtoh = count_dtoh(prof)
                 busy = sum(e.self_device_time_total
                            for e in prof.key_averages()
@@ -1687,6 +1711,319 @@ def phase_batch_numerics(device, rng, shape=LLAMA_7B, n_slots: int = 3,
     return {"cos_min": min(cos)}
 
 
+# -- slice 12: the HTTP server ------------------------------------------------
+# the four concurrent greedy requests: prompt tokens (the last spans three
+# 512-token ubatches, so flash_attention runs)
+SERVER_PROMPTS = (40, 200, 500, 1200)
+# what phase 7 was predicted to do, written before its first chip run
+# (PERF.md section 5)
+SERVER_PREDICTIONS = {
+    "ttft": "0.08-0.2 s for the first request served, 0.5-0.9 s the last",
+    "aggregate": "110-180 tok/s over the window, 200-280 decode alone",
+    "alone": "90-125 tok/s a request alone",
+    "sampled": "15-40% below the same prompt's greedy run alone",
+}
+
+
+def http(base: str, path: str, body: dict | None = None,
+         timeout: float = 300) -> dict:
+    """One request to the server (GET without a body); raises unless it
+    answers 200 -> its JSON, or the text of /metrics."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        raw = r.read()
+    return raw.decode() if path == "/metrics" else json.loads(raw)
+
+
+def http_stream(base: str, path: str, body: dict, graphs=None,
+                timeout: float = 300) -> dict:
+    """A streamed request: its pieces (one SSE chunk a token, its piece
+    possibly empty, before the chunk that finishes), the
+    seconds to the first and to the last piece, and whether a decode
+    graph was captured while it decoded (`graphs`: the engine's dict)."""
+    req = urllib.request.Request(
+        base + path, data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    pieces, times, n_graphs = [], [], []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            line = line.decode()
+            if not line.startswith("data: ") or "[DONE]" in line:
+                continue
+            obj = json.loads(line[6:])
+            ch = obj["choices"][0] if "choices" in obj else None
+            piece = (obj["content"] if ch is None
+                     else ch.get("delta", {}).get("content", ch.get("text")))
+            finish = obj["stop"] if ch is None else ch["finish_reason"]
+            if finish == "error":
+                raise AssertionError(f"{path}: the server failed the request")
+            if not finish:                     # a token's chunk
+                pieces.append(piece or "")
+                times.append(time.perf_counter() - t0)
+                if graphs is not None:
+                    n_graphs.append(len(graphs))
+    if not times:
+        raise AssertionError(f"{path}: no token came back")
+    return {"pieces": pieces, "ttft": times[0], "t_last": times[-1],
+            "tok_s": (len(times) - 1) / max(times[-1] - times[0], 1e-9),
+            "cold": bool(n_graphs) and n_graphs[-1] > n_graphs[0]}
+
+
+def boot_server(path: str, device, **kw):
+    """The port's server in a thread on 127.0.0.1, port 0 -> (the started
+    event, with .httpd and .sched, and the base URL); raises as soon as
+    the thread ends without starting the server."""
+    started = threading.Event()
+    th = threading.Thread(target=SV.serve, args=(path,), daemon=True,
+                          kwargs=dict(host="127.0.0.1", port=0,
+                                      started=started, device=device, **kw))
+    th.start()
+    t0 = time.perf_counter()
+    while not started.wait(timeout=0.5):
+        if not th.is_alive() or time.perf_counter() - t0 > 300:
+            raise AssertionError("the server did not start")
+    started.thread = th
+    return started, f"http://127.0.0.1:{started.httpd.server_port}"
+
+
+def stop_server(started) -> None:
+    """Stop the scheduler and the HTTP server and wait for their threads;
+    the engine is then free for the calling thread."""
+    started.sched.running = False
+    started.httpd.shutdown()
+    started.httpd.server_close()
+    started.sched.join(timeout=60)
+    started.thread.join(timeout=60)
+    if started.sched.is_alive() or started.thread.is_alive():
+        raise AssertionError("the server's threads did not stop")
+
+
+def metrics_of(base: str) -> dict:
+    text = http(base, "/metrics")
+    return {ln.split()[0].split(":")[1]: float(ln.split()[1])
+            for ln in text.splitlines() if ln and not ln.startswith("#")}
+
+
+def near_tie(eng, prompt: list, k: int) -> tuple[float, float]:
+    """`prompt` decoded greedily alone on a stopped server's engine (slot
+    0: prefill, then k decode_one steps) -> the top-two gap of the logits
+    that pick token k, and their max |logit|."""
+    eng.reset_slot(0)
+    lg = eng.prefill(0, prompt)
+    for _ in range(k):
+        lg = eng.decode_one(0, int(np.argmax(lg)))
+    top = np.sort(lg)[-2:]
+    return float(top[1] - top[0]), float(np.abs(lg).max())
+
+
+def phase_server(device, rng, path: str, n_layers: int, smi: str,
+                 shape=LLAMA_7B, prompts=SERVER_PROMPTS, n_predict: int = 64,
+                 n_ctx: int = 2048, n_sampled: int = 64,
+                 emb_text: str = "hi there") -> dict:
+    """Slice 12 at full width: the port's HTTP server with 4 slots on the
+    phase-4 model, driven over loopback HTTP -- four concurrent greedy
+    streamed /completion requests, each then served alone (token for
+    token the same, or parting only at a near tie of the alone run:
+    top-two gap <= 1e-2 of max|logit|, reissued with n_probs 2), a
+    streamed chat completion against the same request unstreamed, a
+    sampled request with penalties twice with one seed (the same text, the
+    sampled tier), a GBNF request (its text parses), an /embedding, a
+    cache_prompt repeat, the /metrics tiers; then an /embedding of a
+    2-layer model of the same widths against the port's CPU plain embed
+    (cosine >= 0.999; "hi there" is 14 tokens, so its projections take
+    the int8 gemv, M <= 16). Launches of qmm, qmm_int8 and flash_attention must
+    each be > 0."""
+    reset_port_launches()
+    t_phase = time.perf_counter()
+    started, base = boot_server(path, device, n_slots=4, n_ctx=n_ctx,
+                                cache_type_k="bfloat16")
+    sched = started.sched
+    eng = sched.engine
+    graphs = eng.graphs.graphs
+    log(f"[server] {n_layers} layers, 4 slots, n_ctx {n_ctx}, bf16 cache: "
+        f"up in {time.perf_counter() - t_phase:.1f} s at {base}")
+    # ignore_eos: every request runs its n_predict tokens
+    greedy = {"temperature": 0.0, "repeat_penalty": 1.0,
+              "n_predict": n_predict, "ignore_eos": True}
+    toks = [rng.integers(3, shape["vocab"], size=n).tolist() for n in prompts]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(toks)) as ex:
+        futs = [ex.submit(http_stream, base, "/completion",
+                          dict(greedy, prompt=p), graphs) for p in toks]
+        conc = [f.result() for f in futs]
+    window = time.perf_counter() - t0
+    agg = sum(len(c["pieces"]) for c in conc) / window
+    first = max(c["ttft"] for c in conc)
+    dec_agg = sum(len(c["pieces"]) - 1 for c in conc) / (
+        max(c["t_last"] for c in conc) - first)
+    for n, c in zip(prompts, conc):
+        log(f"[server] concurrent, prompt {n} tokens: TTFT "
+            f"{c['ttft']:.3f} s, {len(c['pieces'])} tokens, decode "
+            f"{c['tok_s']:.2f} tok/s, {'cold' if c['cold'] else 'warm'} "
+            f"({smi})")
+    log(f"[server] aggregate over the concurrent window ({window:.3f} s, "
+        f"prefills included): {agg:.2f} tok/s; decode only, from the last "
+        f"first token: {dec_agg:.2f} tok/s ({smi}); predicted "
+        f"{SERVER_PREDICTIONS['aggregate']}, TTFT "
+        f"{SERVER_PREDICTIONS['ttft']}")
+    alone = [http_stream(base, "/completion", dict(greedy, prompt=p), graphs)
+             for p in toks]
+    parted = []
+    for n, p, c, a in zip(prompts, toks, conc, alone):
+        log(f"[server] alone, prompt {n} tokens: TTFT {a['ttft']:.3f} s, "
+            f"decode {a['tok_s']:.2f} tok/s, "
+            f"{'cold' if a['cold'] else 'warm'} ({smi}); predicted "
+            f"{SERVER_PREDICTIONS['alone']}")
+        if len(c["pieces"]) != n_predict or len(a["pieces"]) != n_predict:
+            raise AssertionError(f"prompt {n}: {len(c['pieces'])} / "
+                                 f"{len(a['pieces'])} tokens, not {n_predict}")
+        if c["pieces"] != a["pieces"]:
+            k = next(i for i, (x, y) in enumerate(zip(c["pieces"],
+                                                      a["pieces"])) if x != y)
+            probs = http(base, "/completion", dict(greedy, prompt=p,
+                                                   n_probs=2))
+            step = probs["completion_probabilities"][k]
+            log(f"[server] prompt {n}: concurrent and alone part at token "
+                f"{k}; n_probs 2 there: {step['probs']}")
+            parted.append((n, p, k, c["pieces"][k], a["pieces"][k]))
+    log(f"[server] greedy: {len(prompts) - len(parted)} of {len(prompts)} "
+        "concurrent completions equal the same request served alone, token "
+        "for token")
+
+    chat = {"messages": [{"role": "user", "content": "Say something."}],
+            "max_tokens": 16, "temperature": 0.0, "repeat_penalty": 1.0}
+    whole = http(base, "/v1/chat/completions", chat)
+    streamed = http_stream(base, "/v1/chat/completions", chat)
+    text = whole["choices"][0]["message"]["content"]
+    same = "".join(streamed["pieces"]) == text
+    log(f"[server] chat: streamed chunks {'equal' if same else 'DIFFER FROM'}"
+        f" the unstreamed text ({whole['usage']})")
+    if not same:
+        raise AssertionError(f"chat: streamed {streamed['pieces']} != "
+                             f"{text!r}")
+
+    m0 = metrics_of(base)
+    sampled = {"prompt": toks[0], "n_predict": n_sampled, "temperature": 0.8,
+               "repeat_penalty": 1.1, "top_p": 0.9, "seed": 1234,
+               "ignore_eos": True}
+    s1 = http_stream(base, "/completion", sampled, graphs)
+    s2 = http_stream(base, "/completion", sampled, graphs)
+    m1 = metrics_of(base)
+    # the same prompt greedy, now that its graph is warm
+    g2 = http_stream(base, "/completion", dict(greedy, prompt=toks[0],
+                                               n_predict=n_sampled), graphs)
+    same = s1["pieces"] == s2["pieces"]
+    n_blocks = (m1["decode_sampled_blocks_total"]
+                - m0["decode_sampled_blocks_total"])
+    log(f"[server] sampled (temp 0.8, repeat_penalty 1.1, top_p 0.9, seed "
+        f"1234) twice: {'the same' if same else 'DIFFERENT'} text; decode "
+        f"{s1['tok_s']:.2f} ({'cold' if s1['cold'] else 'warm'}) / "
+        f"{s2['tok_s']:.2f} ({'cold' if s2['cold'] else 'warm'}) tok/s "
+        f"against {g2['tok_s']:.2f} greedy ({'cold' if g2['cold'] else 'warm'}"
+        f") ({smi}); {n_blocks:g} "
+        f"sampled blocks; predicted {SERVER_PREDICTIONS['sampled']}")
+    if not same or len(s1["pieces"]) != n_sampled:
+        raise AssertionError("sampled: one seed gave two texts")
+    if not n_blocks > 0:
+        raise AssertionError("sampled: the sampled tier did not run")
+
+    gbnf = "root ::= [a-z ]+\n"
+    t1 = time.perf_counter()
+    g = http(base, "/completion", {"prompt": "the cat", "n_predict": 8,
+                                   "temperature": 0.0, "grammar": gbnf})
+    gr = Grammar.from_gbnf(gbnf)
+    for ch in g["content"]:
+        gr.accept_token(ch.encode())
+    log(f"[server] GBNF {gbnf.strip()!r}: {g['content']!r} in "
+        f"{time.perf_counter() - t1:.2f} s ({g['tokens_predicted']} tokens, "
+        "the host grammar over every piece); it parses")
+    if not (g["content"] and gr.can_stop()):
+        raise AssertionError(f"GBNF: {g['content']!r} does not parse")
+
+    emb = np.asarray(http(base, "/embedding", {"content": emb_text})[
+        "embedding"])
+    if not (emb.shape == (shape["dim"],) and np.isfinite(emb).all()):
+        raise AssertionError(f"/embedding: shape {emb.shape} or not finite")
+
+    cp = {"prompt": toks[1], "n_predict": 8, "temperature": 0.0,
+          "repeat_penalty": 1.0, "cache_prompt": True}
+    http(base, "/completion", cp)
+    c0 = metrics_of(base)
+    http(base, "/completion", cp)
+    mt = metrics_of(base)
+    cached = (mt["prompt_cached_tokens_total"]
+              - c0["prompt_cached_tokens_total"])
+    log(f"[server] cache_prompt repeat of the {prompts[1]}-token prompt: "
+        f"{cached:g} prompt tokens from the cache")
+    if not cached >= prompts[1] - 1:
+        raise AssertionError(f"cache_prompt: {cached} cached tokens")
+    tiers = {k: mt[f"decode_{k}_total"]
+             for k in ("fast_blocks", "sampled_blocks", "slow_steps")}
+    log(f"[server] /metrics: {tiers}, prompt tokens "
+        f"{mt['prompt_tokens_total']:g}, cached "
+        f"{mt['prompt_cached_tokens_total']:g}, predicted "
+        f"{mt['tokens_predicted_total']:g}")
+    if not all(v > 0 for v in tiers.values()):
+        raise AssertionError(f"a decode tier did not run: {tiers}")
+    stop_server(started)
+    launches = port_launches()           # the 32-layer server's traffic
+    gr_out = graph_report(eng, "server")
+    if device.type == "cuda":
+        # a step of the concurrent window: the four prompts' slots at their
+        # lengths, one 8-step block at B = 4 (the multi-slot block length)
+        for i, p in enumerate(toks):
+            eng.reset_slot(i)
+            eng.prefill(i, p)
+        carry = {i: 5 for i in range(len(toks))}
+        start = {i: int(eng.n_past[i]) for i in carry}
+
+        def block():
+            for i in carry:
+                eng.rollback(i, start[i])
+            eng.decode_batch_fast(carry, 8)
+        gr_out.update(profile_steps(eng, "server_b4", block, steps=2, per=8))
+    for n, p, k, got, want in parted:
+        gap, big = near_tie(eng, p, k)
+        log(f"[server] prompt {n}: at token {k} ({got!r} concurrent, "
+            f"{want!r} alone) the top-two logits are {gap:.3e} apart, "
+            f"{gap / big:.3e} of max|logit| (a near tie at <= 1e-2)")
+        if not gap <= 1e-2 * big:
+            raise AssertionError(f"prompt {n}: concurrent and alone part at "
+                                 f"token {k}, not at a near tie")
+    del eng, sched, started, graphs
+
+    # the /embedding against the port's CPU plain embed, at 2 layers
+    p2 = os.path.join(SMOKE_DIR, "llama7b_shape_q4_0_2l_embed.gguf")
+    write_llama_gguf(p2, 2, rng, **shape)
+    reset_port_launches()
+    started, base = boot_server(p2, device, n_slots=1, n_ctx=256)
+    card = np.asarray(http(base, "/embedding", {"content": emb_text})[
+        "embedding"])
+    stop_server(started)
+    emb_launches = {k: v for k, v in port_launches().items() if v}
+    del started
+    ref = Engine(p2, n_ctx=256, device="cpu").embed(emb_text)
+    os.remove(p2)
+    cos = cosine(card, ref)
+    log(f"[server] /embedding of {emb_text!r} at 2 layers: cosine with the "
+        f"CPU plain embed {cos!r} (>= 0.999)")
+    if not cos >= 0.999:
+        raise AssertionError(f"/embedding cosine {cos} < 0.999")
+    log(f"[server] launches of the 32-layer server's traffic: {launches}; "
+        f"of the 2-layer /embedding: {emb_launches}")
+    for k in ("qmm", "qmm_int8", "flash_attention"):
+        if not launches[k] > 0:
+            raise AssertionError(f"server: {k} was not launched")
+    secs = time.perf_counter() - t_phase
+    log(f"[server] phase 7 took {secs:.1f} s")
+    return {"launches": launches, "aggregate_tok_s": agg,
+            "decode_aggregate_tok_s": dec_agg, "tiers": tiers,
+            "embed_cosine": cos, **gr_out}
+
+
 # what the decode paths were predicted to do on CUDA graphs, written before
 # the graphs' first chip run (PERF.md section 5): tok/s, or ms a step
 GRAPH_PREDICTIONS = {
@@ -1791,6 +2128,11 @@ def main() -> int:
         hs = phase_harness(device, rng, sl["path"], sl["layers"],
                            st["ceiling_gbs"])
         done("harness")
+        # a generator of its own, so the later phases draw what they drew
+        # before this phase existed
+        phase_server(device, np.random.default_rng(SEED + 7), sl["path"],
+                     sl["layers"], smi)
+        done("server")
     finally:
         os.remove(sl["path"])
     lc = phase_long(device, rng)

@@ -694,3 +694,36 @@ def test_mega_error_word(dev, tiny_gguf):
     g.bufs.stage([5], [span], [span], [1])
     with pytest.raises(RuntimeError, match="outside its span"):
         g.run(1)
+
+
+# -- the HTTP server on the card (tpulamm_torch/server/server.py) -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_prompt", [12, 300])
+def test_server_on_card_matches_cpu_server(dev, tiny_gguf, n_prompt):
+    """One greedy streamed request to the port's server on the card and to
+    the same server on the CPU (the plain path): the same tokens, or a
+    parting only at a near tie of the CPU run (top-two gap <= 1e-2 of
+    max|logit|); the card's request launched its kernels."""
+    from chip_smoke import (boot_server, http_stream, near_tie,
+                            port_launches, reset_port_launches, stop_server)
+    prompt = np.random.default_rng(n_prompt).integers(3, 1024,
+                                                      n_prompt).tolist()
+    body = {"prompt": prompt, "n_predict": 24, "temperature": 0.0,
+            "repeat_penalty": 1.0, "ignore_eos": True}
+    out = []
+    for where in (dev, "cpu"):
+        reset_port_launches()
+        started, base = boot_server(tiny_gguf, where, n_slots=2, n_ctx=512)
+        out.append(http_stream(base, "/completion", body)["pieces"])
+        stop_server(started)
+        if where is dev:
+            got = port_launches()
+            assert got["qmm_int8"] > 0
+            assert got["qmm"] > 0 or n_prompt <= Q.INT8_MAX_M
+    card, cpu = out
+    assert len(card) == len(cpu) == 24
+    if card != cpu:
+        k = next(i for i, (a, b) in enumerate(zip(card, cpu)) if a != b)
+        gap, big = near_tie(started.sched.engine, prompt, k)
+        assert gap <= 1e-2 * big, (k, card[k], cpu[k], gap / big)

@@ -13,9 +13,12 @@ Package map:
   ops/       QTensor, the CUDA kernel wrappers (qmm) and their nvcc build,
              qmatmul dispatch, norms/activations, RoPE
   models/    config, llama forward, GGUF loader
-  runtime/   KV cache, engine, host sampler
+  runtime/   KV cache, engine, decode graphs, host sampler, chat templates
+  grammar/   GBNF parser and engine, JSON schema -> GBNF (copies)
+  server/    the HTTP server (continuous batching over the engine's slots)
   tokenizer/ SPM tokenizer (copy)
-  cli/       simple
+  utils/     file logging (copy)
+  cli/       simple, bench
   csrc/      CUDA sources, built at first use into build/
 """
 

@@ -222,7 +222,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     one-row batch as an int, or None for the first B slots; t_bucket: the
     length the JAX engine pads this ubatch to, on which the attention
     kernel is chosen (None = T) -> (logits (B, T, vocab) f32, cache updated
-    in place)."""
+    in place); without params["output"] (embeddings) the final-norm hidden
+    states (B, T, dim) f32 take the logits' place."""
     missing = unsupported_features(cfg)
     if missing:
         raise NotImplementedError(f"forward features not ported yet: "
@@ -246,6 +247,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         h = (h + ffn_out).to(cfg.cdtype)
     if params.get("out_norm") is not None:
         h = _norm(h, params, "out_norm", cfg)
+    if params.get("output") is None:
+        return h.to(torch.float32), cache            # embedding model
     if cfg.logit_scale != 1.0:
         h = (h.to(torch.float32) * cfg.logit_scale).to(cfg.cdtype)
     logits = _proj(h, params["output"], cfg, params.get("output_b"))

@@ -28,7 +28,10 @@
   decode_batch_sampled run over the first _b_rows slots (active-slot
   compaction); the two block methods keep n_steps of sampled tokens on the
   device and copy them back once (decode_batch_sampled's sampler chain
-  runs eagerly after each replay of the forward's graph)
+  runs eagerly after each replay of the forward's graph); move_slot
+  renumbers a slot (the server keeps active slots a low prefix)
+- embed runs the forward without the lm head over a slot's ubatches and
+  pools the final-norm hidden states (the server's /embedding)
 - the opt-in decode kernels (the JAX package's TPULAMM_MEGAKERNEL,
   TPULAMM_FUSED_FFN and TPULAMM_INT8_INKQ, here Engine options):
   megakernel=True makes each generate_fast step of a one-slot engine one
@@ -207,6 +210,25 @@ class Engine:
             return None
         return build_mega(p, self.cfg)
 
+    def newline_id(self) -> int:
+        """llama_token_nl: the vocab's id for a newline (BPE vocabs don't
+        use the SPM byte token 13)."""
+        if not hasattr(self, "_nl_id"):
+            self._nl_id = 13
+            if self.tokenizer is not None:
+                ids = self.tokenizer.encode("\n", add_bos=False)
+                if ids:
+                    self._nl_id = ids[-1]
+        return self._nl_id
+
+    def token_pieces(self) -> list[bytes]:
+        """Raw piece bytes per token id (cached; grammar sampling input)."""
+        if not hasattr(self, "_token_pieces"):
+            assert self.tokenizer is not None
+            self._token_pieces = [self.tokenizer.token_bytes(t)
+                                  for t in range(self.cfg.vocab_size)]
+        return self._token_pieces
+
     # -- low-level ubatch execution ------------------------------------------
     def _kv_span(self, need: int) -> int | None:
         """Attention-span bucket of a forward: _occupied_span(need), so
@@ -260,15 +282,17 @@ class Engine:
         return next(b for b in PREFILL_BUCKETS if b >= t)
 
     def _step(self, tok: np.ndarray, pos: np.ndarray, cel: np.ndarray,
-              slot: int) -> torch.Tensor:
+              slot: int, params=None) -> torch.Tensor:
         """One eager forward over one slot's (1, T) prefill ubatch; returns
-        device logits (decode steps replay graphs: _graph)."""
+        device logits, or hidden states where `params` (default the
+        engine's) lack the lm head (decode steps replay graphs: _graph)."""
         n = tok.shape[1]
         # one host-to-device copy for tokens, positions and cells
         host = torch.from_numpy(np.stack([tok, pos, cel]).astype(np.int64))
         t, p, c = host.to(self.device)
         with torch.no_grad():
-            logits, self.cache = forward(self.params, self.cfg, t, p,
+            logits, self.cache = forward(self.params if params is None
+                                         else params, self.cfg, t, p,
                                          self.cache, slot, c,
                                          kv_span=self._kv_span(0),
                                          t_bucket=(self._bucket_for(n)
@@ -308,24 +332,56 @@ class Engine:
         self.cell_pos[slot] = -1
         self.ga_i[slot] = 0
 
+    def _ubatches(self, slot: int, tokens):
+        """The n_ubatch pieces of `tokens` for a slot: (tokens, positions,
+        cells) each, its cells allocated; n_past advances past a piece
+        once the caller has run it."""
+        toks = np.asarray(tokens, np.int32)
+        for off in range(0, len(toks), self.n_ubatch):
+            chunk = toks[off:off + self.n_ubatch]
+            pos = (self.n_past[slot] + np.arange(len(chunk))).astype(np.int32)
+            yield chunk, pos, self._cells_for(slot, len(chunk), pos)
+            self.n_past[slot] += len(chunk)
+
     def prefill(self, slot: int, tokens: list[int],
                 logits_all: bool = False) -> np.ndarray:
         """Feed prompt tokens; returns logits of the final position (or of
         every position)."""
         t0 = time.perf_counter()
         out = []
-        toks = np.asarray(tokens, np.int32)
-        for off in range(0, len(toks), self.n_ubatch):
-            chunk = toks[off:off + self.n_ubatch]
-            pos = self.n_past[slot] + np.arange(len(chunk))
-            cells = self._cells_for(slot, len(chunk), pos)
-            logits = self._run(slot, chunk, pos.astype(np.int32), cells,
+        for chunk, pos, cells in self._ubatches(slot, tokens):
+            logits = self._run(slot, chunk, pos, cells,
                                all_logits=logits_all)
-            self.n_past[slot] += len(chunk)
             out.append(logits if logits_all else logits[-1:])
         self.timings.t_prefill += time.perf_counter() - t0
-        self.timings.n_prefill += len(toks)
+        self.timings.n_prefill += len(tokens)
         return np.concatenate(out) if logits_all else out[-1][0]
+
+    def embed(self, tokens_or_text, pooling: str | None = None,
+              slot: int = 0) -> np.ndarray:
+        """Sentence embedding (examples/embedding parity): the forward
+        without the lm head over n_ubatch ubatches of the slot (reset
+        first), its final-norm hidden states pooled. pooling: mean | cls |
+        last | none (the (T, dim) rows); default the model's pooling_type,
+        else 'last' for causal models (llama_get_embeddings)."""
+        tokens = self._encode(tokens_or_text)
+        if pooling is None:
+            pooling = ("last" if self.cfg.pooling == "none"
+                       else self.cfg.pooling)
+        params = {k: v for k, v in self.params.items()
+                  if k not in ("output", "output_b")}
+        self.reset_slot(slot)
+        h = np.concatenate([                           # (T, dim)
+            self._step(chunk[None], pos[None], cells[None], int(slot),
+                       params)[0].cpu().numpy()
+            for chunk, pos, cells in self._ubatches(slot, tokens)])
+        if pooling == "none":
+            return h
+        if pooling == "mean":
+            return h.mean(axis=0)
+        if pooling == "cls":
+            return h[0]
+        return h[-1]
 
     # -- decode steps: the step graphs (runtime.decode_graph) ----------------
     def _graph(self, path: str, B: int, span, slots, sampler) -> dg.StepGraph:
@@ -560,6 +616,16 @@ class Engine:
         self.cell_pos[dst] = self.cell_pos[src]
         self.ga_i[dst] = self.ga_i[src]
 
+    def move_slot(self, src: int, dst: int):
+        """Renumber a slot: move its KV rows and host state to `dst`, clear
+        `src`. The server uses it to keep active slot ids a low prefix, so
+        the _b_rows compaction bucket stays tight when a high-numbered slot
+        outlives its neighbours."""
+        if src == dst:
+            return
+        self.seq_cp(src, dst)
+        self.reset_slot(src)
+
     def seq_add(self, slot: int, p0: int, p1: int, delta: int):
         kv.seq_add(self.cache, slot, p0, p1, delta, self.cfg.rope)
         cp = self.cell_pos[slot]
@@ -677,11 +743,8 @@ class Engine:
         tokens = self._encode(prompt)
         sampling = sampling or SamplingParams()
         eos = self._eos()
-        nl = 13
-        if self.tokenizer is not None:
-            ids = self.tokenizer.encode("\n", add_bos=False)
-            nl = ids[-1] if ids else 13
-        sampler = Sampler(sampling, self.cfg.vocab_size, eos_id=eos, nl_id=nl)
+        sampler = Sampler(sampling, self.cfg.vocab_size, eos_id=eos,
+                          nl_id=self.newline_id())
         for t in tokens:
             sampler.accept(t, apply_grammar=False)
         logits = self.prefill(slot, tokens)

@@ -175,8 +175,8 @@ class Sampler:
     def __init__(self, params: SamplingParams, vocab_size: int,
                  eos_id: int = 2, nl_id: int = 13,
                  grammar=None, token_pieces: list[bytes] | None = None):
-        """grammar: tpulamm.grammar.engine.Grammar; token_pieces: raw piece
-        bytes per token id (required when a grammar is set)."""
+        """grammar: tpulamm_torch.grammar.engine.Grammar; token_pieces: raw
+        piece bytes per token id (required when a grammar is set)."""
         self.params = params
         self.vocab_size = vocab_size
         self.eos_id = eos_id
