@@ -71,7 +71,8 @@ Phases (any failure raises, so the exit code is not 0):
      nothing else), and after pl 4's warm-up block its greedy tokens
      against a host loop of decode_batch and against the eager steps of
      its graph, and a profile of one block (one device-to-host copy a
-     block, none a step)
+     block, none a step: counted from the host's calls at the dispatcher,
+     and fewer than a step's worth in the profile's device records)
   7. the HTTP server (tpulamm_torch/server/server.py) on the phase-4 model
      with 4 slots, n_ctx 2048 and a bf16 cache, over loopback HTTP: four
      concurrent greedy streamed /completion requests (prompts of 40, 200,
@@ -113,6 +114,35 @@ Phases (any failure raises, so the exit code is not 0):
      host Sampler on the card; then decode_batch_fast blocks, greedy and
      at temp 0.9, against the eager steps of their graphs with the same
      seed (the same seed repeats, another does not)
+  8. the quantizer and the quality path at LLaMA-7B width (dim 4096, ffn
+     11008, 32 heads, vocab 32000), cut to 2 layers: the host quantizer's
+     time and an F32 source of ~2.65 GB bound the phase. A seeded F32 GGUF
+     (normal draws, std 0.02, norms 1); cli.gguf_dump on it and
+     cli.quantize_stats -l blk.0.attn_q in all six formats; cli.quantize
+     (main) to Q8_0, Q5_1, Q5_0, Q4_1, Q4_0 and Q2_K, each file's host
+     seconds and bytes, its tensor types (norms F32, output.weight Q8_0
+     below 8 bits) and rows 0-63 of blk.0.attn_q equal to the numpy
+     quantizer byte for byte; tools.quality_table on the card (n_ctx 512,
+     4 chunks of the repository's markdown): ppl, dppl, KL and top-1 of
+     each format, the KL order of tests/test_quality_deltas.py held
+     (Q8_0 <= 1.5 Q5_0 + 1e-4, max(Q5) < 1.5 max(Q4), Q2_K > max(Q4)), its
+     launches counted a format (0 for F32; 9 qmm a 512-token ubatch in
+     each block format, nothing else) and its files equal to cli.quantize's;
+     compute_perplexity of one 128-token chunk of the seven files on the
+     CPU's plain engine at float32 compute, the reference, and on the
+     card twice: at float32 compute, where both compute one function (ppl
+     within 1e-3 relative), and at the default compute, bf16 activations
+     and cache (ppl within 5e-3 relative, a bound set from the readings
+     on an H100: at most 3.98e-3; the CPU engine at the default rounds
+     each weight to bf16 where qmm does not, so it is no reference); at
+     both, top-1 agreement >= 0.99 with a near tie of the CPU's logits
+     (top-two gap <= 1e-2 of max|logit|) not counted as a miss, and the
+     card's launches exactly 9 qmm in a block format, none in F32, and
+     nothing else; perf_report
+     --skip-matmul --e2e-pattern over the six files: pp512 and tg256 a
+     format, with its launches (5 ubatches x 9 qmm a file; each
+     generate_fast 9 qmm_int8 a forward, its 1-token prompt and every
+     decode step, nothing else)
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -122,6 +152,7 @@ JAX and nothing of the tpulamm package.
 from __future__ import annotations
 
 import contextlib
+import filecmp
 import io
 import json
 import os
@@ -135,7 +166,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from tpulamm_torch.cli import gguf_dump, quantize, quantize_stats
+from tpulamm_torch.cli.perplexity import compute_perplexity
 from tpulamm_torch.gguf.constants import GGMLType
+from tpulamm_torch.gguf.reader import GGUFReader
 from tpulamm_torch.grammar.engine import Grammar
 from tpulamm_torch.ops import ffn_fused as FF
 from tpulamm_torch.ops import flash_attention as FA
@@ -144,6 +178,7 @@ from tpulamm_torch.ops import mega_decode as MD
 from tpulamm_torch.ops import qmm as Q
 from tpulamm_torch.ops.layers import rms_norm
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
+from tpulamm_torch.quant import formats
 from tpulamm_torch.runtime import decode_graph as DG
 from tpulamm_torch.runtime.engine import Engine, Timings, forward
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
@@ -152,6 +187,9 @@ from tpulamm_torch.tools import int8_ablation as IA
 from tpulamm_torch.tools import ffn_ablation as FAB
 from tpulamm_torch.tools import mega_ablation as MA
 from tpulamm_torch.tools import stream_ceiling as SC
+from tpulamm_torch.tools import perf_report
+from tpulamm_torch.tools.quality_table import build_corpus, quality_table
+from tpulamm_torch.tools.profile_window import HostDtoH, count_dtoh
 from tpulamm_torch.tools.mega_ablation import step as mega_call
 from tpulamm_torch.tools.synth import random_blocks, write_llama_gguf
 from tpulamm_torch.tools.timing import nvidia_smi, time_ms
@@ -1463,9 +1501,8 @@ def expect_launches(what: str, want: dict) -> dict:
     return got
 
 
-def count_dtoh(prof) -> int:
-    """Device-to-host copies in a torch.profiler run."""
-    return sum(e.count for e in prof.key_averages() if "DtoH" in e.key)
+# the seconds a profile stays open after its last synchronize
+PROFILE_TAIL_S = 0.05
 
 
 def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
@@ -1574,19 +1611,25 @@ def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
                             {"qmm_int8": per_pass * n_steps})
             if device.type == "cuda":
                 from torch.profiler import ProfilerActivity, profile
+                # the copies are counted twice: by the host's calls
+                # (HostDtoH, which misses none) and by the device records;
+                # the window stays open PROFILE_TAIL_S after the block's
+                # synchronize, since the profiler drops a device record
+                # that it places after the window's end, and the block's
+                # one copy is its last device activity (measured by
+                # tools/profile_window.py)
                 for s in toks:
                     eng.rollback(s, start[s])
                 torch.cuda.synchronize()
-                # acc_events and the synchronize keep the block's one copy
-                # back in the profile: a run without them once recorded
-                # the block's kernels but not its copy
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA],
                              acc_events=True) as prof:
-                    t0 = time.perf_counter()
-                    orig(eng, toks, n_steps, **kw)
-                    wall = time.perf_counter() - t0
+                    with HostDtoH() as host_dtoh:
+                        t0 = time.perf_counter()
+                        orig(eng, toks, n_steps, **kw)
+                        wall = time.perf_counter() - t0
                     torch.cuda.synchronize()
+                    time.sleep(PROFILE_TAIL_S)
                 dtoh = count_dtoh(prof)
                 busy = sum(e.self_device_time_total
                            for e in prof.key_averages()
@@ -1594,13 +1637,16 @@ def phase_harness(device, rng, path: str, n_layers: int, ceiling_gbs: float,
                 log(f"[profile] decode_batch_fast pl=4 block of {n_steps} "
                     f"steps: {wall * 1e3:.1f} ms wall, device busy "
                     f"{busy / 1e3:.1f} ms ({busy / 1e3 / (wall * 1e3):.1%}), "
-                    f"{dtoh} device-to-host copies")
-                if not 1 <= dtoh < n_steps:
-                    raise AssertionError(f"{dtoh} device-to-host copies in a "
-                                         f"block of {n_steps} steps")
+                    f"device-to-host copies: {host_dtoh.n} asked for by "
+                    f"the host, {dtoh} in the device records")
+                if not (1 <= host_dtoh.n < n_steps and dtoh < n_steps):
+                    raise AssertionError(
+                        f"device-to-host copies in a block of {n_steps} "
+                        f"steps: {host_dtoh.n} from the host, {dtoh} in the "
+                        "device records")
                 out.update(block_steps=n_steps, block_wall_ms=wall * 1e3,
                            block_busy_ms=busy / 1e3,
-                           block_dtoh=dtoh)
+                           block_dtoh=host_dtoh.n, block_dtoh_device=dtoh)
         return res
 
     Engine.decode_batch_fast = checked
@@ -2024,6 +2070,302 @@ def phase_server(device, rng, path: str, n_layers: int, smi: str,
             "embed_cosine": cos, **gr_out}
 
 
+# -- slice 13: the quantizer and the quality path ------------------------------
+# cli.quantize's targets in quality_table's order
+QUALITY_FORMATS = ("q8_0", "q5_1", "q5_0", "q4_1", "q4_0", "q2_k")
+# card against the CPU's plain engine at float32 compute (compute_perplexity
+# over one chunk): ppl within 1e-3 relative with the card at float32
+# compute, where both compute one function, and within 5e-3 at the default
+# compute (bf16 activations and cache; set from the readings on an H100,
+# 4.4e-4-3.98e-3 over the seven formats); top-1 agreement >= 0.99 at both,
+# counting no near tie of the CPU's logits (top-two gap <= 1e-2 of
+# max|logit|) as a miss
+TOL_PPL, MIN_TOP1, NEAR_TIE = 1e-3, 0.99, 1e-2
+TOL_PPL_DEFAULT = 5e-3
+# what phase 8 was predicted to do, written before its first chip run
+# (PERF.md section 5)
+QUALITY_PREDICTIONS = {
+    "quantize": "host seconds a file: Q8_0, Q5_1, Q5_0, Q4_1, Q4_0 3-8; "
+                "Q2_K 15-30",
+    "pp512": "40,000-75,000 tok/s, the formats within 20%",
+    "tg256": "900-1,600 tok/s, the formats within 15%",
+    "KL": "Q8_0 1e-4-1e-3 < Q5_1 <= Q5_0 (5e-3-3e-2) < Q4_1 <= Q4_0 "
+          "(2e-2-1e-1) < Q2_K (0.2-1.0); |dppl| <= 5% at >= 4 bits, Q2_K "
+          "+10-40%; F32 ppl near 7e4",
+    "card vs CPU": "ppl 1e-5-5e-4 relative in block formats, < 1e-5 F32",
+    "phase": "150-300 s",
+}
+
+
+def expected_types(path: str, fmt: str) -> dict:
+    """name -> the type cli.quantize gives each tensor of a LLaMA F32
+    model: norms F32, output.weight Q8_0 below 8 bits, the rest fmt."""
+    target = fmt.upper()
+    out = {}
+    for name, info in GGUFReader(path).tensors.items():
+        if len(info.shape) < 2:
+            out[name] = "F32"
+        elif name == "output.weight" and target != "Q8_0":
+            out[name] = "Q8_0"
+        else:
+            out[name] = target
+    return out
+
+
+def recorded_ppl(eng, toks: list, n_ctx: int) -> tuple[float, np.ndarray]:
+    """compute_perplexity over one n_ctx chunk of `toks`, and the logits
+    of every position of it."""
+    seen = []
+    prefill = eng.prefill
+
+    def recording(*a, **kw):
+        seen.append(prefill(*a, **kw))
+        return seen[-1]
+    eng.prefill = recording
+    got = compute_perplexity(eng, "", n_ctx=n_ctx, progress=False,
+                             tokens=toks[:n_ctx])
+    eng.prefill = prefill
+    if not (np.isfinite(seen[0]).all() and np.isfinite(got["ppl"])):
+        raise AssertionError(f"logits or ppl not finite on {eng.device}")
+    return got["ppl"], seen[0]
+
+
+def quality_card_vs_cpu(path: str, device, toks: list, n_ctx: int) -> dict:
+    """compute_perplexity over one n_ctx chunk of `toks` on the CPU's plain
+    engine at float32 compute, and on the card twice: at float32 compute,
+    where both compute one function (qmm's plain version is f32: qmm_ref),
+    and at the default compute (bf16 activations and cache, what users
+    run; the CPU engine at the default rounds each dequantized weight to
+    bf16, as the JAX reference does, where qmm keeps it f32-grade, so the
+    float32 CPU engine is the reference for both). For each card side: its
+    ppl, the gap to the CPU's relative to it, the top-1 agreement of every
+    position's logits (a near tie of the CPU's logits counts as agreeing),
+    its launches and its seconds. The CPU side runs in a thread of its own
+    while the card sides run: the CPU engine touches no CUDA and launches
+    nothing."""
+    def side(dev, **kw) -> tuple:
+        t0 = time.perf_counter()
+        eng = Engine(path, n_ctx=n_ctx + 1, device=dev, **kw)
+        before = port_launches()
+        got = recorded_ppl(eng, toks, n_ctx)
+        after = port_launches()
+        del eng
+        return (got, {k: after[k] - before[k] for k in after},
+                time.perf_counter() - t0)
+    with ThreadPoolExecutor(1) as ex:
+        cpu = ex.submit(side, torch.device("cpu"), compute_dtype="float32")
+        card = {"f32": side(device, compute_dtype="float32"),
+                "default": side(device)}
+        (ppl_b, b), _, cpu_s = cpu.result()
+    top2 = np.sort(b, axis=-1)[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0]) <= NEAR_TIE * np.abs(b).max(axis=-1)
+    out = {"ppl_cpu": ppl_b, "cpu_s": cpu_s}
+    for key, ((ppl_a, a), launches, secs) in card.items():
+        same = a.argmax(-1) == b.argmax(-1)
+        out[key] = {"ppl": ppl_a, "rel": abs(ppl_a - ppl_b) / ppl_b,
+                    "top1": float(np.mean(same | tie)),
+                    "top1_strict": float(np.mean(same)),
+                    "parted": int((~same).sum()), "launches": launches,
+                    "s": secs}
+    return out
+
+
+def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
+                  n_ctx: int = 512, n_chunks: int = 4, cmp_ctx: int = 128,
+                  corpus: bytes | None = None) -> dict:
+    """Phase 8: the quantizer and the quality path at full width."""
+    t_phase = time.perf_counter()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    src = os.path.join(SMOKE_DIR, "quality_f32.gguf")
+    made = [src]
+    try:
+        t0 = time.perf_counter()
+        write_llama_gguf(src, n_layers, rng, **shape, qtype=GGMLType.F32)
+        log(f"[quality] F32 source, {n_layers} layers of LLaMA-7B width: "
+            f"{os.path.getsize(src)} bytes written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        run_tool("gguf_dump", gguf_dump.main, [src])
+        run_tool("quantize_stats", quantize_stats.main,
+                 ["-m", src, "-l", "blk.0.attn_q", "--per-layer"])
+        log(f"[quality] dump and stats: {time.perf_counter() - t0:.1f} s")
+        cli_files, quant_s = {}, {}
+        plain = GGUFReader(src).tensors["blk.0.attn_q.weight"].to_f32()[:64]
+        for fmt in QUALITY_FORMATS:
+            path = os.path.join(SMOKE_DIR, f"cli_{fmt}.gguf")
+            made.append(path)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = quantize.main([src, path, fmt])
+            quant_s[fmt] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"quantize {fmt} returned {rc}")
+            rd = GGUFReader(path)
+            types = {n: t.ggml_type.name for n, t in rd.tensors.items()}
+            if types != expected_types(src, fmt):
+                raise AssertionError(f"quantize {fmt}: tensor types {types}")
+            info = rd.tensors["blk.0.attn_q.weight"]
+            want = formats.QUANTIZERS[info.ggml_type](plain)
+            if not np.array_equal(np.asarray(info.as_rows())[:64], want):
+                raise AssertionError(f"quantize {fmt}: blk.0.attn_q rows "
+                                     "0-63 differ from the numpy quantizer")
+            cli_files[fmt] = path
+            log(f"[quality] quantize {fmt}: {quant_s[fmt]:.1f} s (host), "
+                f"{os.path.getsize(path)} bytes; types as expected; "
+                "blk.0.attn_q rows 0-63 equal the numpy quantizer")
+
+        corpus = build_corpus() if corpus is None else corpus
+        snaps = []
+
+        def rec(line):
+            log(f"[quality] {line} ({time.perf_counter() - t0:.1f} s)")
+            snaps.append(port_launches())
+        reset_port_launches()
+        t0 = time.perf_counter()
+        rows = quality_table(src, corpus=corpus, n_ctx=n_ctx,
+                             n_chunks=n_chunks, log=rec, device=device)
+        qt_s = time.perf_counter() - t0
+        files = {fmt: os.path.join(SMOKE_DIR, f"quality_{fmt}.gguf")
+                 for fmt in QUALITY_FORMATS}
+        made += list(files.values()) + [
+            os.path.join(SMOKE_DIR, "quality_base_logits.npz")]
+        zero = {k: 0 for k in snaps[0]}
+        for row, before, after in zip(rows, [zero] + snaps, snaps):
+            got = {k: after[k] - before[k] for k in after}
+            want = dict(zero)
+            if row["format"] != "F32":
+                want["qmm"] = (n_layers * 4 + 1) * 2 * n_chunks
+            if got != want:
+                raise AssertionError(f"quality_table {row['format']}: "
+                                     f"launches {got} != {want}")
+        kl = {r["format"]: r["kl"] for r in rows}
+        log(f"[quality] quality_table, n_ctx {n_ctx}, {n_chunks} chunks of "
+            f"the repository's markdown ({len(corpus)} bytes): "
+            f"{qt_s:.1f} s; launches a format: 0 for F32, "
+            f"{(n_layers * 4 + 1)} qmm a 512-token ubatch x "
+            f"{2 * n_chunks} ubatches in each block format, nothing else")
+        for r in rows:
+            log(f"[quality] {r['format']:<5} ppl {r['ppl']!r} dppl "
+                f"{r['dppl']!r} KL {r['kl']!r} top1 {r['top1_agree']!r}")
+        if not (kl["Q8_0"] <= kl["Q5_0"] * 1.5 + 1e-4
+                and max(kl["Q5_0"], kl["Q5_1"])
+                < max(kl["Q4_0"], kl["Q4_1"]) * 1.5
+                and kl["Q2_K"] > max(kl["Q4_0"], kl["Q4_1"])):
+            raise AssertionError(f"KL order broken: {kl}")
+        log("[quality] KL order held: Q8_0 <= 1.5 Q5_0 + 1e-4, "
+            "max(Q5) < 1.5 max(Q4), Q2_K > max(Q4)")
+        for fmt in QUALITY_FORMATS:
+            if not filecmp.cmp(cli_files[fmt], files[fmt], shallow=False):
+                raise AssertionError(f"{fmt}: quality_table's file differs "
+                                     "from cli.quantize's")
+            os.remove(cli_files[fmt])
+        log("[quality] quality_table's six files equal cli.quantize's, "
+            "byte for byte")
+
+        held = corpus[int(len(corpus) * 0.95):]
+        toks = (np.frombuffer(held, np.uint8).astype(np.int32) + 3).tolist()
+        cmp_rows = {}
+        # one ubatch a chunk: 9 qmm in a block format, nothing in F32
+        per_chunk = (n_layers * 4 + 1) * -(-cmp_ctx // 512)
+        bounds = {"f32": (TOL_PPL, MIN_TOP1),
+                  "default": (TOL_PPL_DEFAULT, MIN_TOP1)}
+        t0 = time.perf_counter()
+        for fmt, path in [("f32", src)] + list(files.items()):
+            c = quality_card_vs_cpu(path, device, toks, cmp_ctx)
+            want = {k: 0 for k in c["f32"]["launches"]}
+            if fmt != "f32":
+                want["qmm"] = per_chunk
+            for key, (tol, low) in bounds.items():
+                r = c[key]
+                log(f"[quality] {fmt} card at {key} compute vs CPU at "
+                    f"float32, {cmp_ctx} tokens: ppl {r['ppl']!r} vs "
+                    f"{c['ppl_cpu']!r} (rel {r['rel']:.3e}, <= {tol}); "
+                    f"top-1 {r['top1']!r} ({r['parted']} parted, strict "
+                    f"{r['top1_strict']!r}; >= {low}); launches "
+                    f"{r['launches']}; s card {r['s']:.1f} / CPU "
+                    f"{c['cpu_s']:.1f}")
+                if not r["rel"] <= tol:
+                    raise AssertionError(f"{fmt} at {key} compute: ppl card "
+                                         f"vs CPU rel {r['rel']} > {tol}")
+                if not r["top1"] >= low:
+                    raise AssertionError(f"{fmt} at {key} compute: top-1 "
+                                         f"{r['top1']} < {low}")
+                if r["launches"] != want:
+                    raise AssertionError(f"{fmt} at {key} compute: card "
+                                         f"launches {r['launches']} != "
+                                         f"{want}")
+            cmp_rows[fmt] = c
+        log(f"[quality] card vs CPU: {time.perf_counter() - t0:.1f} s")
+
+        # each generate_fast of the e2e run (a 1-token prompt, then its
+        # decode blocks) must launch 9 qmm_int8 a forward and nothing else
+        per = n_layers * 4 + 1
+        calls = []
+        orig = Engine.generate_fast
+
+        def counted(eng, prompt, **kw):
+            before = port_launches()
+            n0, p0 = eng.timings.n_step, eng.timings.n_prefill
+            res = orig(eng, prompt, **kw)
+            after = port_launches()
+            got = {k: after[k] - before[k] for k in after}
+            steps = eng.timings.n_step - n0
+            fwd = steps + eng.timings.n_prefill - p0
+            want = {**{k: 0 for k in got}, "qmm_int8": per * fwd}
+            if got != want or len(prompt) != 1:
+                raise AssertionError(f"generate_fast launches {got} != "
+                                     f"{want} ({steps} steps)")
+            calls.append(steps)
+            return res
+        reset_port_launches()
+        pattern = os.path.join(SMOKE_DIR, "quality_{fmt}.gguf")
+        Engine.generate_fast = counted
+        try:
+            text = run_tool("perf_report", perf_report.main,
+                            ["--skip-matmul", "--e2e-pattern", pattern,
+                             "--device", str(device)])
+        finally:
+            Engine.generate_fast = orig
+        got = port_launches()
+        ubatches = 5 * len(QUALITY_FORMATS)     # bench_model: 1 + 4 a file
+        if not (got["qmm"] == ubatches * (n_layers * 4 + 1)
+                and got["qmm_int8"] > 0
+                and got["qmm_int8"] % (n_layers * 4 + 1) == 0
+                and all(v == 0 for k, v in got.items()
+                        if k not in ("qmm", "qmm_int8"))):
+            raise AssertionError(f"perf_report --e2e-pattern launches {got}")
+        e2e = {}
+        for line in text.splitlines():
+            cells = [c.strip() for c in line.strip("|").split("|")]
+            if cells and cells[0] in QUALITY_FORMATS:
+                e2e[cells[0]] = (float(cells[1].replace(",", "")),
+                                 float(cells[2].replace(",", "")))
+        if sorted(e2e) != sorted(QUALITY_FORMATS):
+            raise AssertionError(f"perf_report rows {sorted(e2e)}")
+        if len(calls) != 4 * len(QUALITY_FORMATS):
+            raise AssertionError(f"{len(calls)} generate_fast calls")
+        by_fmt = dict(zip(("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q2_k"),
+                          (calls[i:i + 4] for i in range(0, len(calls), 4))))
+        for fmt in QUALITY_FORMATS:
+            log(f"[quality] {fmt}: quantize {quant_s[fmt]:.1f} s (host); "
+                f"pp512 {e2e[fmt][0]:,.0f} tok/s, tg256 {e2e[fmt][1]:,.1f} "
+                f"tok/s ({n_layers} layers); a decode step {per} qmm_int8 "
+                f"and nothing else, in each of 4 generate_fast calls of "
+                f"{by_fmt[fmt]} steps")
+        log(f"[quality] perf_report launches: {got} ({ubatches} 512-token "
+            "ubatches; every decode step and 1-token prefill 9 qmm_int8)")
+        for key, val in QUALITY_PREDICTIONS.items():
+            log(f"[quality] predicted {key}: {val}")
+        log(f"[quality] {smi}")
+    finally:
+        for path in made:
+            if os.path.exists(path):
+                os.remove(path)
+    secs = time.perf_counter() - t_phase
+    log(f"[quality] phase 8 took {secs:.1f} s")
+    return {"rows": rows, "card_vs_cpu": cmp_rows, "e2e": e2e,
+            "quantize_s": quant_s, "seconds": secs}
+
+
 # what the decode paths were predicted to do on CUDA graphs, written before
 # the graphs' first chip run (PERF.md section 5): tok/s, or ms a step
 GRAPH_PREDICTIONS = {
@@ -2145,6 +2487,9 @@ def main() -> int:
     done("mega numerics")
     phase_batch_numerics(device, rng)
     done("batch numerics")
+    # a generator of its own, as phase 7 has
+    phase_quality(device, np.random.default_rng(SEED + 13), smi)
+    done("quality")
     decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "

@@ -4,6 +4,7 @@ source file of theirs imports either."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -54,6 +55,24 @@ def test_sources_import_no_jax_or_tpulamm():
                 continue
             bad += [f"{p.relative_to(ROOT)}: {n}" for n in names
                     if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_csrc_includes_nothing_of_native():
+    """The CUDA and C++ sources of the port include system headers and
+    their own csrc headers only: the host codec is the port's copy, not
+    the JAX package's native/ library."""
+    bad = []
+    csrc = ROOT / "tpulamm_torch" / "csrc"
+    for p in sorted(csrc.glob("*.c*")):
+        for inc in re.findall(r'^\s*#\s*include\s+([<"][^>"]+[>"])',
+                              p.read_text(), re.M):
+            name = inc[1:-1]
+            if inc[0] == '"' and not (csrc / name).is_file():
+                bad.append(f"{p.name}: {inc}")
+            if "native" in name or "tl_tokenizer" in name:
+                bad.append(f"{p.name}: {inc}")
+    assert (csrc / "tl_codec.cpp").is_file()
     assert not bad, bad
 
 

@@ -7,8 +7,8 @@ convention (2*M*K*N / elapsed) and the same correctness gate against the
 f32 dequantized product (|sum - sum_f32| / |sum_f32| <= 1e-2 and nmse <=
 1e-4). Baseline to beat: 121.31 GFLOPS (Q4_0, 4 threads, Loongson 3A6000).
 The product runs through ops.qmm.qmm, which at M = 128 launches
-csrc/qmm.cu. The weights are random Q4_0 blocks from a seed (the port has
-no quantizers), the activations |N(0, 0.5)| in bf16, as in bench.py.
+csrc/qmm.cu. The weights are random Q4_0 blocks from a seed, the
+activations |N(0, 0.5)| in bf16, as in bench.py.
 
 Timing (tools.timing): CUDA events, the median of 11 launches with the L2
 flushed before each; spread_pct is (max - min) / median of the samples.

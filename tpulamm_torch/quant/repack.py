@@ -236,22 +236,3 @@ def repack_rows(raw: np.ndarray, qtype: GGMLType, k: int) -> dict[str, np.ndarra
     if mins is not None:
         out["mins"] = np.ascontiguousarray(mins.astype(np.float32))
     return out
-
-
-def dequantize_rows(raw: np.ndarray, qtype: GGMLType, k: int) -> np.ndarray:
-    """GGUF rows (N, row_bytes) of a block-quant format -> f32 (N, K).
-
-    w = (q - zero) * scale + min, the same rule the planes decode with;
-    used for quantized tensors whose shape does not tile (stored dense)."""
-    spec = SPECS[qtype]
-    n = raw.shape[0]
-    vals, scales, mins = extract_ints(raw.reshape(n, -1), qtype, k)
-    g = spec.group
-    w = ((vals.astype(np.float32) - np.float32(spec.zero)).reshape(n, -1, g)
-         * scales[..., None])
-    if mins is not None:
-        if qtype == GGMLType.Q2_K:
-            w = w - mins[..., None]
-        else:
-            w = w + mins[..., None]
-    return w.reshape(n, k).astype(np.float32)

@@ -86,6 +86,29 @@ class Timings:
     n_eval: int = 0
     n_step: int = 0         # decode steps run on the device (whole blocks)
 
+    def report(self) -> str:
+        lines = []
+        lines.append(f"load time = {self.t_load * 1e3:10.2f} ms")
+        if self.n_sample:
+            lines.append(
+                f"sample time = {self.t_sample * 1e3:10.2f} ms / "
+                f"{self.n_sample:5d} runs ("
+                f"{self.t_sample * 1e3 / self.n_sample:8.2f} ms per token, "
+                f"{self.n_sample / max(self.t_sample, 1e-9):8.2f} tokens per second)")
+        if self.n_prefill:
+            lines.append(
+                f"prompt eval time = {self.t_prefill * 1e3:10.2f} ms / "
+                f"{self.n_prefill:5d} tokens ("
+                f"{self.t_prefill * 1e3 / self.n_prefill:8.2f} ms per token, "
+                f"{self.n_prefill / max(self.t_prefill, 1e-9):8.2f} tokens per second)")
+        if self.n_eval:
+            lines.append(
+                f"eval time = {self.t_eval * 1e3:10.2f} ms / "
+                f"{self.n_eval:5d} runs ("
+                f"{self.t_eval * 1e3 / self.n_eval:8.2f} ms per token, "
+                f"{self.n_eval / max(self.t_eval, 1e-9):8.2f} tokens per second)")
+        return "\n".join(lines)
+
 
 class Engine:
     KV_SPAN_MIN = 256

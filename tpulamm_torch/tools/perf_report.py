@@ -5,14 +5,18 @@ The matmul GFLOPS table over every quant format at the reference
 benchmark shape (la-benchmark-matmult: 4096x11008 weights x 128
 activations, GFLOPS = 2MKN/t), each row gated against its f32 product as
 tpulamm_torch.bench gates Q4_0; with a model, the end-to-end pp512 /
-tg256, aggregate batched decode vs slot count, and tg256 vs context size.
+tg256, aggregate batched decode vs slot count, and tg256 vs context size;
+with --e2e-pattern, pp512 / tg256 of one model file per format (the files
+`cli.quantize` writes from one F32 model), beside the reference's
+published CPU numbers.
 The f32 row is one bf16 torch.matmul, as the JAX row is a jnp.dot outside
 any kernel; the quantized rows run ops.qmm.qmm (csrc/qmm.cu at M = 128).
-Quantized weights are random blocks from a seed (the port has no
-quantizers). Times: tools.timing (CUDA events, median of 20 launches with
+The matmul table's quantized weights are random blocks from a seed.
+Times: tools.timing (CUDA events, median of 20 launches with
 a cold L2).
 
     python -m tpulamm_torch.tools.perf_report [-m model.gguf] [-o report.md]
+        [--e2e-pattern 'model_{fmt}.gguf']
 """
 
 from __future__ import annotations
@@ -159,6 +163,9 @@ def main(argv=None) -> int:
     p.add_argument("-o", "--output", default=None, help="write markdown here")
     p.add_argument("--formats", default=None,
                    help="comma-separated subset (e.g. q4_0,q8_0)")
+    p.add_argument("--e2e-pattern", default=None, metavar="PATH{fmt}",
+                   help="per-format end-to-end tg/pp matrix from models at "
+                        "this pattern, e.g. tmp_bench/llama_{fmt}.gguf")
     p.add_argument("--batched", default=None, metavar="MODEL",
                    help="aggregate decode throughput vs slot count")
     p.add_argument("--ctx-scan", default=None, metavar="MODEL",
@@ -206,6 +213,28 @@ def main(argv=None) -> int:
                   f"- generation (tg256, generate_fast): "
                   f"{r['tg256']:,.1f} tok/s"]
         print("\n".join(lines[-2:]), file=sys.stderr)
+    if args.e2e_pattern:
+        # per-format end-to-end matrix (reference README.md:674-723 tables;
+        # ref tg/pp columns: tiny-llama-1.1b, 4 threads, level 3)
+        ref_pp = {"q4_0": 36.14, "q4_1": 36.87, "q5_0": 37.61,
+                  "q5_1": 35.91, "q8_0": 79.68, "q2_k": 17.70}
+        ref_tg = {"q4_0": 20.16, "q4_1": 19.76, "q5_0": 17.89,
+                  "q5_1": 16.79, "q8_0": 18.60, "q2_k": 12.61}
+        lines += ["", f"Per-format end-to-end ({args.e2e_pattern}, one "
+                  "card; ref: tiny-llama-1.1b on 3A6000x4t L3):", "",
+                  "| format | pp512 t/s | tg256 t/s | ref pp | ref tg "
+                  "| tg ratio |", "|---|---|---|---|---|---|"]
+        for q in ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0", "q2_k"):
+            path = args.e2e_pattern.replace("{fmt}", q)
+            if not os.path.isfile(path):
+                print(f"skip {q}: {path} missing", file=sys.stderr)
+                continue
+            r = bench_model(path, device=dev)
+            lines.append(
+                f"| {q} | {r['pp512']:,.0f} | {r['tg256']:,.1f} "
+                f"| {ref_pp[q]} | {ref_tg[q]} "
+                f"| {r['tg256'] / ref_tg[q]:,.0f}x |")
+            print(lines[-1], file=sys.stderr)
     if args.batched:
         lines += ["", "Aggregate decode throughput vs slots "
                   "(pp128+tg128 per slot, one card):", "",

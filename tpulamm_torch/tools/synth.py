@@ -1,7 +1,8 @@
-"""Synthetic quantized weights and LLaMA-shape GGUF models made from a seed,
-for the measurement tools and chip_smoke.py (the port has no quantizers:
-a weight is random GGUF blocks, and its dequantized values are the truth
-every kernel is held to).
+"""Synthetic weights and LLaMA-shape GGUF models made from a seed, for the
+measurement tools and chip_smoke.py. A quantized weight is random GGUF
+blocks, and its dequantized values are the truth every kernel is held to;
+an F32 model (normal draws) is the source the quantizer (cli.quantize)
+makes every format from.
 """
 
 from __future__ import annotations
@@ -46,8 +47,14 @@ def spm_vocab(n_vocab: int) -> dict:
 
 def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
                      n_head: int, vocab: int, n_ctx_train: int = 2048,
-                     freq_base: float = 10000.0) -> None:
-    """A LLaMA-shape Q4_0 GGUF with random blocks (norm weights 1)."""
+                     freq_base: float = 10000.0, qtype=GGMLType.Q4_0,
+                     std: float = 0.02) -> None:
+    """A LLaMA-shape GGUF, norm weights 1: with qtype Q4_0 every matrix is
+    random Q4_0 blocks; with F32 it is normal draws of standard deviation
+    `std` (0.02, LLaMA's initializer range, puts the logits' spread near
+    1.3 at dim 4096)."""
+    if qtype not in (GGMLType.Q4_0, GGMLType.F32):
+        raise ValueError(f"synthetic models are Q4_0 or F32, not {qtype!r}")
     w = GGUFWriter(path)
     md = {"general.architecture": "llama", "general.name": "smoke",
           "llama.context_length": n_ctx_train,
@@ -71,6 +78,9 @@ def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
     w.add_kv("tokenizer.ggml.eos_token_id", 2)
 
     def q4(name, n, k):
+        if qtype == GGMLType.F32:
+            w.add_tensor(name, rng.standard_normal((n, k), np.float32) * std)
+            return
         w.add_tensor(name, random_blocks(GGMLType.Q4_0, n, k, rng),
                      shape=(n, k), ggml_type=GGMLType.Q4_0)
 
