@@ -143,6 +143,32 @@ Phases (any failure raises, so the exit code is not 0):
      format, with its launches (5 ubatches x 9 qmm a file; each
      generate_fast 9 qmm_int8 a forward, its 1-token prompt and every
      decode step, nothing else)
+  9. the generation surface (slice 14). 9a, right after phase 7 on the
+     phase-4 model: tpulamm_torch.cli.main in process (each run loads its
+     own Engine; greedy, no repeat penalty), launches counted from 0 for
+     each run -- a 512-token prompt for 64 tokens with --prompt-cache, run
+     twice: the second reports reusing 511 of 512 prompt tokens and gives
+     the same tokens (a parting only at a near tie, top-two gap <= 1e-2 of
+     max|logit| of the logits on either run's path); the first launches
+     exactly 129 qmm (one ubatch) and 129 qmm_int8 a decode step, the
+     second 129 qmm_int8 for its one re-evaluated token and each step,
+     nothing else; -r with a substring of the first run's text (the output
+     stops at the piece that completes its first occurrence); --grammar
+     (the text parses); --cfg-negative-prompt with --cfg-scale 1.5 (two
+     slots: exactly 258 qmm for the two prompts and 129 qmm_int8 a
+     two-row step; its first 8 tokens against decode_batch logits and
+     apply_guidance on the host, near ties allowed); load s, prefill and
+     decode tok/s and the host sampler's ms a token of each run. 9b, after
+     phase 5d: a 2-layer model of LLaMA-7B width with fill-in-the-middle
+     ids; beam_search (4 beams, 16 tokens: the same sequence, score within
+     1e-3), batched (-np 4 -n 32), parallel (-np 4 -ns 8), infill,
+     passkey (n_ctx 1024, --grp-attn-n 4: the text and the exit code of
+     the CPU's; on random weights a MISS), save_load_state (exit 0) and
+     embedding --json (cosine >= 0.999), each on the card in process and
+     on the CPU's plain path in a subprocess of its own (one thread, all
+     started together), greedy choices compared with the near-tie rule;
+     each tool's seconds and launches (qmm and qmm_int8 > 0 where it
+     decodes)
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -157,6 +183,8 @@ import io
 import json
 import os
 import re
+import shutil
+import subprocess
 import sys
 import threading
 import time
@@ -167,6 +195,7 @@ import numpy as np
 import torch
 
 from tpulamm_torch.cli import gguf_dump, quantize, quantize_stats
+from tpulamm_torch.cli import main as gen_main
 from tpulamm_torch.cli.perplexity import compute_perplexity
 from tpulamm_torch.gguf.constants import GGMLType
 from tpulamm_torch.gguf.reader import GGUFReader
@@ -181,7 +210,8 @@ from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
 from tpulamm_torch.quant import formats
 from tpulamm_torch.runtime import decode_graph as DG
 from tpulamm_torch.runtime.engine import Engine, Timings, forward
-from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
+from tpulamm_torch.runtime.sampling import (Sampler, SamplingParams,
+                                           apply_guidance, apply_penalties)
 from tpulamm_torch.server import server as SV
 from tpulamm_torch.tools import int8_ablation as IA
 from tpulamm_torch.tools import ffn_ablation as FAB
@@ -2377,6 +2407,513 @@ GRAPH_PREDICTIONS = {
 }
 
 
+# -- slice 14: the generation surface (cli.main and its tools) ---------------
+# a parting of greedy tokens passes only at a near tie: the top-two gap of
+# the logits that chose the token <= TIE of their max |logit|
+TIE = 1e-2
+GEN_PROMPT, GEN_PREDICT, GEN_CFG_CHECK = 512, 64, 8
+GEN_GBNF = 'root ::= [a-z]+ " " [0-9]+'
+TOOL_TEXT = "The quick brown fox jumps over the lazy dog."
+PIECE_MAX = len("<extra_31999>")     # the longest piece of the synthetic vocab
+BATCHED_N = 32
+# beam_search's length-normalised score, card against CPU: within 1e-3 of
+# |score| (an H100 run: 1.33e-3 apart at -7.39, 1.8e-4 of it)
+BEAM_TOL = 1e-3
+
+
+def tie_gap(logits) -> float:
+    """Top-two gap of a logit vector over its max |logit|."""
+    lg = np.asarray(logits, np.float64)
+    top = np.sort(lg)[-2:]
+    return float((top[1] - top[0]) / max(np.abs(lg).max(), 1e-30))
+
+
+def first_parting(a: list, b: list) -> int | None:
+    """Index of the first element where two sequences differ (a length
+    difference counts at the shorter end), or None if they are equal."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def run_cli(label: str, main, argv: list[str]) -> tuple[int, str, str, float]:
+    """A CLI's main(argv) with its stdout and stderr captured and logged
+    -> (return code, stdout, stderr, seconds)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    finally:
+        dt = time.perf_counter() - t0
+        for stream, tag in ((out, ""), (err, " err")):
+            for line in stream.getvalue().splitlines():
+                log(f"[{label}{tag}] {line[:300]}")
+    return rc, out.getvalue(), err.getvalue(), dt
+
+
+def read_logdir(d: str) -> dict:
+    """The flat scalars of the one YAML run record cli.main --logdir wrote."""
+    (name,) = os.listdir(d)
+    rec = {}
+    with open(os.path.join(d, name)) as f:
+        for line in f:
+            key, sep, val = line.partition(": ")
+            if sep and not key.startswith("#"):
+                try:
+                    rec[key] = float(val)
+                except ValueError:
+                    rec[key] = val.strip()
+    return rec
+
+
+def session_tokens(path: str) -> list[int]:
+    with np.load(path) as z:
+        return [int(t) for t in z["tokens"]]
+
+
+def gen_prompt(path: str, rng, n_tokens: int) -> tuple[str, list[int]]:
+    """Lower-case letters that the model's byte-level vocab encodes to
+    exactly n_tokens tokens (BOS and the leading space's bytes included)."""
+    from tpulamm_torch.tokenizer.spm import build_tokenizer
+    r = GGUFReader(path)
+    tok = build_tokenizer(r.metadata)
+    r.close()
+    n_head = len(tok.encode("a", special=True)) - 1
+    text = "".join(chr(97 + int(c))
+                   for c in rng.integers(0, 26, n_tokens - n_head))
+    ids = tok.encode(text, special=True)
+    if len(ids) != n_tokens:
+        raise AssertionError(f"prompt of {len(ids)} tokens, not {n_tokens}")
+    return text, ids
+
+
+def penalized(logits, hist: list[int], last_n: int,
+              repeat: float) -> np.ndarray:
+    """The logits a greedy Sampler takes its choice from: the repeat
+    penalty over the last last_n tokens of hist."""
+    return apply_penalties(np.asarray(logits, np.float32), hist[-last_n:],
+                           repeat, 0.0, 0.0)
+
+
+def check_greedy_run(ref, prompt: list[int], want: list[int],
+                     got: list[int], label: str) -> str:
+    """The greedy tokens (no repeat penalty) of a prompt-cache run (the
+    prompt's last token evaluated alone) against those of the run that
+    wrote the cache (the prompt in one ubatch): equal, or parted at a near
+    tie of ref's logits (slot 0) on either run's path, teacher-forced
+    through its own tokens. Raises otherwise."""
+    i = first_parting(want, got)
+    if i is None:
+        return "the same tokens"
+    gaps = []
+    for pieces, toks in (([prompt], want), ([prompt[:-1], prompt[-1:]], got)):
+        ref.reset_slot(0)
+        for piece in pieces:
+            lg = ref.prefill(0, piece)
+        for t in toks[:i]:
+            lg = ref.decode_one(0, t)
+        gaps.append(tie_gap(lg))
+    if min(gaps) > TIE:
+        raise AssertionError(f"{label}: parted at token {i} "
+                             f"({want[i:i + 1]} vs {got[i:i + 1]}), top-two "
+                             f"gaps {gaps} of max|logit| > {TIE}")
+    return (f"parted at token {i} at a near tie (gaps {gaps[0]:.3g} / "
+            f"{gaps[1]:.3g} of max|logit|)")
+
+
+def main_run(label: str, path: str, argv: list[str], work: str):
+    """cli.main on `path` with its launches counted from 0 and its timings
+    from --logdir -> (rc, stdout, stderr, seconds, launches, timings)."""
+    logdir = os.path.join(work, label)
+    reset_port_launches()
+    rc, out, err, dt = run_cli(label, gen_main.main,
+                               ["-m", path, *argv, "--logdir", logdir])
+    launches = {k: v for k, v in port_launches().items() if v}
+    tm = read_logdir(logdir)
+    log(f"[{label}] rc {rc}, {dt:.1f} s: load {tm['t_load_ms'] / 1e3:.2f} s, "
+        f"prefill {int(tm['n_prompt_eval'])} tokens "
+        f"{tm['prompt_tokens_per_s']:.1f} tok/s, decode "
+        f"{int(tm['n_eval'])} evals {tm['eval_tokens_per_s']:.2f} tok/s, "
+        f"host sampler {tm['t_sample_ms'] / max(tm['n_sample'], 1):.3f} ms a "
+        f"token; launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"{label}: cli.main returned {rc}")
+    return out, err, dt, launches, tm
+
+
+def phase_generation(device, rng, path: str, n_layers: int, smi: str,
+                     shape=LLAMA_7B, prompt_len: int = GEN_PROMPT,
+                     n_predict: int = GEN_PREDICT, n_ctx: int = 2048) -> dict:
+    """Phase 9a: tpulamm_torch.cli.main in process on the phase-4 model: a
+    prompt-cache run twice, a reverse prompt, a GBNF grammar and
+    classifier-free guidance, each with its exact launch counts."""
+    t_phase = time.perf_counter()
+    work = os.path.join(SMOKE_DIR, "gen")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    per_pass = 4 * n_layers + 1
+    text, ptoks = gen_prompt(path, rng, prompt_len)
+    # no repeat penalty: a prompt-cache run feeds its Sampler only the
+    # tokens it evaluates, so a penalty window would differ between runs
+    base = ["-p", text, "-n", str(n_predict), "--temp", "0", "-c",
+            str(n_ctx), "--repeat-penalty", "1.0", "--no-display-prompt",
+            "--device", device.type]
+    out = {}
+    try:
+        # a prompt-cache run, then the same command again
+        cache = os.path.join(work, "prompt.cache")
+        o1, _, dt1, l1, t1 = main_run("main-cache-1", path,
+                                      base + ["--prompt-cache", cache], work)
+        ids1 = session_tokens(cache)[prompt_len:]
+        if int(t1["n_eval"]) != len(ids1):
+            raise AssertionError(f"{len(ids1)} tokens, {t1['n_eval']} steps")
+        expect_launches("main-cache-1", {"qmm": per_pass,
+                                         "qmm_int8": per_pass * len(ids1)})
+        o2, e2, dt2, l2, t2 = main_run("main-cache-2", path,
+                                       base + ["--prompt-cache", cache], work)
+        ids2 = session_tokens(cache)[prompt_len:]
+        reuse = (f"prompt cache: reusing {prompt_len - 1} of {prompt_len} "
+                 "prompt tokens")
+        if reuse not in e2:
+            raise AssertionError(f"main-cache-2: no {reuse!r} on stderr")
+        # the one token left is a 1-row forward: the int8 gemv
+        expect_launches("main-cache-2",
+                        {"qmm_int8": per_pass * (1 + len(ids2))})
+        ref = Engine(path, n_ctx=n_ctx, n_slots=2, device=device)
+        same = check_greedy_run(ref, ptoks, ids1, ids2, "main-cache-2")
+        if same == "the same tokens" and o2 != o1:
+            raise AssertionError("main-cache-2: the same tokens, other text")
+        log(f"[generation] prompt cache: run 2 reused {prompt_len - 1} of "
+            f"{prompt_len} tokens and gave {same}; launches run 1 {l1} "
+            f"(exactly {per_pass} qmm for the ubatch and {per_pass} qmm_int8 "
+            f"for each of {len(ids1)} decode steps), run 2 {l2}")
+        # a reverse prompt: the piece at the middle of the first run's text
+        gen = o1[:-1]
+        k = gen.find("<", len(gen) // 2)
+        e = gen.find(">", k) if k >= 0 else -1
+        rp = gen[k:e + 1] if e > k else gen[len(gen) // 2:len(gen) // 2 + 8]
+        o3, _, dt3, l3, _ = main_run("main-reverse", path,
+                                     base + ["-r", rp], work)
+        stop, cut = gen.index(rp) + len(rp), o3[:-1]
+        if not (gen.startswith(cut) and stop <= len(cut) < stop + PIECE_MAX):
+            raise AssertionError(f"-r {rp!r}: output of {len(cut)} chars, "
+                                 f"first occurrence ends at {stop}")
+        log(f"[generation] -r {rp!r}: stopped at char {len(cut)} of "
+            f"{len(gen)}, the piece that ends its first occurrence (char "
+            f"{stop})")
+        # a GBNF grammar: 12 tokens, each step masks the 32,000 pieces
+        o4, _, dt4, l4, _ = main_run(
+            "main-grammar", path,
+            base[:2] + ["-n", "12"] + base[4:] + ["--grammar", GEN_GBNF],
+            work)
+        g = Grammar.from_gbnf(GEN_GBNF)
+        g.accept_token(o4[:-1].encode())      # raises where it does not parse
+        log(f"[generation] GBNF {GEN_GBNF!r}: {o4[:-1]!r} parses"
+            f"{' (complete)' if g.can_stop() else ' (a prefix)'}")
+        # classifier-free guidance: two slots, one batched step a token
+        neg_text, neg = gen_prompt(path, rng, 64)
+        cfg_cache = os.path.join(work, "cfg.cache")
+        o5, _, dt5, l5, t5 = main_run(
+            "main-cfg", path,
+            base[:2] + ["-n", "16"] + base[4:] + [
+                "--cfg-negative-prompt", neg_text, "--cfg-scale", "1.5",
+                "--prompt-cache", cfg_cache], work)
+        ids5 = session_tokens(cfg_cache)[prompt_len:]
+        expect_launches("main-cfg", {"qmm": 2 * per_pass,
+                                     "qmm_int8": per_pass * len(ids5)})
+        ref.reset_slot(0)
+        ref.reset_slot(1)
+        g_lg, lg = ref.prefill(1, neg), ref.prefill(0, ptoks)
+        parted = []
+        for i, t in enumerate(ids5[:GEN_CFG_CHECK]):
+            guided = apply_guidance(lg, g_lg, 1.5)
+            if int(np.argmax(guided)) != t:
+                gap = tie_gap(guided)
+                if gap > TIE:
+                    raise AssertionError(
+                        f"main-cfg: token {i} is {t}, the host recomputation "
+                        f"gives {int(np.argmax(guided))} (gap {gap:.3g})")
+                parted.append((i, gap))
+            both = ref.decode_batch({0: t, 1: t})
+            lg, g_lg = both[0], both[1]
+        log(f"[generation] CFG scale 1.5: the first {GEN_CFG_CHECK} tokens "
+            f"against decode_batch + apply_guidance on the host: "
+            f"{'all equal' if not parted else f'near ties at {parted}'}; "
+            f"launches {l5} ({2 * per_pass} qmm for the two prompts, "
+            f"{per_pass} qmm_int8 for each of {len(ids5)} two-row steps)")
+        del ref
+        out = {"load_s": t1["t_load_ms"] / 1e3,
+               "prefill_tok_s": t1["prompt_tokens_per_s"],
+               "decode_tok_s": t1["eval_tokens_per_s"],
+               "sample_ms": t1["t_sample_ms"] / t1["n_sample"],
+               "cfg_decode_tok_s": t5["eval_tokens_per_s"] / 2,
+               "runs_s": [dt1, dt2, dt3, dt4, dt5]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[generation] cli.main at {n_layers} layers: load "
+        f"{out['load_s']:.2f} s, prefill {out['prefill_tok_s']:.1f} tok/s, "
+        f"decode (decode_one + host Sampler) {out['decode_tok_s']:.2f} "
+        f"tok/s, host sampler {out['sample_ms']:.3f} ms a token, CFG "
+        f"{out['cfg_decode_tok_s']:.2f} tok/s; runs "
+        f"{' / '.join(f'{s:.1f}' for s in out['runs_s'])} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {smi}")
+    return out
+
+
+# the tools at 2 layers: (name, recording mode, argv after -m)
+def tool_cases(n_beams: int = 4) -> list[tuple[str, str, list[str]]]:
+    return [
+        ("beam_search", "beam", ["-p", TOOL_TEXT, "-b", str(n_beams),
+                                 "-n", "16", "-c", "512"]),
+        ("batched", "block", ["-p", TOOL_TEXT, "-np", "4", "-n",
+                              str(BATCHED_N), "--temp", "0", "-c", "512"]),
+        ("parallel", "sample", ["-np", "4", "-ns", "8", "-n", "16",
+                                "--temp", "0", "-c", "512"]),
+        ("infill", "sample", ["--in-prefix", "def add(a, b):\n    ",
+                              "--in-suffix", "\n    return c", "-n", "16",
+                              "--temp", "0", "-c", "512"]),
+        ("passkey", "sample", ["--n-junk", "5", "--passkey", "31415",
+                               "--pos", "2", "-c", "1024", "--grp-attn-n",
+                               "4", "-n", "8"]),
+        ("save_load_state", "argmax", ["-p", TOOL_TEXT, "-n", "16",
+                                       "-c", "256"]),
+        ("embedding", "none", ["-p", TOOL_TEXT, "-p", "a b c d e f g h",
+                               "--json", "-c", "512"]),
+    ]
+
+
+@contextlib.contextmanager
+def recording(mode: str):
+    """Record what a tool chooses while it runs -> {"choices": [(token,
+    tie_gap or None)], "beam": [ids, score] or None}. mode "sample": each
+    Sampler.sample (its gap on the penalized logits); "argmax": the argmax
+    of the logits Engine.prefill and decode_one return; "block": those and
+    decode_batch_fast's tokens (no logits: gap None); "beam":
+    beam_search's result."""
+    from tpulamm_torch.runtime import beam as beam_mod
+    rec = {"choices": [], "beam": None}
+    saved = []
+
+    def patch(obj, name, make):
+        orig = getattr(obj, name)
+        saved.append((obj, name, orig))
+        setattr(obj, name, make(orig))
+
+    def on_sample(orig):
+        def sample(self, logits):
+            tok = orig(self, logits)
+            p = self.params
+            rec["choices"].append((int(tok), tie_gap(penalized(
+                logits, self.prev, p.penalty_last_n, p.penalty_repeat)
+                if p.penalty_last_n else logits)))
+            return tok
+        return sample
+
+    def on_logits(orig):
+        def call(self, *a, **kw):
+            lg = orig(self, *a, **kw)
+            if getattr(lg, "ndim", 0) == 1:
+                rec["choices"].append((int(np.argmax(lg)), tie_gap(lg)))
+            return lg
+        return call
+
+    def on_block(orig):
+        def call(self, *a, **kw):
+            res = orig(self, *a, **kw)
+            for s in sorted(res):
+                rec["choices"] += [(int(t), None) for t in res[s]]
+            return res
+        return call
+
+    def on_beam(orig):
+        def call(*a, **kw):
+            ids, score = orig(*a, **kw)
+            rec["beam"] = [list(ids), float(score)]
+            return ids, score
+        return call
+
+    try:
+        if mode == "sample":
+            patch(Sampler, "sample", on_sample)
+        if mode in ("argmax", "block"):
+            patch(Engine, "prefill", on_logits)
+            patch(Engine, "decode_one", on_logits)
+        if mode == "block":
+            patch(Engine, "decode_batch_fast", on_block)
+        if mode == "beam":
+            patch(beam_mod, "beam_search", on_beam)
+        yield rec
+    finally:
+        for obj, name, orig in reversed(saved):
+            setattr(obj, name, orig)
+
+
+def run_recorded(tool: str, mode: str, argv: list[str]) -> dict:
+    """A tool's main(argv) with stdout and stderr captured and its choices
+    recorded -> {"rc", "out", "err", "s", "choices", "beam"}."""
+    import importlib
+    mod = importlib.import_module(f"tpulamm_torch.cli.{tool}")
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with recording(mode) as rec, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        try:
+            rc = mod.main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return {"rc": rc, "out": out.getvalue(), "err": err.getvalue(),
+            "s": time.perf_counter() - t0, **rec}
+
+
+def cpu_tool_main() -> int:
+    """`python3 -c "import chip_smoke; chip_smoke.cpu_tool_main()" TOOL MODE
+    ARGV_JSON`: the tool on the CPU's plain path, one thread, its result
+    as one JSON line."""
+    tool, mode, argv = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+    torch.set_num_threads(1)
+    res = run_recorded(tool, mode, argv + ["--device", "cpu"])
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def block_gap(path: str, device, res: dict, i: int,
+              n: int = BATCHED_N) -> float:
+    """batched's choice i (its first token, then each slot's block of n - 1
+    tokens) has no logits: its gap, from a one-slot engine on `device`
+    teacher-forced through the same slot's tokens."""
+    from tpulamm_torch.tokenizer.spm import build_tokenizer
+    eng = Engine(path, n_ctx=512, device=device)
+    toks = [t for t, _ in res["choices"]]
+    first, blk = toks[0], n - 1
+    s, j = divmod(i - 1, blk)
+    lg = eng.prefill(0, build_tokenizer(eng.metadata).encode(TOOL_TEXT,
+                                                             add_bos=True))
+    for t in [first] + toks[1 + s * blk:1 + s * blk + j]:
+        lg = eng.decode_one(0, t)
+    return tie_gap(lg)
+
+
+def compare_tool(path: str, device, tool: str, card: dict, cpu: dict) -> str:
+    """The card's run of a tool against the CPU's: return codes, then the
+    choices (a parting allowed only at a near tie of either side's logits;
+    after it the texts may differ), the output text, beam_search's
+    sequence and score (within BEAM_TOL of |score|: the card's decode
+    takes int8 activations, the CPU's f32), embedding's cosine
+    (>= 0.999)."""
+    if tool == "embedding":
+        a = np.asarray(json.loads(card["out"])["embeddings"], np.float64)
+        b = np.asarray(json.loads(cpu["out"])["embeddings"], np.float64)
+        cos = min(cosine(x, y) for x, y in zip(a, b))
+        if a.shape != b.shape or not cos >= 0.999:
+            raise AssertionError(f"embedding: cosine {cos} < 0.999")
+        return f"{len(a)} vectors of {a.shape[1]}, min cosine {cos!r}"
+    if tool == "beam_search":
+        (ia, sa), (ib, sb) = card["beam"], cpu["beam"]
+        if ia != ib or not abs(sa - sb) <= BEAM_TOL * abs(sb):
+            raise AssertionError(f"beam_search: {ia} ({sa}) vs {ib} ({sb})")
+        return f"the same {len(ia)} tokens, score {sa!r} vs {sb!r}"
+    ta = [t for t, _ in card["choices"]]
+    tb = [t for t, _ in cpu["choices"]]
+    i = first_parting(ta, tb)
+    if i is None:
+        if re.sub(r"\s*[0-9.]+ t/s", " t/s", card["out"]) != \
+                re.sub(r"\s*[0-9.]+ t/s", " t/s", cpu["out"]):
+            raise AssertionError(f"{tool}: the same choices, other text")
+        if card["rc"] != cpu["rc"]:
+            raise AssertionError(f"{tool}: exit {card['rc']} vs {cpu['rc']}")
+        return f"the same {len(ta)} choices and text, exit {card['rc']}"
+    gaps = [g for g in (card["choices"][i][1] if i < len(ta) else None,
+                        cpu["choices"][i][1] if i < len(tb) else None)
+            if g is not None]
+    if not gaps:
+        gaps = [block_gap(path, device, card, i)]
+    if min(gaps) > TIE:
+        raise AssertionError(f"{tool}: choice {i} parted ({ta[i:i + 1]} vs "
+                             f"{tb[i:i + 1]}) at gap {min(gaps):.3g} > {TIE}")
+    return (f"parted at choice {i} of {len(ta)} at a near tie (gap "
+            f"{min(gaps):.3g}); exit {card['rc']} vs {cpu['rc']}")
+
+
+def phase_tools(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
+                cases=None, threads: int = 1) -> dict:
+    """Phase 9b: each generation tool on the card beside the same tool on
+    the CPU's plain path (a subprocess each, started together) on a
+    2-layer model of LLaMA-7B width with fill-in-the-middle ids."""
+    t_phase = time.perf_counter()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, "llama7b_shape_q4_0_2l_fim.gguf")
+    write_llama_gguf(path, n_layers, rng, **shape, fim=True)
+    cases = tool_cases() if cases is None else cases
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here, "OMP_NUM_THREADS": str(threads)}
+    procs, errs = {}, {}
+    try:
+        for tool, mode, argv in cases:
+            # stderr to a file: a full pipe would stall the child
+            errs[tool] = open(os.path.join(SMOKE_DIR, f"cpu_{tool}.err"),
+                              "w+")
+            procs[tool] = subprocess.Popen(
+                [sys.executable, "-c",
+                 "import chip_smoke; chip_smoke.cpu_tool_main()", tool, mode,
+                 json.dumps(["-m", path] + argv)],
+                cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=errs[tool], text=True)
+        card = {}
+        for tool, mode, argv in cases:
+            reset_port_launches()
+            res = run_recorded(tool, mode,
+                               ["-m", path] + argv + ["--device", device.type])
+            res["launches"] = {k: v for k, v in port_launches().items() if v}
+            card[tool] = res
+            for line in res["out"].splitlines()[:12]:
+                log(f"[tools {tool}] {line[:200]}")
+            log(f"[tools {tool}] card: exit {res['rc']}, {res['s']:.1f} s, "
+                f"launches {res['launches']}")
+            decodes = tool != "embedding"
+            if not (res["launches"].get("qmm", 0) > 0 and (
+                    not decodes or res["launches"].get("qmm_int8", 0) > 0)):
+                raise AssertionError(f"{tool}: launches {res['launches']}")
+            if tool in ("save_load_state", "beam_search", "batched",
+                        "parallel", "infill", "embedding") and res["rc"] != 0:
+                raise AssertionError(f"{tool} on the card exited {res['rc']}:"
+                                     f" {res['err'][-500:]}")
+        t_card = time.perf_counter() - t_phase
+        out, failed = {}, []
+        for tool, mode, argv in cases:
+            so, _ = procs[tool].communicate(timeout=600)
+            if procs[tool].returncode != 0:
+                errs[tool].seek(0)
+                failed.append(f"{tool} on the CPU: "
+                              f"{errs[tool].read()[-2000:]}")
+                continue
+            cpu = json.loads(so.strip().splitlines()[-1])
+            try:
+                verdict = compare_tool(path, device, tool, card[tool], cpu)
+            except AssertionError as e:
+                failed.append(str(e))
+                verdict = f"FAILED: {e}"
+            log(f"[tools {tool}] CPU: exit {cpu['rc']}, {cpu['s']:.1f} s; "
+                f"card vs CPU: {verdict}")
+            out[tool] = {"card_s": card[tool]["s"], "cpu_s": cpu["s"],
+                         "launches": card[tool]["launches"]}
+        if failed:
+            raise AssertionError("; ".join(failed))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        for f in errs.values():
+            f.close()
+            os.remove(f.name)
+        os.remove(path)
+    log(f"[tools] {len(cases)} tools: card side {t_card:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {smi}")
+    return out
+
+
 def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
     """One line for each decode path: tok/s (or ms a step), the profiled
     wall and device ms a step of its graph replays, beside the prediction."""
@@ -2475,6 +3012,10 @@ def main() -> int:
         phase_server(device, np.random.default_rng(SEED + 7), sl["path"],
                      sl["layers"], smi)
         done("server")
+        # generators of their own, as phase 7 has
+        phase_generation(device, np.random.default_rng(SEED + 14),
+                         sl["path"], sl["layers"], smi)
+        done("generation")
     finally:
         os.remove(sl["path"])
     lc = phase_long(device, rng)
@@ -2487,6 +3028,8 @@ def main() -> int:
     done("mega numerics")
     phase_batch_numerics(device, rng)
     done("batch numerics")
+    phase_tools(device, np.random.default_rng(SEED + 15), smi)
+    done("tools")
     # a generator of its own, as phase 7 has
     phase_quality(device, np.random.default_rng(SEED + 13), smi)
     done("quality")

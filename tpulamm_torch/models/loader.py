@@ -31,6 +31,11 @@ from tpulamm_torch.quant.repack import SPECS
 log = logging.getLogger("tpulamm_torch.loader")
 
 
+class AbortError(RuntimeError):
+    """Raised when the abort callback requests cancellation mid-compute
+    (ggml_abort_callback parity, ggml.c:18328 / llama.h:654)."""
+
+
 def _dense(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
         device=device, dtype=dtype)
@@ -139,11 +144,35 @@ def _layer_params(tm: _TensorMap, cfg: ModelConfig, i: int) -> dict[str, Any]:
     return out
 
 
+def parse_kv_override(s: str) -> tuple[str, Any]:
+    """Parse a --override-kv item 'key=type:value' (llama_model_kv_override
+    format, common.cpp): types int, float, bool, str."""
+    key, _, tv = s.partition("=")
+    typ, _, val = tv.partition(":")
+    if not key or not typ or val == "":
+        raise ValueError(f"bad --override-kv {s!r}; want KEY=TYPE:VALUE")
+    cast = {"int": int, "float": float, "str": str,
+            "bool": lambda v: v.lower() in ("1", "true", "yes")}.get(typ)
+    if cast is None:
+        raise ValueError(f"bad --override-kv type {typ!r} "
+                         "(int|float|bool|str)")
+    return key, cast(val)
+
+
 def load_model(path: str, *, compute_dtype: str | None = None,
-               device="cpu") -> tuple[ModelConfig, dict[str, Any], dict]:
+               device="cpu", kv_overrides: dict[str, Any] | None = None,
+               abort=None) -> tuple[ModelConfig, dict[str, Any], dict]:
     """Returns (config, params, metadata); metadata keeps the tokenizer
-    KVs. Params live on `device`."""
+    KVs. Params live on `device`.
+
+    kv_overrides: GGUF metadata values applied before the hyperparameters
+    are read (llama_model_kv_override / --override-kv).
+    abort: optional callback () -> bool checked before each layer is
+    loaded; True cancels the load with AbortError (a progress callback
+    returning false, test-model-load-cancel.cpp)."""
     reader = GGUFReader(path)
+    if kv_overrides:
+        reader.metadata.update(kv_overrides)
     cfg = config_from_metadata(reader.metadata)
     if compute_dtype:
         cfg.compute_dtype = compute_dtype
@@ -175,9 +204,16 @@ def load_model(path: str, *, compute_dtype: str | None = None,
     # the layers repack in parallel threads: numpy releases the GIL in the
     # copies and bit operations that take the time (about 4x faster on 8
     # cores at LLaMA-7B shape)
-    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
-        params["layers"] = list(ex.map(lambda i: _layer_params(tm, cfg, i),
-                                       range(cfg.n_layers)))
+    def layer(i):
+        if abort is not None and abort():
+            raise AbortError(f"model load cancelled at layer {i}")
+        return _layer_params(tm, cfg, i)
+    try:
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+            params["layers"] = list(ex.map(layer, range(cfg.n_layers)))
+    except AbortError:
+        reader.close()
+        raise
     md = dict(reader.metadata)
     reader.close()
     return cfg, params, md

@@ -23,7 +23,11 @@
   checks EOS between blocks and rolls the cache back to the returned
   tokens; decode_one and decode_batch replay the graph of the forward
   alone and copy the logits back; generate samples on the host with
-  Sampler
+  Sampler, with the JAX engine's grammar, classifier-free guidance (a
+  second slot), stop tokens and streaming
+- abort_callback (set_abort_callback) is checked before each prefill or
+  embed ubatch (AbortError), between generate_fast blocks and before each
+  generate token (the partial output); load_abort cancels a model load
 - the serving path: decode_batch, decode_batch_fast and
   decode_batch_sampled run over the first _b_rows slots (active-slot
   compaction); the two block methods keep n_steps of sampled tokens on the
@@ -45,21 +49,24 @@ CUDA device the default raises rather than falling back.
 
 from __future__ import annotations
 
+import codecs
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from tpulamm_torch.grammar.engine import Grammar
 from tpulamm_torch.models.llama import forward
-from tpulamm_torch.models.loader import load_model
+from tpulamm_torch.models.loader import AbortError, load_model
 from tpulamm_torch.ops import device_sampling as ds
 from tpulamm_torch.ops.mega_decode import build_mega, mega_decode_layers
 from tpulamm_torch.ops.qtensor import QTensor
 from tpulamm_torch.runtime import decode_graph as dg
 from tpulamm_torch.runtime import kvcache as kv
 from tpulamm_torch.runtime.kvcache import KVCache
-from tpulamm_torch.runtime.sampling import Sampler, SamplingParams
+from tpulamm_torch.runtime.sampling import (Sampler, SamplingParams,
+                                           apply_guidance)
 from tpulamm_torch.tokenizer.spm import build_tokenizer
 
 
@@ -120,7 +127,7 @@ class Engine:
                  flash_attn: bool | None = None, grp_attn_n: int = 1,
                  grp_attn_w: int = 512, megakernel: bool = False,
                  fused_ffn: bool = False, int8_inkq: bool = False,
-                 device=None):
+                 kv_overrides=None, load_abort=None, device=None):
         """kv_dtype / kv_dtype_v: the K and V storage (-ctk / -ctv), a
         torch float dtype, its name, or "q8_0"; V defaults to K's.
         flash_attn: None picks the flash kernels by span as the JAX
@@ -132,11 +139,16 @@ class Engine:
         fused_ffn: decode-size FFNs run the one-launch FFN kernel;
         int8_inkq: the int8 gemv quantizes its activations inside its
         launch. fused_ffn and int8_inkq act on CUDA only, as their JAX
-        switches act on the TPU only."""
+        switches act on the TPU only.
+        kv_overrides: GGUF metadata values applied before the model's
+        hyperparameters are read (--override-kv, models.loader).
+        load_abort: () -> bool, checked before each layer loads; True
+        cancels the load with AbortError."""
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         self.cfg, self.params, self.metadata = load_model(
-            model_path, compute_dtype=compute_dtype, device=self.device)
+            model_path, compute_dtype=compute_dtype, device=self.device,
+            kv_overrides=kv_overrides, abort=load_abort)
         self.cfg.flash_attn = flash_attn
         self.cfg.fused_ffn = fused_ffn
         self.cfg.int8_inkq = int8_inkq
@@ -176,8 +188,19 @@ class Engine:
         # the step graphs (one memory pool) and the generator of their draws
         self.graphs = dg.DecodeGraphs(self.device, n_ctx)
         self._gen = torch.Generator(device=self.device)
+        # abort_callback (llama.h:654): checked before each prefill ubatch,
+        # between generate_fast blocks and generate tokens; None = never
+        self.abort_callback = None
         self.timings = Timings()
         self.timings.t_load = time.perf_counter() - t0
+
+    def set_abort_callback(self, cb) -> None:
+        """cb() -> bool; True aborts at the next compute boundary."""
+        self.abort_callback = cb
+
+    def _check_abort(self):
+        if self.abort_callback is not None and self.abort_callback():
+            raise AbortError("aborted by callback")
 
     def _fuse_projections(self):
         """Fuse the QKV and gate+up QTensors into one launch each (plane
@@ -358,9 +381,11 @@ class Engine:
     def _ubatches(self, slot: int, tokens):
         """The n_ubatch pieces of `tokens` for a slot: (tokens, positions,
         cells) each, its cells allocated; n_past advances past a piece
-        once the caller has run it."""
+        once the caller has run it. The abort callback is asked before
+        each piece (AbortError)."""
         toks = np.asarray(tokens, np.int32)
         for off in range(0, len(toks), self.n_ubatch):
+            self._check_abort()
             chunk = toks[off:off + self.n_ubatch]
             pos = (self.n_past[slot] + np.arange(len(chunk))).astype(np.int32)
             yield chunk, pos, self._cells_for(slot, len(chunk), pos)
@@ -736,6 +761,8 @@ class Engine:
         start0 = int(self.n_past[slot])
         out = [first]
         while len(out) < n_predict and not (stop_on_eos and eos in out):
+            if self.abort_callback is not None and self.abort_callback():
+                break                  # the partial output; the slot is valid
             n = dg.pick_block(n_predict - len(out),
                               self.n_ctx - int(self.n_past[slot]) - 1)
             if n <= 0:
@@ -761,26 +788,77 @@ class Engine:
 
     def generate(self, prompt: str | list[int], *, n_predict: int = 128,
                  sampling: SamplingParams | None = None, slot: int = 0,
-                 stop_on_eos: bool = True):
-        """Generate tokens with the host Sampler; returns (token_ids, text)."""
+                 stop_on_eos: bool = True, stream=None,
+                 grammar: str | object | None = None,
+                 cfg_negative_prompt: str | list[int] | None = None,
+                 cfg_scale: float = 1.0,
+                 stop_tokens: set[int] | None = None):
+        """Generate tokens with the host Sampler, one decode_one step a
+        token; returns (token_ids, text). The prompt continues the slot
+        from n_past (reset it first for a fresh start).
+
+        grammar: GBNF text (or a prebuilt Grammar) constraining the output
+        (llama_sample_grammar semantics).
+        cfg_negative_prompt / cfg_scale: classifier-free guidance -- slot +
+        1 evaluates the negative context, each step is one decode_batch of
+        both slots, and the logits are combined as
+        llama_sample_apply_guidance does (main.cpp's CFG path).
+        stop_tokens: ids that end generation (not emitted).
+        stream: called with each piece of text as it decodes (an
+        incremental UTF-8 decoder over the tokens' bytes).
+        The abort callback is checked before each token: True returns the
+        partial output and leaves the slot valid."""
         tokens = self._encode(prompt)
         sampling = sampling or SamplingParams()
         eos = self._eos()
+        gobj, pieces = None, None
+        if grammar is not None:
+            gobj = (Grammar.from_gbnf(grammar) if isinstance(grammar, str)
+                    else grammar)
+            assert self.tokenizer is not None, "grammar needs a tokenizer"
+            pieces = self.token_pieces()
         sampler = Sampler(sampling, self.cfg.vocab_size, eos_id=eos,
-                          nl_id=self.newline_id())
+                          nl_id=self.newline_id(), grammar=gobj,
+                          token_pieces=pieces)
         for t in tokens:
             sampler.accept(t, apply_grammar=False)
+
+        use_cfg = cfg_negative_prompt is not None and cfg_scale != 1.0
+        gslot, g_logits = None, None
+        if use_cfg:
+            gslot = slot + 1
+            assert gslot < self.n_slots, \
+                "CFG needs a free slot (start the engine with n_slots>=2)"
+            self.reset_slot(gslot)
+            g_logits = self.prefill(gslot, self._encode(cfg_negative_prompt))
+
         logits = self.prefill(slot, tokens)
         out_ids: list[int] = []
+        # byte tokens may split a multi-byte character across steps
+        sdec = codecs.getincrementaldecoder("utf-8")("replace")
         for _ in range(n_predict):
+            if self.abort_callback is not None and self.abort_callback():
+                break                  # the partial output; the slot is valid
             t0 = time.perf_counter()
+            if use_cfg:
+                logits = apply_guidance(logits, g_logits, cfg_scale)
             tok = sampler.sample(logits)
             sampler.accept(tok)
             self.timings.t_sample += time.perf_counter() - t0
             self.timings.n_sample += 1
             if stop_on_eos and tok == eos and not sampling.ignore_eos:
                 break
+            if stop_tokens and tok in stop_tokens:
+                break
             out_ids.append(tok)
-            logits = self.decode_one(slot, tok)
+            if stream is not None and self.tokenizer is not None:
+                piece = sdec.decode(self.tokenizer.token_bytes(tok))
+                if piece:
+                    stream(piece)
+            if use_cfg:
+                both = self.decode_batch({slot: tok, gslot: tok})
+                logits, g_logits = both[slot], both[gslot]
+            else:
+                logits = self.decode_one(slot, tok)
         text = self.tokenizer.decode(out_ids) if self.tokenizer else ""
         return out_ids, text

@@ -44,6 +44,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from tpulamm_torch.cli._common import (DISTRIBUTED_FLAGS, MESH_ITEM,
+                                       SPEC_ITEM, add_unported_args,
+                                       refuse_unported, require_file)
 from tpulamm_torch.grammar.engine import Grammar
 from tpulamm_torch.grammar.json_schema import json_grammar, schema_to_grammar
 from tpulamm_torch.ops.device_sampling import fast_chain_eligible
@@ -52,9 +55,6 @@ from tpulamm_torch.runtime.chat import (apply_chat_template,
 from tpulamm_torch.runtime.kvcache import KV_CACHE_TYPES
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams, softmax
 from tpulamm_torch.utils import log as logm
-
-SPEC_ITEM = "ROADMAP queue 1, item 10 (speculation)"
-MESH_ITEM = "ROADMAP queue 1, item 14 (parallelism)"
 
 
 @dataclass
@@ -945,24 +945,6 @@ def make_handler(sched: Scheduler, model_name: str):
     return Handler
 
 
-def refuse_unported(tp: int = 1, dp: int = 1, lookup_decoding: bool = False,
-                    model_draft: str | None = None,
-                    multihost: bool = False) -> None:
-    """Raise for a serving option of the JAX server the port does not run
-    yet, naming the ROADMAP item that brings it."""
-    if lookup_decoding or model_draft:
-        flag = "--lookup-decoding" if lookup_decoding else "--model-draft"
-        raise NotImplementedError(
-            f"{flag}: the speculative serving tiers are not ported yet "
-            f"({SPEC_ITEM})")
-    if tp > 1 or dp > 1 or multihost:
-        what = (f"--tp {tp} / --dp {dp}" if tp > 1 or dp > 1
-                else "multi-host serving")
-        raise NotImplementedError(
-            f"{what}: the mesh and the multi-host transport are not ported "
-            f"yet ({MESH_ITEM})")
-
-
 def serve(model_path: str, host: str = "127.0.0.1", port: int = 8080,
           n_slots: int = 4, n_ctx: int = 2048, compute_dtype=None,
           started: threading.Event | None = None, tp: int = 1, dp: int = 1,
@@ -1009,13 +991,8 @@ def main(argv=None):
     p.add_argument("--compute-dtype", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain path)")
-    p.add_argument("--tp", type=int, default=1,
-                   help=f"tensor-parallel shards: not ported ({MESH_ITEM})")
-    p.add_argument("--dp", type=int, default=1,
-                   help=f"data-parallel slot sharding: not ported "
-                        f"({MESH_ITEM})")
-    for flag in ("--coordinator", "--num-processes", "--process-id",
-                 "--broadcast-port", "--mh-heartbeat"):
+    add_unported_args(p)
+    for flag in ("--broadcast-port", "--mh-heartbeat"):
         p.add_argument(flag, default=None,
                        help=f"multi-host serving: not ported ({MESH_ITEM})")
     p.add_argument("-ctk", "--cache-type-k", default="bfloat16",
@@ -1032,13 +1009,11 @@ def main(argv=None):
     logm.add_args(p)
     args = p.parse_args(argv)
     multihost = any(getattr(args, a) is not None for a in (
-        "coordinator", "num_processes", "process_id", "broadcast_port",
-        "mh_heartbeat"))
+        *DISTRIBUTED_FLAGS, "broadcast_port", "mh_heartbeat"))
     refuse_unported(args.tp, args.dp, args.lookup_decoding, args.model_draft,
                     multihost)
     logm.setup(args, "server")
     logm.log(f"args: {vars(args)}")
-    from tpulamm_torch.cli._common import require_file
     require_file(p, args.model)
     system_prompt = None
     if args.system_prompt_file:

@@ -34,6 +34,12 @@ def random_blocks(qtype: GGMLType, n: int, k: int, rng,
     return raw.reshape(n, nb * tb)
 
 
+# the fill-in-the-middle token ids of write_llama_gguf(fim=True): the first
+# filler ids after the specials and the 256 byte tokens
+FIM_ROLES = ("prefix", "suffix", "middle", "eot")
+FIM_FIRST_ID = 259
+
+
 def spm_vocab(n_vocab: int) -> dict:
     """Byte-fallback SPM vocab: specials + 256 byte tokens + fillers."""
     tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
@@ -48,11 +54,13 @@ def spm_vocab(n_vocab: int) -> dict:
 def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
                      n_head: int, vocab: int, n_ctx_train: int = 2048,
                      freq_base: float = 10000.0, qtype=GGMLType.Q4_0,
-                     std: float = 0.02) -> None:
+                     std: float = 0.02, fim: bool = False) -> None:
     """A LLaMA-shape GGUF, norm weights 1: with qtype Q4_0 every matrix is
     random Q4_0 blocks; with F32 it is normal draws of standard deviation
     `std` (0.02, LLaMA's initializer range, puts the logits' spread near
-    1.3 at dim 4096)."""
+    1.3 at dim 4096). fim: name the first four filler ids of the vocab
+    the fill-in-the-middle prefix, suffix, middle and end-of-text tokens
+    (what cli.infill needs)."""
     if qtype not in (GGMLType.Q4_0, GGMLType.F32):
         raise ValueError(f"synthetic models are Q4_0 or F32, not {qtype!r}")
     w = GGUFWriter(path)
@@ -76,6 +84,9 @@ def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
              np.asarray(voc["token_type"], np.int32))
     w.add_kv("tokenizer.ggml.bos_token_id", 1)
     w.add_kv("tokenizer.ggml.eos_token_id", 2)
+    if fim:
+        for i, role in enumerate(FIM_ROLES):
+            w.add_kv(f"tokenizer.ggml.{role}_token_id", FIM_FIRST_ID + i)
 
     def q4(name, n, k):
         if qtype == GGMLType.F32:
