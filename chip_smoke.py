@@ -20,7 +20,9 @@ Phases (any failure raises, so the exit code is not 0):
   3b. the flash kernels against flash_attention_ref on the card at the
      FLASH_CASES (bf16 and int8 + scales K/V, hd 64/128/256, G 1/4/8, B = 2
      with different qbase, holes and shifts, a qlen = 0 row, odd S, 56
-     decode rows, a first 512-token ubatch), each the same bits twice, then
+     decode rows, a first 512-token ubatch; non-causal (bert) at hd 64,
+     T 64 and 512, S 1024-2049, q8 and bf16, and a decode case), each the
+     same bits twice, then
      timed at the long-context path's shapes (B = 1, Hkv = 32, hd = 128,
      G = 1; flash_attention at T = 512, S in {1024, 16385}; flash_decode at
      T = 1, S in {8193, 16385}; q8 and bf16) beside the plain version,
@@ -123,8 +125,10 @@ Phases (any failure raises, so the exit code is not 0):
      seconds and bytes, its tensor types (norms F32, output.weight Q8_0
      below 8 bits) and rows 0-63 of blk.0.attn_q equal to the numpy
      quantizer byte for byte; tools.quality_table on the card (n_ctx 512,
-     4 chunks of the repository's markdown): ppl, dppl, KL and top-1 of
-     each format, the KL order of tests/test_quality_deltas.py held
+     2 chunks of the repository's markdown; 4 before phase 10 came, cut
+     to keep the script's time): ppl, dppl, KL and top-1 of
+     each format, the KL order of tests/test_quality_deltas.py held, each
+     margin printed
      (Q8_0 <= 1.5 Q5_0 + 1e-4, max(Q5) < 1.5 max(Q4), Q2_K > max(Q4)), its
      launches counted a format (0 for F32; 9 qmm a 512-token ubatch in
      each block format, nothing else) and its files equal to cli.quantize's;
@@ -161,7 +165,8 @@ Phases (any failure raises, so the exit code is not 0):
      decode tok/s and the host sampler's ms a token of each run. 9b, after
      phase 5d: a 2-layer model of LLaMA-7B width with fill-in-the-middle
      ids; beam_search (4 beams, 16 tokens: the same sequence, score within
-     1e-3), batched (-np 4 -n 32), parallel (-np 4 -ns 8), infill,
+     1e-3), batched (-np 4 -n 32), parallel (-np 4 -ns 8: each slot
+     retires a sequence and prefills the next), infill,
      passkey (n_ctx 1024, --grp-attn-n 4: the text and the exit code of
      the CPU's; on random weights a MISS), save_load_state (exit 0) and
      embedding --json (cosine >= 0.999), each on the card in process and
@@ -169,6 +174,41 @@ Phases (any failure raises, so the exit code is not 0):
      started together), greedy choices compared with the near-tie rule;
      each tool's seconds and launches (qmm and qmm_int8 > 0 where it
      decodes)
+  10. the architecture axes (slice 15), after phase 8. 10a: a
+     Mixtral-8x7B-width Q4_0 model (hidden 4096, intermediate 14336, 32 / 8
+     heads, vocab 32000, 8 experts of which 2 a token, rope base 1e6; random
+     blocks, an F32 router) cut to 2 layers, in Engine(n_ctx=4096):
+     generate_fast on a 512-token prompt for 64 greedy tokens, twice (the
+     same tokens; launches of the second run exactly 53 qmm for the ubatch
+     and 53 qmm_int8 a decode step: 2 x (fused QKV + wo + 24 expert
+     products) + the lm head, the 8-row router dense); a profiled decode
+     step against the bytes the dense MoE reads (every expert) over 3.35
+     TB/s; then a 64-token prompt and 8 teacher-forced decode steps against
+     the CPU plain engine (cosine >= 0.999 / 0.99). 10b: a small model
+     (dim 512, ffn 1536, head dim 64 or 128, vocab 1024, 2 layers, Q4_0) of
+     each family of tools.synth.FAMILIES -- gpt2, falcon, bloom, mpt, phi2,
+     gemma, persimmon, starcoder2, qwen2, stablelm, gptneox, bert,
+     nomic-bert -- on the
+     card against the CPU plain engine (64-token prefill cosine >= 0.999, 8
+     teacher-forced decode steps >= 0.99; bert: Engine.embed, mean pooled,
+     of 64 tokens >= 0.999 and of 8 >= 0.99), launches exactly one qmm a
+     quantized projection for the prompt and, a step, one qmm_int8 a
+     projection whose N has a divisor tile >= 1024 and one qmm each other
+     (the counts written out in FAMILY_PASSES; at dim 512 wo and down take
+     qmm); bert (non-causal) and falcon (parallel
+     residual, one KV head)
+     again with flash_attn=True (flash_attention 2 for the prompt,
+     flash_decode 2 a step or for bert's 8-token embedding). 10c: the BPE
+     tokenizer of the gpt2 model and the WPM one of the bert model (from
+     their GGUFs' synthetic vocabularies) round-trip three texts. 10d: a
+     bloom-7b1-width Q4_0 model (hidden 4096, intermediate 16384, 32
+     heads, vocab 250880; ALiBi, a fused biased QKV, a plain gelu FFN, the
+     tied head) cut to 2 layers, in Engine(n_ctx=2048): generate_fast on a
+     512-token prompt for 64 greedy tokens through its captured decode
+     graphs, twice (the same tokens; exactly 9 qmm for the ubatch and 9
+     qmm_int8 a step, BLOOM_LAUNCHES), a profiled decode step against the
+     GGUF bytes it must read, and the card against the CPU plain engine
+     (64-token prefill cosine >= 0.999, 8 decode steps >= 0.99)
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -221,7 +261,9 @@ from tpulamm_torch.tools import perf_report
 from tpulamm_torch.tools.quality_table import build_corpus, quality_table
 from tpulamm_torch.tools.profile_window import HostDtoH, count_dtoh
 from tpulamm_torch.tools.mega_ablation import step as mega_call
-from tpulamm_torch.tools.synth import random_blocks, write_llama_gguf
+from tpulamm_torch.tools.synth import (FAMILIES, random_blocks,
+                                       write_family_gguf, write_llama_gguf,
+                                       write_mixtral_gguf)
 from tpulamm_torch.tools.timing import nvidia_smi, time_ms
 
 SEED = 1234
@@ -278,7 +320,7 @@ def cosine(a: np.ndarray, b: np.ndarray) -> float:
 # -- inputs ------------------------------------------------------------------
 def flash_case(rng, device, *, B=2, Hkv=2, T=8, G=4, S=161, hd=64,
                kind="bf16", shift=False, empty_row=False, sharp=False,
-               fresh=False):
+               fresh=False, causal=True):
     """Inputs of one flash-attention call (as tests/test_flash_attention.py
     builds them): the first `used` cells of each batch row live at
     positions 0..used-1 (the trash cell and the rest empty), the T queries
@@ -288,7 +330,8 @@ def flash_case(rng, device, *, B=2, Hkv=2, T=8, G=4, S=161, hd=64,
     seq_add shift; `empty_row` gives batch row 1 qlen = 0; `sharp` scales
     q by 4, so that a few keys dominate each softmax and the outputs are
     near the size of v. kind "bf16": bf16 K/V; "q8": int8 codes with
-    per-row f32 scales."""
+    per-row f32 scales. causal: the mask the kernels run the case with
+    (flash_kw); the inputs do not depend on it."""
     TG = T * G
     q = rng.standard_normal((B, Hkv, TG, hd), dtype=np.float32)
     if sharp:
@@ -346,7 +389,25 @@ FLASH_CASES = [
          empty_row=True),
     # a first 512-token ubatch: every live tile is on the causal diagonal
     dict(hd=128, G=1, T=512, S=1024, Hkv=2, kind="q8", fresh=True),
+    # non-causal (bert): every query sees every live key, masked by kpos
+    # alone; prefill at hd 64, G 1 (T 64 and 512, q8 and bf16), a decode
+    dict(hd=64, G=1, T=64, S=1024, Hkv=2, kind="bf16", fresh=True,
+         causal=False),
+    dict(hd=64, G=1, T=512, S=1024, Hkv=2, kind="q8", fresh=True,
+         causal=False),
+    dict(hd=64, G=1, T=64, S=1025, Hkv=2, kind="q8", shift=True,
+         causal=False),
+    dict(hd=64, G=1, T=512, S=2049, Hkv=2, kind="bf16", shift=True,
+         causal=False),
+    dict(hd=64, G=1, T=8, S=1024, Hkv=4, kind="q8", fresh=True,
+         causal=False),
 ]
+
+
+def flash_kw(case: dict) -> dict:
+    """The kernels' keywords for a FLASH_CASES case."""
+    return dict(scale=float(1.0 / np.sqrt(case["hd"])), g=case["G"],
+                causal=case.get("causal", True))
 # elementwise |got - ref| <= TOL * (1 + |ref|): the JAX package's kernel
 # tolerance for bf16 operands against the f32 plain version
 TOL_FLASH = 2e-2
@@ -657,7 +718,7 @@ def phase_flash(device, rng, cases=FLASH_CASES, timing=FLASH_TIMING,
 
     for case in cases:
         c = flash_case(rng, device, **case)
-        kw = dict(scale=float(1.0 / np.sqrt(case["hd"])), g=case["G"])
+        kw = flash_kw(case)
         refs = flash_refs(c, kw)
         errs = []
         for name, fn in fns.items():
@@ -1266,8 +1327,7 @@ def phase_slice(device, rng, n_layers: int = 32, shape=LLAMA_7B,
     t_load = time.perf_counter() - t0
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    weights = sum(v.n_bytes for lyr in eng.params["layers"] for v in lyr.values()
-                  if isinstance(v, QTensor)) + eng.params["output"].n_bytes
+    weights = sum(w.n_bytes for w in quant_weights(eng))
     kv_bytes = sum(t.numel() * t.element_size()
                    for t in eng.cache.k + eng.cache.v)
     log(f"[slice] Engine load {t_load:.2f} s: {weights / 1e9:.3f} GB of "
@@ -1467,29 +1527,17 @@ def phase_numerics(device, rng, shape=LLAMA_7B, prompt_len: int = 64,
     gpu = Engine(path, n_ctx=2048, device=device)
     cpu = Engine(path, n_ctx=2048, device="cpu")
     prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
-    a, b = gpu.prefill(0, prompt), cpu.prefill(0, prompt)
-    if not (np.isfinite(a).all() and a.shape == (shape["vocab"],)):
-        raise AssertionError("prefill logits not finite / misshapen")
-    cos_prefill = cosine(a, b)
-    cos_dec = []
-    tok = int(np.argmax(b))
-    for _ in range(steps):
-        a, b = gpu.decode_one(0, tok), cpu.decode_one(0, tok)
-        if not np.isfinite(a).all():
-            raise AssertionError("decode logits not finite")
-        cos_dec.append(cosine(a, b))
-        tok = int(np.argmax(b))
+    res = card_vs_cpu(gpu, cpu, prompt, steps)
+    if res["shape"] != (shape["vocab"],):
+        raise AssertionError(f"prefill logits of shape {res['shape']}")
     log(f"[numerics] 2 layers, prefill {prompt_len} tokens: last-position "
-        f"logit cosine GPU vs CPU {cos_prefill!r} (>= 0.999); "
+        f"logit cosine GPU vs CPU {res['cos_prefill']!r} (>= 0.999); "
         f"{steps} teacher-forced decode steps: min cosine "
-        f"{min(cos_dec)!r} (>= 0.99)")
-    if not cos_prefill >= 0.999:
-        raise AssertionError(f"prefill cosine {cos_prefill} < 0.999")
-    if not min(cos_dec) >= 0.99:
-        raise AssertionError(f"decode cosine {min(cos_dec)} < 0.99")
+        f"{min(res['cos_steps'])!r} (>= 0.99)")
     del gpu, cpu
     os.remove(path)
-    return {"cos_prefill": cos_prefill, "cos_decode_min": min(cos_dec)}
+    return {"cos_prefill": res["cos_prefill"],
+            "cos_decode_min": min(res["cos_steps"])}
 
 
 # -- slice 4: the measurement harness and the batched decode path -------------
@@ -2201,7 +2249,7 @@ def quality_card_vs_cpu(path: str, device, toks: list, n_ctx: int) -> dict:
 
 
 def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
-                  n_ctx: int = 512, n_chunks: int = 4, cmp_ctx: int = 128,
+                  n_ctx: int = 512, n_chunks: int = 2, cmp_ctx: int = 128,
                   corpus: bytes | None = None) -> dict:
     """Phase 8: the quantizer and the quality path at full width."""
     t_phase = time.perf_counter()
@@ -2281,8 +2329,11 @@ def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
                 < max(kl["Q4_0"], kl["Q4_1"]) * 1.5
                 and kl["Q2_K"] > max(kl["Q4_0"], kl["Q4_1"])):
             raise AssertionError(f"KL order broken: {kl}")
+        q4, q5 = max(kl["Q4_0"], kl["Q4_1"]), max(kl["Q5_0"], kl["Q5_1"])
         log("[quality] KL order held: Q8_0 <= 1.5 Q5_0 + 1e-4, "
-            "max(Q5) < 1.5 max(Q4), Q2_K > max(Q4)")
+            "max(Q5) < 1.5 max(Q4), Q2_K > max(Q4); margins (bound over "
+            f"value) {(kl['Q5_0'] * 1.5 + 1e-4) / kl['Q8_0']:.1f}x, "
+            f"{q4 * 1.5 / q5:.2f}x, {kl['Q2_K'] / q4:.2f}x")
         for fmt in QUALITY_FORMATS:
             if not filecmp.cmp(cli_files[fmt], files[fmt], shallow=False):
                 raise AssertionError(f"{fmt}: quality_table's file differs "
@@ -2914,6 +2965,322 @@ def phase_tools(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
     return out
 
 
+# -- slice 15: the architecture axes and the BPE / WPM tokenizers ------------
+# Mixtral-8x7B's published config.json (mistralai/Mixtral-8x7B-v0.1)
+MIXTRAL_8X7B = dict(dim=4096, ffn=14336, n_head=32, n_kv=8, vocab=32000,
+                    n_expert=8, n_expert_used=2, n_ctx_train=32768,
+                    freq_base=1e6)
+# phase 10a's launch counts, written before its first chip run (PERF.md
+# section 5): 2 layers x (fused QKV + wo + 24 expert products) + the lm
+# head = 53 products, one qmm each for a 512-token ubatch and one qmm_int8
+# each a decode step; the 8 x 4096 router does not tile and stays dense
+MOE_LAUNCHES = {"qmm": 53, "qmm_int8": 53}
+# what phase 10 was predicted to show, written before its first chip run
+# (PERF.md section 5)
+ARCH_PREDICTIONS = {
+    "prefill tok/s": "15,000-25,000", "decode tok/s": "650-1,000",
+    "decode busy ms": "0.8-1.2", "share of bound": "40-65%",
+    "phase s": "70-110",
+}
+# bigscience/bloom-7b1's published config.json: ALiBi, a fused biased QKV,
+# the embedding LayerNorm, a plain gelu FFN and the lm head tied to the
+# 250,880-row token embedding; every projection tiles at this width
+BLOOM_7B1 = dict(dim=4096, ffn=16384, n_head=32, vocab=250880)
+# phase 10d's launch counts, written before its first chip run (PERF.md
+# section 5): 2 layers x (fused QKV + wo + up + down) + the tied head = 9
+# products, one qmm each for a 512-token ubatch and one qmm_int8 each a
+# decode step (N of 12288, 4096, 16384 and 250880 all have a divisor tile
+# of at least 1024), nothing else (ALiBi turns flash off; the megakernel
+# and ffn_fused gates refuse a plain FFN)
+BLOOM_LAUNCHES = {"qmm": 9, "qmm_int8": 9}
+BLOOM_PREDICTIONS = {
+    "prefill tok/s": "8,000-40,000", "decode tok/s": "800-1,600",
+    "decode busy ms": "0.45-0.9", "share of bound": "27-55%",
+    "phase s": "30-60",
+}
+# phase 10b's quantized projections a pass and, of them, those a decode
+# step sends through qmm_int8, at dim 512, ffn 1536, head dim 64 (falcon
+# 128), vocab 1024, 2 layers: N of 1024 (the head) or 1536 (a fused QKV of
+# 8 full heads, an up or gate) or 3072 (gate and up fused) has a divisor
+# tile of 1024 or more and takes qmm_int8; N of 512 (wo, down, split
+# q / k / v under qk-norm) or 768 (a fused QKV with fewer KV heads) takes
+# qmm. bert's rows are its 8-token embedding, which has no head.
+FAMILY_PASSES = {
+    "gpt2": (9, 5), "falcon": (9, 3), "bloom": (9, 5), "mpt": (9, 5),
+    "phi2": (9, 5), "gemma": (9, 3), "persimmon": (13, 3),
+    "starcoder2": (9, 3), "qwen2": (9, 3), "stablelm": (9, 5),
+    "gptneox": (9, 5), "bert": (8, 4), "nomic-bert": (8, 4),
+}
+# the families phase 10b runs again with flash_attn=True: non-causal
+# (bert) and parallel residual with one KV head (falcon)
+FLASH_FAMILIES = ("bert", "falcon")
+ARCH_TEXTS = ("The quick brown fox jumps over the lazy dog.",
+              "It's 2024 and we'll see 1234 tokens, don't you think?",
+              "Hello world! café naïve 北京")
+
+
+def quant_weights(eng) -> list:
+    """Every quantized projection of a forward pass (the MoE experts
+    included), each one qmm / qmm_int8 launch."""
+    out = [w for w in (eng.params.get("output"),) if isinstance(w, QTensor)]
+    for lyr in eng.params["layers"]:
+        for v in lyr.values():
+            for w in (v if isinstance(v, list) else [v]):
+                if isinstance(w, QTensor):
+                    out.append(w)
+    return out
+
+
+def gguf_step_bytes(path: str) -> int:
+    """The GGUF bytes a decode step must read: every tensor once but the
+    token embedding, of which it reads one row (unless it is the tied lm
+    head, then read whole)."""
+    with GGUFReader(path) as r:
+        tied = "output.weight" not in r.tensors
+        return sum(t.n_bytes for name, t in r.tensors.items()
+                   if tied or name != "token_embd.weight")
+
+
+def card_vs_cpu(gpu, cpu, prompt: list, steps: int, ref=None) -> dict:
+    """Last prefill logits (or the pooled embedding of an embedding model)
+    and `steps` teacher-forced decode steps (a short embedding of the
+    prompt's first 8 tokens) of the card against the CPU plain engine:
+    cosines, held to >= 0.999 and >= 0.99. ref: the CPU side's outputs of
+    an earlier call, reused."""
+    embeds = gpu.params.get("output") is None
+    if ref is None and embeds:
+        ref = {"prefill": cpu.embed(prompt),
+               "steps": [cpu.embed(prompt[:8])]}
+    elif ref is None:
+        b = cpu.prefill(0, prompt)
+        ref = {"prefill": b, "steps": [], "toks": []}
+        for _ in range(steps):
+            ref["toks"].append(int(np.argmax(b)))
+            b = cpu.decode_one(0, ref["toks"][-1])
+            ref["steps"].append(b)
+    if embeds:
+        got = [gpu.embed(prompt), gpu.embed(prompt[:8])]
+    else:
+        gpu.reset_slot(0)
+        got = [gpu.prefill(0, prompt)] + [gpu.decode_one(0, t)
+                                          for t in ref["toks"]]
+    if not all(np.isfinite(a).all() for a in got):
+        raise AssertionError("card output not finite")
+    out = {"cos_prefill": cosine(got[0], ref["prefill"]),
+           "shape": got[0].shape,
+           "cos_steps": [cosine(a, b) for a, b in zip(got[1:],
+                                                     ref["steps"])],
+           "ref": ref}
+    if not (out["cos_prefill"] >= 0.999 and min(out["cos_steps"]) >= 0.99):
+        raise AssertionError(f"card vs CPU cosine {out['cos_prefill']} "
+                             f"(>= 0.999), steps {out['cos_steps']} "
+                             "(>= 0.99)")
+    return out
+
+
+def drive_wide(tag: str, path: str, device, prompt: list, n_ctx: int,
+               want: dict, n_predict: int = 64, cmp_prompt: int = 64,
+               steps: int = 8) -> dict:
+    """Phase 10's run of a wide 2-layer model at `path` in Engine(n_ctx):
+    generate_fast twice through its captured decode graphs (the same
+    tokens; the launches of the second run exactly want["qmm"] for the
+    ubatch and want["qmm_int8"] a step); on the card a decode step's wall
+    ms and profile (and a prefill's) against two bounds, the GGUF blocks
+    the step must read and the planes the port reads, over 3.35 TB/s, its
+    share given against the smaller; then the card against the CPU plain
+    engine. The CPU side runs after the card's measurements: run beside
+    them in a thread, it cut the timed prefill to a quarter in a
+    whole-script run."""
+    t0 = time.perf_counter()
+    eng = Engine(path, n_ctx=n_ctx, device=device)
+    t_load = time.perf_counter() - t0
+    ids_a, _ = eng.generate_fast(prompt, n_predict=n_predict,
+                                 stop_on_eos=False)
+    eng.timings = Timings()
+    reset_port_launches()
+    ids_b, _ = eng.generate_fast(prompt, n_predict=n_predict,
+                                 stop_on_eos=False)
+    tm = eng.timings
+    got = expect_launches(tag, {"qmm": want["qmm"],
+                                "qmm_int8": want["qmm_int8"] * tm.n_step})
+    if ids_a != ids_b:
+        raise AssertionError(f"two greedy {tag} runs on the card disagree")
+    L = eng.cfg.n_layers
+    out = {"load_s": t_load, "steps": tm.n_step,
+           "launches": {k: v for k, v in got.items() if v},
+           "prefill_tok_s": tm.n_prefill / tm.t_prefill,
+           "decode_tok_s": (len(ids_b) - 1) / tm.t_eval,
+           "planes_gb": sum(w.n_bytes for w in quant_weights(eng)) / 1e9,
+           "gguf_gb": gguf_step_bytes(path) / 1e9}
+    log(f"[{tag}] Engine load {t_load:.2f} s; {L} layers: prefill "
+        f"{len(prompt)} tokens {out['prefill_tok_s']:.1f} tok/s, decode "
+        f"{len(ids_b) - 1} tokens ({tm.n_step} steps) "
+        f"{out['decode_tok_s']:.2f} tok/s; launches {out['launches']} "
+        f"(expected {want['qmm']} qmm for the ubatch, {want['qmm_int8']} "
+        "qmm_int8 a step); two runs gave the same tokens")
+    if device.type == "cuda":
+        out["decode_one_ms"] = wall_ms(lambda: eng.decode_one(0, 5))
+        out.update(profile_steps(eng, f"{tag}_decode",
+                                 lambda: eng.decode_one(0, 5)))
+        out.update(profile_steps(
+            eng, f"{tag}_prefill",
+            lambda: (eng.reset_slot(0), eng.prefill(0, prompt)), steps=1))
+        ms = {k: out[f"{k}_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3
+              for k in ("gguf", "planes")}
+        out["bound_ms"] = min(ms.values())
+        busy = out[f"{tag}_decode_busy_ms"]
+        log(f"[{tag}] decode step: {out['decode_one_ms']:.3f} ms wall (no "
+            f"profiler), {busy:.3f} ms on the device; it must read "
+            f"{out['gguf_gb']:.4f} GB of GGUF blocks and reads "
+            f"{out['planes_gb']:.4f} GB of planes: bound {ms['gguf']:.4f} "
+            f"ms (blocks) / {ms['planes']:.4f} ms (planes) at 3.35 TB/s, "
+            f"{out['bound_ms'] / busy:.1%} of the smaller")
+    eng.reset_slot(0)
+    cmp = card_vs_cpu(eng, Engine(path, n_ctx=512, device="cpu"),
+                      prompt[:cmp_prompt], steps)
+    log(f"[{tag}] card vs CPU plain engine ({L} layers): prefill "
+        f"{cmp_prompt} tokens cosine {cmp['cos_prefill']!r} (>= 0.999); "
+        f"{steps} teacher-forced decode steps min cosine "
+        f"{min(cmp['cos_steps'])!r} (>= 0.99)")
+    out.update(cos_prefill=cmp["cos_prefill"],
+               cos_decode_min=min(cmp["cos_steps"]))
+    return out
+
+
+def phase_moe(device, rng, smi: str, shape=MIXTRAL_8X7B, n_layers: int = 2,
+              n_ctx: int = 4096, prompt_len: int = PROMPT) -> dict:
+    """Phase 10a: a Mixtral-8x7B-width Q4_0 model (random blocks, an F32
+    router; the CPU side's f32 weights are ~12.6 GB at 2 layers) through
+    drive_wide with MOE_LAUNCHES; every expert is read a step (the dense
+    MoE)."""
+    t_phase = time.perf_counter()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, f"mixtral_8x7b_width_q4_0_{n_layers}l.gguf")
+    write_mixtral_gguf(path, n_layers, rng, **shape)
+    with GGUFReader(path) as r:
+        experts = sum(t.n_bytes for name, t in r.tensors.items()
+                      if re.search(r"\.ffn_(gate|up|down)\.\d+\.", name))
+    prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+    out = drive_wide("moe", path, device, prompt, n_ctx, MOE_LAUNCHES)
+    out["experts_gb"] = experts / 1e9
+    log(f"[moe] the experts are {experts / 1e9:.4f} GB of GGUF blocks, all "
+        f"{shape['n_expert']} a layer read a step (the dense MoE); router "
+        "F32, dense")
+    os.remove(path)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[moe] phase 10a {out['phase_s']:.1f} s; predicted "
+        f"{ARCH_PREDICTIONS}; {smi}")
+    return out
+
+
+def phase_bloom(device, rng, smi: str, shape=BLOOM_7B1, n_layers: int = 2,
+                n_ctx: int = 2048, prompt_len: int = PROMPT) -> dict:
+    """Phase 10d: a bloom-7b1-width Q4_0 model (random blocks; ALiBi, the
+    embedding LayerNorm, a biased fused QKV, a plain gelu FFN, the tied
+    250,880-row head) through drive_wide with BLOOM_LAUNCHES."""
+    t_phase = time.perf_counter()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, f"bloom_7b1_width_q4_0_{n_layers}l.gguf")
+    write_family_gguf(path, "bloom", rng, n_layers=n_layers, **shape)
+    prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+    out = drive_wide("bloom", path, device, prompt, n_ctx, BLOOM_LAUNCHES)
+    os.remove(path)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[bloom] phase 10d {out['phase_s']:.1f} s; predicted "
+        f"{BLOOM_PREDICTIONS}; {smi}")
+    return out
+
+
+def phase_families(device, rng, prompt_len: int = 64, steps: int = 8,
+                   n_ctx: int = 1024) -> dict:
+    """Phase 10b: a small model of each architecture family of
+    tools.synth.FAMILIES through the card's engine and the CPU plain
+    engine (card_vs_cpu), with the qmm / qmm_int8 counts of
+    FAMILY_PASSES; FLASH_FAMILIES again with flash_attn=True (flash_attention for the prompt,
+    flash_decode for the steps or bert's short embedding). Then phase
+    10c, the tokenizers of the gpt2 (BPE) and bert (WPM) models."""
+    t_phase = time.perf_counter()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    out, toks = {}, {}
+    for arch in FAMILIES:
+        path = os.path.join(SMOKE_DIR, f"family_{arch}.gguf")
+        write_family_gguf(path, arch, rng)
+        gpu = Engine(path, n_ctx=n_ctx, device=device)
+        cpu = Engine(path, n_ctx=n_ctx, device="cpu")
+        per_pass, n_int8 = FAMILY_PASSES[arch]
+        if len(quant_weights(gpu)) != per_pass:
+            raise AssertionError(f"{arch}: {len(quant_weights(gpu))} "
+                                 f"quantized projections, not {per_pass}")
+        embeds = gpu.params.get("output") is None
+        m_dec = 8 if embeds else 1
+        prompt = rng.integers(5, gpu.cfg.vocab_size, size=prompt_len).tolist()
+        runs = {}
+        for mode in ("default",) + (("flash",) if arch in FLASH_FAMILIES
+                                    else ()):
+            if mode == "flash":
+                gpu = Engine(path, n_ctx=n_ctx, flash_attn=True,
+                             device=device)
+            reset_port_launches()
+            res = card_vs_cpu(gpu, cpu, prompt, steps,
+                              runs.get("default", {}).get("ref"))
+            n_dec = 1 if embeds else steps
+            want = {"qmm": per_pass + (per_pass - n_int8) * n_dec,
+                    "qmm_int8": n_int8 * n_dec}
+            if mode == "flash":
+                L = gpu.cfg.n_layers
+                want.update(flash_attention=L, flash_decode=L * n_dec)
+            got = expect_launches(f"{arch} {mode}", want)
+            if not (got["qmm"] > 0 and got["qmm_int8"] > 0):
+                raise AssertionError(f"{arch} {mode}: launches {got}")
+            runs[mode] = {**res, "launches": {k: v for k, v in got.items()
+                                              if v}}
+            log(f"[families] {arch} {mode}: {gpu.cfg.n_layers} layers, "
+                f"{per_pass} quantized projections a pass ({n_int8} through "
+                f"qmm_int8 at M = {m_dec}); card vs CPU "
+                f"{'pooled embedding' if embeds else 'prefill'} cosine "
+                f"{res['cos_prefill']!r} (>= 0.999), "
+                f"{'8-token embedding' if embeds else 'decode'} min cosine "
+                f"{min(res['cos_steps'])!r} (>= 0.99); launches "
+                f"{runs[mode]['launches']}")
+        if gpu.tokenizer is not None:
+            toks[arch] = gpu.tokenizer
+        out[arch] = {m: {k: v for k, v in r.items() if k != "ref"}
+                     for m, r in runs.items()}
+        del gpu, cpu
+        os.remove(path)
+    t_fam = time.perf_counter() - t_phase
+    out["tokenizers"] = phase_tokenizers(toks)
+    log(f"[families] {len(FAMILIES)} families in {t_fam:.1f} s")
+    return out
+
+
+def phase_tokenizers(toks: dict) -> dict:
+    """Phase 10c: the BPE tokenizer of the gpt2 model and the WPM one of
+    the bert model, each built by build_tokenizer from the GGUF's
+    synthetic vocab, round-trip ARCH_TEXTS: BPE decodes its ids back to
+    the text; WPM (which lower-cases, strips accents and splits on
+    punctuation) encodes its decoded text to the same ids."""
+    from tpulamm_torch.tokenizer.bpe import BPETokenizer
+    from tpulamm_torch.tokenizer.wpm import WPMTokenizer
+    bpe, wpm = toks["gpt2"], toks["bert"]
+    if not (isinstance(bpe, BPETokenizer) and isinstance(wpm, WPMTokenizer)):
+        raise AssertionError(f"tokenizers {type(bpe)}, {type(wpm)}")
+    out = {}
+    for text in ARCH_TEXTS:
+        ids = bpe.encode(text)
+        if bpe.decode(ids) != text:
+            raise AssertionError(f"BPE round trip of {text!r}: "
+                                 f"{bpe.decode(ids)!r}")
+        wids = wpm.encode(text)
+        if wpm.encode(wpm.decode(wids)) != wids:
+            raise AssertionError(f"WPM round trip of {text!r}: {wids}")
+        out[text] = (len(ids), len(wids))
+        log(f"[tokenizers] {text!r}: BPE {len(ids)} ids for "
+            f"{len(text.encode())} bytes, WPM {len(wids)} ids "
+            f"({wpm.decode(wids).strip()!r}); both round-trip")
+    return out
+
+
 def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
     """One line for each decode path: tok/s (or ms a step), the profiled
     wall and device ms a step of its graph replays, beside the prediction."""
@@ -3033,6 +3400,13 @@ def main() -> int:
     # a generator of its own, as phase 7 has
     phase_quality(device, np.random.default_rng(SEED + 13), smi)
     done("quality")
+    # generators of their own, as phase 7 has
+    phase_moe(device, np.random.default_rng(SEED + 16), smi)
+    done("moe")
+    phase_families(device, np.random.default_rng(SEED + 17))
+    done("families")
+    phase_bloom(device, np.random.default_rng(SEED + 18), smi)
+    done("bloom")
     decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "

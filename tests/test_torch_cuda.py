@@ -217,11 +217,8 @@ def test_qmm_refuses_strided_or_misaligned_planes(dev):
 # qlen = 0 exactly 0.
 
 def _flash_args(case, dev, seed=0):
-    from chip_smoke import flash_case
-    c = flash_case(np.random.default_rng(seed), dev, **case)
-    hd = c["q"].shape[-1]
-    kw = dict(scale=float(1.0 / np.sqrt(hd)), g=case["G"], causal=True)
-    return c, kw
+    from chip_smoke import flash_case, flash_kw
+    return flash_case(np.random.default_rng(seed), dev, **case), flash_kw(case)
 
 
 def _call(fn, c, kw):
@@ -252,6 +249,24 @@ def test_flash_kernels_same_bits_twice(dev, case):
     c, kw = _flash_args(FLASH_CASES[case], dev)
     for fn in (FA.flash_attention, FA.flash_decode):
         assert torch.equal(_call(fn, c, kw), _call(fn, c, kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [i for i, c in enumerate(FLASH_CASES)
+                                  if not c.get("causal", True)])
+def test_flash_noncausal_sees_later_keys(dev, case):
+    """causal=False (bert): each kernel matches the plain version in its
+    non-causal mode, and differs from the causal result where later keys
+    are live (the first query row sees them only without the mask)."""
+    from chip_smoke import flash_err, flash_refs
+    from tpulamm_torch.ops import flash_attention as FA
+    c, kw = _flash_args(FLASH_CASES[case], dev)
+    refs = flash_refs(c, kw)
+    for fn in (FA.flash_attention, FA.flash_decode):
+        got = _call(fn, c, kw)
+        flash_err(got, refs, c["qlen"])
+        causal = _call(fn, c, {**kw, "causal": True})
+        assert not torch.equal(got[:, :, 0], causal[:, :, 0])
 
 
 @pytest.mark.cuda

@@ -21,7 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_port_models import write_tiny_llama
-from chip_smoke import FLASH_CASES, flash_case
+from chip_smoke import FLASH_CASES, flash_case, flash_kw
 from tpulamm.ops import flash_attention as JFA
 from tpulamm_torch.models import transformer as TT
 from tpulamm_torch.models.config import ModelConfig
@@ -378,7 +378,7 @@ def test_decode_mirror_matches_ref_and_jax(i):
     c = flash_case(np.random.default_rng(100 + i), torch.device("cpu"),
                    **case)
     args = [c[n] for n in _ORDER]
-    kw = dict(scale=float(1.0 / np.sqrt(case["hd"])), g=case["G"])
+    kw = flash_kw(case)
     got = _decode_mirror(*args, **kw)
     want = FA.flash_attention_ref(*args, **kw)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-2,

@@ -12,11 +12,12 @@ Package map:
   quant/     repack planes (numpy), dense-type decode
   ops/       QTensor, the CUDA kernel wrappers (qmm) and their nvcc build,
              qmatmul dispatch, norms/activations, RoPE
-  models/    config, llama forward, GGUF loader
+  models/    config, the generic forward (every architecture but mamba),
+             GGUF loader
   runtime/   KV cache, engine, decode graphs, host sampler, chat templates
   grammar/   GBNF parser and engine, JSON schema -> GBNF (copies)
   server/    the HTTP server (continuous batching over the engine's slots)
-  tokenizer/ SPM tokenizer (copy)
+  tokenizer/ SPM (copy), BPE and WPM tokenizers
   utils/     file logging (copy)
   cli/       simple, bench
   csrc/      CUDA sources, built at first use into build/

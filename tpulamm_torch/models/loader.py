@@ -1,11 +1,16 @@
 """GGUF model loader -> (ModelConfig, params dict) on a torch device
-(counterpart of tpulamm.models.loader, llama tensors).
+(counterpart of tpulamm.models.loader) for every architecture of
+models.config but mamba.
 
 Quantized tensors are repacked once (quant/repack.py, numpy; the layers
 in parallel threads) into the mm or rows planes and copied to the device;
 weights that do not tile (K % 256 or N % 128) are stored dense. A fused
 attn_qkv weight is split into wq/wk/wv rows at load time (every row of a
-block-quant tensor is coded on its own, so the split is exact).
+block-quant tensor is coded on its own, so the split is exact;
+persimmon's per-head interleaved rows included). Optional tensors
+(biases, second norms, q/k norms, the MoE router and experts, mpt's act
+scales, learned positions) are probed by name, as the reference's
+`required=false` create_tensor calls are; the forward uses what is there.
 
 `params_from_numpy` carries a params tree built elsewhere (the JAX
 package's, with its arrays as numpy) across into the port's form.
@@ -76,6 +81,12 @@ class _TensorMap:
     def f32(self, info: GGUFTensorInfo) -> torch.Tensor:
         return _dense(info.to_f32(), torch.float32, self.device)
 
+    def matmul(self, info: GGUFTensorInfo):
+        """A weight used as x @ W.T: an mm QTensor, or dense."""
+        return _mm_from_rows(info.as_rows(), info.ggml_type,
+                             (info.shape[-2], info.shape[-1]), self.cfg,
+                             self.device)
+
     def mm(self, out: dict, pkey: str, name: str, required=False):
         """matmul weight + optional bias -> out[pkey], out[bias key]"""
         key = name + ".weight"
@@ -83,10 +94,7 @@ class _TensorMap:
             if required:
                 raise KeyError(f"model tensor missing: {key}")
             return
-        info = self.t[key]
-        out[pkey] = _mm_from_rows(info.as_rows(), info.ggml_type,
-                                  (info.shape[-2], info.shape[-1]), self.cfg,
-                                  self.device)
+        out[pkey] = self.matmul(self.t[key])
         if name + ".bias" in self.t:
             out[_bias_key(pkey)] = self.f32(self.t[name + ".bias"])
 
@@ -105,15 +113,21 @@ def _bias_key(pkey: str) -> str:
 
 
 def _split_qkv(tm: _TensorMap, info: GGUFTensorInfo, cfg: ModelConfig):
-    """Split a fused attn_qkv weight into (wq, wk, wv) by rows, exactly:
-    contiguous q | k | v row blocks."""
+    """Split a fused attn_qkv weight into (wq, wk, wv) by rows, exactly.
+    Contiguous q | k | v row blocks (falcon, gpt2, starcoder, bloom, mpt,
+    qwen, phi2, codeshell); persimmon interleaves them per head, rows
+    (head, [q|k|v], head_dim) (build_persimmon, llama.cpp:6225-6232)."""
     hd, H, Hkv, dim = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.dim
     rows = info.as_rows()
-    assert rows.shape[0] == (H + 2 * Hkv) * hd, \
-        f"attn_qkv rows {rows.shape[0]} != (H+2Hkv)*hd {(H + 2 * Hkv) * hd}"
-    qi = np.arange(0, H * hd)
-    ki = np.arange(H * hd, (H + Hkv) * hd)
-    vi = np.arange((H + Hkv) * hd, (H + 2 * Hkv) * hd)
+    if cfg.qk_norm and cfg.arch == "persimmon":
+        idx = np.arange(rows.shape[0]).reshape(H, 3, hd)
+        qi, ki, vi = idx[:, 0].ravel(), idx[:, 1].ravel(), idx[:, 2].ravel()
+    else:
+        assert rows.shape[0] == (H + 2 * Hkv) * hd, \
+            f"attn_qkv rows {rows.shape[0]} != (H+2Hkv)*hd {(H + 2 * Hkv) * hd}"
+        qi = np.arange(0, H * hd)
+        ki = np.arange(H * hd, (H + Hkv) * hd)
+        vi = np.arange((H + Hkv) * hd, (H + 2 * Hkv) * hd)
     parts = [_mm_from_rows(np.ascontiguousarray(rows[sel]), info.ggml_type,
                            (len(sel), dim), cfg, tm.device)
              for sel in (qi, ki, vi)]
@@ -121,10 +135,17 @@ def _split_qkv(tm: _TensorMap, info: GGUFTensorInfo, cfg: ModelConfig):
 
 
 def _layer_params(tm: _TensorMap, cfg: ModelConfig, i: int) -> dict[str, Any]:
+    """One block's tensors by the JAX loader's names (loader.py:147-218)."""
     pre = f"blk.{i}."
     out: dict[str, Any] = {}
-    tm.norm(out, "attn_norm", pre + "attn_norm")
-    tm.norm(out, "ffn_norm", pre + "ffn_norm")
+    for pkey, name in (("attn_norm", "attn_norm"),
+                       ("attn_norm_2", "attn_norm_2"),
+                       ("attn_q_norm", "attn_q_norm"),
+                       ("attn_k_norm", "attn_k_norm"),
+                       ("attn_out_norm", "attn_output_norm"),
+                       ("layer_out_norm", "layer_output_norm"),
+                       ("ffn_norm", "ffn_norm")):
+        tm.norm(out, pkey, pre + name)
     if tm.has(pre + "attn_qkv"):
         (out["wq"], out["wk"], out["wv"]), (qi, ki, vi) = \
             _split_qkv(tm, tm.req(pre + "attn_qkv"), cfg)
@@ -138,9 +159,20 @@ def _layer_params(tm: _TensorMap, cfg: ModelConfig, i: int) -> dict[str, Any]:
         tm.mm(out, "wk", pre + "attn_k", required=True)
         tm.mm(out, "wv", pre + "attn_v", required=True)
     tm.mm(out, "wo", pre + "attn_output", required=True)
-    tm.mm(out, "w_gate", pre + "ffn_gate", required=True)
-    tm.mm(out, "w_up", pre + "ffn_up", required=True)
-    tm.mm(out, "w_down", pre + "ffn_down", required=True)
+    if cfg.n_expert > 0 and tm.has(pre + "ffn_gate_inp"):
+        # MoE (build_llama :5797): the router and each expert's gate, down
+        # and up, as lists
+        out["ffn_gate_inp"] = tm.matmul(tm.req(pre + "ffn_gate_inp"))
+        for part in ("gate", "down", "up"):
+            out[f"ffn_{part}_exp"] = [
+                tm.matmul(tm.req(f"{pre}ffn_{part}.{e}"))
+                for e in range(cfg.n_expert)]
+    else:
+        tm.mm(out, "w_gate", pre + "ffn_gate")
+        tm.mm(out, "w_up", pre + "ffn_up", required=True)
+        tm.mm(out, "w_down", pre + "ffn_down", required=True)
+        if pre + "ffn.act.scales" in tm.t:   # mpt LLM_TENSOR_FFN_ACT (:543)
+            out["ffn_act_scales"] = tm.f32(tm.t[pre + "ffn.act.scales"])
     return out
 
 
@@ -193,11 +225,18 @@ def load_model(path: str, *, compute_dtype: str | None = None,
     else:
         dt = torch.float32 if emb.ggml_type == GGMLType.F32 else cfg.cdtype
         params["tok_emb"] = _dense(emb.to_f32(), dt, device)
+    tm.norm(params, "tok_norm", "token_embd_norm")
     tm.norm(params, "out_norm", "output_norm")
+    for pkey, name in (("type_emb", "token_types"),
+                       ("pos_emb", "position_embd")):
+        if tm.has(name):
+            params[pkey] = _dense(tm.req(name).to_f32(), cfg.cdtype, device)
     if tm.has("output"):
         tm.mm(params, "output", "output", required=True)
-    else:
-        # tied embeddings: the lm head reuses token_embd
+    elif cfg.arch not in ("bert", "nomic-bert"):
+        # tied embeddings: the lm head reuses token_embd (minicpm; the
+        # fallbacks of llm_load_tensors, llama.cpp:158-162, :454, :801);
+        # bert is an embedding model with no lm head
         cfg.tie_embeddings = True
         params["output"] = _mm_from_rows(emb.as_rows(), emb.ggml_type, (n, k),
                                          cfg, device)

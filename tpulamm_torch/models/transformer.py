@@ -1,20 +1,34 @@
-"""Transformer forward, llama topology (counterpart of
-tpulamm.models.transformer).
+"""Generic transformer forward for every architecture of models.config
+but mamba (counterpart of tpulamm.models.transformer).
 
-Pre-norm blocks: norm -> fused QKV projection -> RoPE -> KV store ->
-masked softmax attention -> output projection -> residual; norm -> gated
-FFN (silu(gate) * up -> down) -> residual; final norm -> lm head. Every
-projection of a quantized weight goes through qmatmul (ops.qmm's kernels
-on CUDA). The other structural axes of the JAX forward (post-norm,
-parallel residual, ALiBi, qk-norm, MoE, learned positions, ...) are later
-slices; a config that needs one raises.
+One feature-flagged forward, as in the JAX package, with the axes of the
+reference's per-arch graph functions (build_*, llama.cpp:5708-8308):
+
+- pre-norm (llama & co) / post-norm (bert) / parallel residual (falcon,
+  phi2, plamo, gptj, gptneox; falcon-40B's second attention norm and
+  gptneox's own FFN norm)
+- RMSNorm or LayerNorm with optional biases; optional per-head q/k
+  LayerNorm (persimmon); fused-QKV clamping (mpt)
+- RoPE norm / neox / none with partial n_rot; ALiBi added to the scores
+  by key position (ggml's slopes); causal or non-causal (bert) masks
+- FFN: gated (silu / gelu) or plain (gelu, relu, relu²) with optional
+  biases and mpt's act scales; MoE top-k mixing, computed densely over
+  all experts as the JAX package does (transformer.py:415-450)
+- learned positions, token-type embedding and embedding norm; embedding,
+  residual and logit scales (gemma, minicpm)
+
+Every projection of a quantized weight goes through qmatmul (ops.qmm's
+kernels on CUDA); the MoE router (E rows, which do not tile) stays dense.
+The forward makes no host sync and no host-to-device copy, so a decode
+step of it can be captured in a CUDA graph (runtime.decode_graph).
 
 Attention: the JAX forward picks its flash kernels on the TPU by the
 predicates at transformer.py:169-187 and :249-259. The same predicates
 decide here (`flash_choice`) with "on CUDA" in place of "on TPU", on the
 ubatch length the JAX engine would pad to (its bucket); where they pick a
-kernel, ops.flash_attention runs it at the exact length, masking by qlen.
-Elsewhere the einsum path runs, with the q8_0 scale folds in the JAX order.
+kernel, ops.flash_attention runs it at the exact length, masking by qlen
+(ALiBi keeps the einsum path, as in the JAX package). Elsewhere the
+einsum path runs, with the q8_0 scale folds in the JAX order.
 """
 
 from __future__ import annotations
@@ -28,7 +42,8 @@ import torch
 from tpulamm_torch.models.config import ModelConfig
 from tpulamm_torch.ops.ffn_fused import ffn_fused, ffn_fused_eligible
 from tpulamm_torch.ops.flash_attention import flash_attention, flash_decode
-from tpulamm_torch.ops.layers import layer_norm, masked_softmax, rms_norm, silu
+from tpulamm_torch.ops.layers import (act, alibi_slopes, layer_norm,
+                                      masked_softmax, rms_norm)
 from tpulamm_torch.ops.qmatmul import dense_matmul, qmatmul
 from tpulamm_torch.ops.qtensor import QTensor, gather_dequant_rows
 from tpulamm_torch.ops.rope import apply_rope, rope_angles
@@ -38,16 +53,9 @@ Params = dict[str, Any]
 
 
 def unsupported_features(cfg: ModelConfig) -> list[str]:
-    """Structural features of cfg this forward does not run yet."""
-    flags = {
-        "post_norm": cfg.post_norm, "parallel_residual": cfg.parallel_residual,
-        "pos_emb": cfg.pos_emb, "tok_norm": cfg.tok_norm,
-        "qk_norm": cfg.qk_norm, "alibi": cfg.max_alibi_bias > 0.0,
-        "clamp_kqv": cfg.clamp_kqv > 0.0, "moe": cfg.n_expert > 0,
-        "non-causal": not cfg.causal, f"ffn_act={cfg.ffn_act}":
-            cfg.ffn_act != "silu", f"arch={cfg.arch}": cfg.arch == "mamba",
-    }
-    return [name for name, on in flags.items() if on]
+    """Structural features of cfg this forward does not run: mamba's
+    recurrent blocks (models/mamba.py, ROADMAP queue 1 item 12)."""
+    return [f"arch={cfg.arch}"] if cfg.arch == "mamba" else []
 
 
 def _proj(x: torch.Tensor, w, cfg: ModelConfig, bias=None) -> torch.Tensor:
@@ -114,9 +122,18 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         q = _proj(h, layer["wq"], cfg, layer.get("bq"))
         k = _proj(h, layer["wk"], cfg, layer.get("bk"))
         v = _proj(h, layer["wv"], cfg, layer.get("bv"))
+    if cfg.clamp_kqv > 0.0:
+        c = cfg.clamp_kqv
+        q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
     q = q.reshape(B, T, cfg.n_heads, hd)
     k = k.reshape(B, T, cfg.n_kv_heads, hd)
     v = v.reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        # per-head LayerNorm over head_dim (build_persimmon, llama.cpp:6240)
+        q = layer_norm(q, layer["attn_q_norm"], layer.get("attn_q_norm_b"),
+                       cfg.norm_eps)
+        k = layer_norm(k, layer["attn_k_norm"], layer.get("attn_k_norm_b"),
+                       cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope, angles)
     k = apply_rope(k, positions, cfg.rope, angles)
 
@@ -173,10 +190,18 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     # 1/sqrt(hd) rounded to f32 as JAX computes it; a Python scalar holding
     # that f32 value multiplies on the device without a host copy
     scores = scores * float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    if cfg.max_alibi_bias > 0.0:
+        # ggml_soft_max_ext ALiBi: scores += slope[h] * key position
+        slopes = alibi_slopes(cfg.n_heads, cfg.max_alibi_bias, h.device)
+        scores = scores + (slopes.reshape(1, cfg.n_kv_heads, group, 1, 1)
+                           * kpos[:, None, None, None, :].to(torch.float32))
     # KQ_mask (llama_set_inputs, llama.cpp:8523): key cell live; causal
     # archs also require key pos <= query pos
     live = kpos[:, None, :] >= 0
-    mask = live & (kpos[:, None, :] <= positions[:, :, None])
+    if cfg.causal:
+        mask = live & (kpos[:, None, :] <= positions[:, :, None])
+    else:
+        mask = live.expand(B, T, kpos.shape[-1])
     probs = masked_softmax(scores, mask[:, None, None, :, :])
     if vsc is not None:
         # q8_0 V: the row scale folds into probs (s is the contracted axis)
@@ -187,10 +212,11 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
 
 
 def ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """llm_build_ffn (llama.cpp:5203), gated silu. With cfg.fused_ffn, a
-    decode-size batch on CUDA runs the one-launch FFN kernel, as the JAX
-    forward does on the TPU with TPULAMM_FUSED_FFN (transformer.py:377-394);
-    on the CPU the flag changes nothing."""
+    """llm_build_ffn (llama.cpp:5203): gated (PAR) when ffn_gate exists,
+    else act(up) (SEQ, with mpt's act scales). With cfg.fused_ffn, a
+    decode-size gated silu / gelu batch on CUDA runs the one-launch FFN
+    kernel, as the JAX forward does on the TPU with TPULAMM_FUSED_FFN
+    (transformer.py:377-394); on the CPU the flag changes nothing."""
     if layer.get("wgateup_fused") is not None:
         B, T, dim = h.shape
         if (cfg.fused_ffn and h.device.type == "cuda"
@@ -205,12 +231,49 @@ def ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
             return y.reshape(B, T, dim)
         gu = _proj(h, layer["wgateup_fused"], cfg)
         half = gu.shape[-1] // 2
-        gate, up = gu[..., :half], gu[..., half:]
-    else:
-        up = _proj(h, layer["w_up"], cfg, layer.get("b_up"))
+        mid = (act(gu[..., :half].to(torch.float32), cfg.ffn_act)
+               * gu[..., half:].to(torch.float32))
+        return _proj(mid.to(cfg.cdtype), layer["w_down"], cfg,
+                     layer.get("b_down"))
+    up = _proj(h, layer["w_up"], cfg, layer.get("b_up"))
+    if layer.get("w_gate") is not None:
         gate = _proj(h, layer["w_gate"], cfg, layer.get("b_gate"))
-    mid = silu(gate.to(torch.float32)) * up.to(torch.float32)
+        mid = act(gate.to(torch.float32), cfg.ffn_act) * up.to(torch.float32)
+    else:
+        mid = act(up.to(torch.float32), cfg.ffn_act)
+        if layer.get("ffn_act_scales") is not None:    # mpt (llm_build_ffn :5260)
+            mid = mid / layer["ffn_act_scales"].to(torch.float32)
     return _proj(mid.to(cfg.cdtype), layer["w_down"], cfg, layer.get("b_down"))
+
+
+def moe_ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The MoE branch of build_llama (llama.cpp:5797-5858) as the JAX
+    package computes it (transformer.py:415-450): softmax over the router,
+    the top n_expert_used renormalized, then every expert computed densely
+    and mixed with its (mostly zero) routing weight, in expert order."""
+    router = _proj(h, layer["ffn_gate_inp"], cfg)          # (B, T, E)
+    probs = torch.exp(router - router.amax(-1, keepdim=True)).to(
+        torch.float32)
+    probs = probs / probs.sum(-1, keepdim=True)
+    topv, topi = torch.topk(probs, cfg.n_expert_used, dim=-1)
+    topv = topv / topv.sum(-1, keepdim=True)               # renormalize
+    weights = torch.zeros_like(probs).scatter_(-1, topi, topv)
+    out = None
+    for e in range(cfg.n_expert):
+        gate = _proj(h, layer["ffn_gate_exp"][e], cfg)
+        up = _proj(h, layer["ffn_up_exp"][e], cfg)
+        mid = (act(gate.to(torch.float32), cfg.ffn_act)
+               * up.to(torch.float32)).to(cfg.cdtype)
+        ex = _proj(mid, layer["ffn_down_exp"][e], cfg).to(torch.float32)
+        ex = ex * weights[..., e:e + 1]
+        out = ex if out is None else out + ex
+    return out.to(cfg.cdtype)
+
+
+def _layer_ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    if layer.get("ffn_gate_inp") is not None and cfg.n_expert > 0:
+        return moe_ffn(layer, cfg, h)
+    return ffn(layer, cfg, h)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -222,8 +285,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     one-row batch as an int, or None for the first B slots; t_bucket: the
     length the JAX engine pads this ubatch to, on which the attention
     kernel is chosen (None = T) -> (logits (B, T, vocab) f32, cache updated
-    in place); without params["output"] (embeddings) the final-norm hidden
-    states (B, T, dim) f32 take the logits' place."""
+    in place); without params["output"] (embedding models such as bert)
+    the final hidden states (B, T, dim) f32 take the logits' place."""
     missing = unsupported_features(cfg)
     if missing:
         raise NotImplementedError(f"forward features not ported yet: "
@@ -233,18 +296,50 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
               else None)
     if cfg.emb_scale != 1.0:
         h = (h.to(torch.float32) * cfg.emb_scale).to(cfg.cdtype)
+    if cfg.pos_emb:
+        # pad rows carry position -1: clamped (masked downstream); past
+        # the table, the last row, as the JAX gather clamps
+        p = torch.clamp(positions, min=0,
+                        max=params["pos_emb"].shape[0] - 1).to(torch.long)
+        h = h + params["pos_emb"][p].to(cfg.cdtype)
+    if params.get("type_emb") is not None:
+        # token type 0, "sentence A" (build_bert :6475)
+        h = h + params["type_emb"][0].to(cfg.cdtype)
+    if cfg.tok_norm:
+        h = _norm(h, params, "tok_norm", cfg)
+
+    def attn(layer, il, x):
+        out, _ = attention(layer, cfg, x, positions, cache, il, slots, cells,
+                           kv_span, angles, t_bucket)
+        return out
+
     for il, layer in enumerate(params["layers"]):
-        hn = _norm(h, layer, "attn_norm", cfg)
-        attn_out, cache = attention(layer, cfg, hn, positions, cache, il,
-                                    slots, cells, kv_span, angles, t_bucket)
-        if cfg.res_scale != 1.0:
-            attn_out = attn_out * cfg.res_scale
-        h = (h + attn_out).to(cfg.cdtype)
-        hn = _norm(h, layer, "ffn_norm", cfg)
-        ffn_out = ffn(layer, cfg, hn)
-        if cfg.res_scale != 1.0:
-            ffn_out = ffn_out * cfg.res_scale
-        h = (h + ffn_out).to(cfg.cdtype)
+        if cfg.post_norm:
+            # bert: x -> attn -> +res -> LN -> ffn -> +res -> LN
+            h = _norm((h + attn(layer, il, h)).to(cfg.cdtype), layer,
+                      "attn_out_norm", cfg)
+            h = _norm((h + _layer_ffn(layer, cfg, h)).to(cfg.cdtype),
+                      layer, "layer_out_norm", cfg)
+        elif cfg.parallel_residual:
+            hn = _norm(h, layer, "attn_norm", cfg)
+            # falcon-40B feeds attention from a second norm (build_falcon
+            # :6055); gptneox feeds the FFN from its own norm of the same
+            # input; falcon / phi2 / plamo / gptj share the attention norm
+            ha = (_norm(h, layer, "attn_norm_2", cfg)
+                  if layer.get("attn_norm_2") is not None else hn)
+            attn_out = attn(layer, il, ha)
+            hf = (_norm(h, layer, "ffn_norm", cfg)
+                  if layer.get("ffn_norm") is not None else hn)
+            h = (h + attn_out + _layer_ffn(layer, cfg, hf)).to(cfg.cdtype)
+        else:
+            attn_out = attn(layer, il, _norm(h, layer, "attn_norm", cfg))
+            if cfg.res_scale != 1.0:
+                attn_out = attn_out * cfg.res_scale
+            h = (h + attn_out).to(cfg.cdtype)
+            ffn_out = _layer_ffn(layer, cfg, _norm(h, layer, "ffn_norm", cfg))
+            if cfg.res_scale != 1.0:
+                ffn_out = ffn_out * cfg.res_scale
+            h = (h + ffn_out).to(cfg.cdtype)
     if params.get("out_norm") is not None:
         h = _norm(h, params, "out_norm", cfg)
     if params.get("output") is None:

@@ -205,7 +205,10 @@ class Engine:
     def _fuse_projections(self):
         """Fuse the QKV and gate+up QTensors into one launch each (plane
         concat along N), and pad a tile-unfriendly lm head (vocab 32000)
-        to a multiple of 1024; forward() slices the logits back."""
+        to a multiple of 1024; forward() slices the logits back. The JAX
+        conditions (engine.py:397-414): QKV not under qk-norm (persimmon
+        normalizes q and k apart), gate|up of equal shapes without
+        biases; MoE experts stay apart."""
         out_w = self.params.get("output")
         quant = 1024
         if (isinstance(out_w, QTensor) and out_w.layout == "mm"
@@ -223,7 +226,7 @@ class Engine:
 
         for layer in self.params.get("layers", []):
             ws = [layer.get(k) for k in ("wq", "wk", "wv")]
-            if fusable(ws):
+            if fusable(ws) and not self.cfg.qk_norm:
                 layer["wqkv_fused"] = QTensor.concat_n(ws)
                 bs = [layer.get(b) for b in ("bq", "bk", "bv")]
                 if any(b is not None for b in bs):
@@ -416,6 +419,12 @@ class Engine:
         if pooling is None:
             pooling = ("last" if self.cfg.pooling == "none"
                        else self.cfg.pooling)
+        if not self.cfg.causal and len(tokens) > self.n_ubatch:
+            # bidirectional attention cannot be chunked: later tokens would
+            # be invisible to earlier chunks
+            raise ValueError(
+                f"non-causal embedding input ({len(tokens)} tokens) exceeds "
+                f"n_ubatch={self.n_ubatch}; raise n_ubatch/n_ctx")
         params = {k: v for k, v in self.params.items()
                   if k not in ("output", "output_b")}
         self.reset_slot(slot)

@@ -260,10 +260,14 @@ class SPMTokenizer:
 
 
 def build_tokenizer(md: dict):
-    """Factory from GGUF metadata (llm_load_vocab equivalent). The port
-    carries the SPM tokenizer only; BPE and WPM vocabularies raise."""
+    """Factory from GGUF metadata (llm_load_vocab equivalent)."""
     vocab = Vocab.from_metadata(md)
     if vocab.model in ("llama", "spm"):
         return SPMTokenizer(vocab)
-    raise NotImplementedError(f"tokenizer model {vocab.model!r} is not "
-                              "ported (ROADMAP queue 1: tokenizers)")
+    if vocab.model == "gpt2":
+        from tpulamm_torch.tokenizer.bpe import BPETokenizer
+        return BPETokenizer(vocab)
+    if vocab.model == "bert":
+        from tpulamm_torch.tokenizer.wpm import WPMTokenizer
+        return WPMTokenizer(vocab)
+    raise NotImplementedError(f"tokenizer model {vocab.model!r}")

@@ -1,11 +1,19 @@
-"""Synthetic weights and LLaMA-shape GGUF models made from a seed, for the
-measurement tools and chip_smoke.py. A quantized weight is random GGUF
-blocks, and its dequantized values are the truth every kernel is held to;
-an F32 model (normal draws) is the source the quantizer (cli.quantize)
-makes every format from.
+"""Synthetic weights and GGUF models made from a seed, for the
+measurement tools, the tests and chip_smoke.py. A quantized weight is
+random GGUF blocks, and its dequantized values are the truth every kernel
+is held to; an F32 model (normal draws) is the source the quantizer
+(cli.quantize) makes every format from.
+
+Writers: `write_llama_gguf` (LLaMA shape, Q4_0 or F32),
+`write_mixtral_gguf` (LLaMA with GQA and top-k MoE experts, Q4_0, an F32
+router) and `write_family_gguf` (one small model of each architecture
+family in FAMILIES, with the JAX loader's per-arch tensor names), with
+synthetic SPM, BPE (`bpe_vocab`) and WPM (`wpm_vocab`) vocabularies.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 
@@ -76,14 +84,7 @@ def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
           "llama.vocab_size": vocab}
     for key, val in md.items():
         w.add_kv(key, val)
-    voc = spm_vocab(vocab)
-    w.add_kv("tokenizer.ggml.model", "llama")
-    w.add_kv("tokenizer.ggml.tokens", voc["tokens"])
-    w.add_kv("tokenizer.ggml.scores", np.asarray(voc["scores"], np.float32))
-    w.add_kv("tokenizer.ggml.token_type",
-             np.asarray(voc["token_type"], np.int32))
-    w.add_kv("tokenizer.ggml.bos_token_id", 1)
-    w.add_kv("tokenizer.ggml.eos_token_id", 2)
+    _add_vocab(w, "llama", vocab)
     if fim:
         for i, role in enumerate(FIM_ROLES):
             w.add_kv(f"tokenizer.ggml.{role}_token_id", FIM_FIRST_ID + i)
@@ -109,3 +110,292 @@ def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
         q4(p + "ffn_up.weight", ffn, dim)
         q4(p + "ffn_down.weight", dim, ffn)
     w.write()
+
+
+def write_mixtral_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
+                       n_head: int, n_kv: int, vocab: int, n_expert: int,
+                       n_expert_used: int, n_ctx_train: int = 32768,
+                       freq_base: float = 1e6) -> None:
+    """A Mixtral-shape GGUF (general.architecture "llama" with
+    expert_count experts, expert_used_count of them a token; the
+    reference's build_llama MoE branch): every matrix random Q4_0 blocks
+    but the router, ffn_gate_inp (n_expert, dim) F32 normal draws of
+    std 0.02; norm weights 1; an SPM vocab."""
+    w = GGUFWriter(path)
+    md = {"general.architecture": "llama", "general.name": "smoke-moe",
+          "llama.context_length": n_ctx_train,
+          "llama.rope.freq_base": float(freq_base),
+          "llama.embedding_length": dim, "llama.block_count": n_layers,
+          "llama.feed_forward_length": ffn,
+          "llama.attention.head_count": n_head,
+          "llama.attention.head_count_kv": n_kv,
+          "llama.rope.dimension_count": dim // n_head,
+          "llama.attention.layer_norm_rms_epsilon": 1e-5,
+          "llama.expert_count": n_expert,
+          "llama.expert_used_count": n_expert_used,
+          "llama.vocab_size": vocab}
+    for key, val in md.items():
+        w.add_kv(key, val)
+    _add_vocab(w, "llama", vocab)
+
+    def q4(name, n, k):
+        w.add_tensor(name, random_blocks(GGMLType.Q4_0, n, k, rng),
+                     shape=(n, k), ggml_type=GGMLType.Q4_0)
+    hd = dim // n_head
+    ones = np.ones(dim, np.float32)
+    q4("token_embd.weight", vocab, dim)
+    w.add_tensor("output_norm.weight", ones)
+    q4("output.weight", vocab, dim)
+    for i in range(n_layers):
+        p = f"blk.{i}."
+        w.add_tensor(p + "attn_norm.weight", ones)
+        w.add_tensor(p + "ffn_norm.weight", ones)
+        q4(p + "attn_q.weight", dim, dim)
+        q4(p + "attn_k.weight", n_kv * hd, dim)
+        q4(p + "attn_v.weight", n_kv * hd, dim)
+        q4(p + "attn_output.weight", dim, dim)
+        w.add_tensor(p + "ffn_gate_inp.weight",
+                     rng.standard_normal((n_expert, dim), np.float32)
+                     * 0.02)
+        for e in range(n_expert):
+            q4(f"{p}ffn_gate.{e}.weight", ffn, dim)
+            q4(f"{p}ffn_up.{e}.weight", ffn, dim)
+            q4(f"{p}ffn_down.{e}.weight", dim, ffn)
+    w.write()
+
+
+# One small model of each architecture family: its tensors by the names
+# the loader maps (the JAX loader's _layer_params), its metadata, and what
+# each exercises in the forward. qkv: "fused" (attn_qkv) or "split";
+# bias: the projections with biases ("qkv", "o", "ffn", "out"); ffn:
+# "gated" (gate, up, down) or "plain" (up, down); layout: "pre" (attn_norm,
+# ffn_norm), "par" (attn_norm only: parallel residual sharing it),
+# "par2" (parallel residual with its own ffn_norm), "post" (bert's
+# attn_output_norm and layer_output_norm); n_kv: KV heads (default all);
+# hd: the head dim (default dim / n_head; falcon's one KV head needs 128
+# to tile); rot: the rope share of the head dim; vocab: "bpe", "spm" or
+# "wpm".
+FAMILIES = {
+    "gpt2": dict(qkv="fused", bias=("qkv", "o", "ffn"), ffn="plain",
+                 layout="pre", pos_emb=True, vocab="bpe"),
+    "falcon": dict(qkv="fused", bias=(), ffn="plain", layout="par", n_kv=1,
+                   hd=128, vocab="bpe"),
+    "bloom": dict(qkv="fused", bias=("qkv", "o", "ffn"), ffn="plain",
+                  layout="pre", tok_norm=True, tied=True, vocab="bpe"),
+    "mpt": dict(qkv="fused", bias=(), ffn="plain", layout="pre", tied=True,
+                act_scales=True, vocab="bpe",
+                kv={"attention.max_alibi_bias": 8.0,
+                    "attention.clamp_kqv": 6.0}),
+    "phi2": dict(qkv="fused", bias=("qkv", "o", "ffn", "out"), ffn="plain",
+                 layout="par", rot=0.5, vocab="bpe"),
+    "gemma": dict(qkv="split", bias=(), ffn="gated", layout="pre",
+                  tied=True, vocab="spm", n_kv=2, key_length=True),
+    "persimmon": dict(qkv="fused", bias=("qkv", "o", "ffn"), ffn="plain",
+                      layout="pre", qk_norm=True, rot=0.5, vocab="spm"),
+    "starcoder2": dict(qkv="split", bias=("qkv", "o", "ffn", "out"),
+                       ffn="plain", layout="pre", n_kv=2, vocab="bpe"),
+    "qwen2": dict(qkv="split", bias=("qkv",), ffn="gated", layout="pre",
+                  n_kv=2, vocab="bpe"),
+    "stablelm": dict(qkv="split", bias=(), ffn="gated", layout="pre",
+                     rot=0.25, vocab="bpe"),
+    "gptneox": dict(qkv="fused", bias=("qkv", "o", "ffn"), ffn="plain",
+                    layout="par2", rot=0.25, vocab="bpe",
+                    kv={"use_parallel_residual": True}),
+    "bert": dict(qkv="split", bias=("qkv", "o", "ffn"), ffn="plain",
+                 layout="post", pos_emb=True, type_emb=True, tok_norm=True,
+                 no_output=True, vocab="wpm",
+                 kv={"attention.causal": False, "pooling_type": 1}),
+    "nomic-bert": dict(qkv="fused", bias=(), ffn="gated", layout="post",
+                       type_emb=True, tok_norm=True, no_output=True,
+                       vocab="wpm",
+                       kv={"attention.causal": False, "pooling_type": 1}),
+}
+
+
+def write_family_gguf(path: str, arch: str, rng, n_layers: int = 2,
+                      dim: int = 512, ffn: int = 1536, n_head: int = 8,
+                      vocab: int = 1024, n_ctx_train: int = 2048) -> None:
+    """A small `arch` model of FAMILIES: every projection random Q4_0
+    blocks (tiling at the default widths: K % 256 == 0, N % 128 == 0),
+    norm weights near 1, biases, positions and act scales small normal or
+    uniform draws, all from `rng`."""
+    from tpulamm_torch.models.config import ARCH_SPECS
+    f = FAMILIES[arch]
+    ln = ARCH_SPECS[arch]["norm"] == "ln"
+    hd = f.get("hd", dim // n_head)
+    n_head = dim // hd
+    n_kv = f.get("n_kv", n_head)
+    w = GGUFWriter(path)
+    md = {"context_length": n_ctx_train, "embedding_length": dim,
+          "block_count": n_layers, "feed_forward_length": ffn,
+          "attention.head_count": n_head, "attention.head_count_kv": n_kv,
+          "rope.dimension_count": int(hd * f.get("rot", 1.0)),
+          "vocab_size": vocab, **f.get("kv", {})}
+    md["attention.layer_norm_epsilon" if ln
+       else "attention.layer_norm_rms_epsilon"] = 1e-5
+    if f.get("key_length"):
+        md["attention.key_length"] = md["attention.value_length"] = hd
+    w.add_kv("general.architecture", arch)
+    w.add_kv("general.name", f"smoke-{arch}")
+    for key, val in md.items():
+        w.add_kv(f"{arch}.{key}", val)
+    _add_vocab(w, f["vocab"], vocab)
+
+    def q4(name, n, k):
+        w.add_tensor(name + ".weight",
+                     random_blocks(GGMLType.Q4_0, n, k, rng),
+                     shape=(n, k), ggml_type=GGMLType.Q4_0)
+
+    def vec(name, n, std=0.02):
+        w.add_tensor(name, rng.standard_normal(n, np.float32) * std)
+
+    def norm(name, n=dim):
+        w.add_tensor(name + ".weight",
+                     1.0 + rng.standard_normal(n, np.float32) * 0.05)
+        if ln:
+            vec(name + ".bias", n)
+
+    def proj(name, n, k, part):
+        q4(name, n, k)
+        if part in f["bias"]:
+            vec(name + ".bias", n)
+
+    q4("token_embd", vocab, dim)
+    if f.get("pos_emb"):
+        vec("position_embd.weight", (n_ctx_train, dim))
+    if f.get("type_emb"):
+        vec("token_types.weight", (2, dim))
+    if f.get("tok_norm"):
+        norm("token_embd_norm")
+    if not f.get("no_output"):
+        norm("output_norm")
+        if not f.get("tied"):
+            proj("output", vocab, dim, "out")
+    for i in range(n_layers):
+        p = f"blk.{i}."
+        if f["layout"] != "post":
+            norm(p + "attn_norm")
+        if f["layout"] in ("pre", "par2"):
+            norm(p + "ffn_norm")
+        if f["qkv"] == "fused":
+            proj(p + "attn_qkv", (n_head + 2 * n_kv) * hd, dim, "qkv")
+        else:
+            proj(p + "attn_q", n_head * hd, dim, "qkv")
+            proj(p + "attn_k", n_kv * hd, dim, "qkv")
+            proj(p + "attn_v", n_kv * hd, dim, "qkv")
+        if f.get("qk_norm"):
+            norm(p + "attn_q_norm", hd)
+            norm(p + "attn_k_norm", hd)
+        proj(p + "attn_output", dim, n_head * hd, "o")
+        if f["layout"] == "post":
+            norm(p + "attn_output_norm")
+        if f["ffn"] == "gated":
+            proj(p + "ffn_gate", ffn, dim, "ffn")
+        proj(p + "ffn_up", ffn, dim, "ffn")
+        proj(p + "ffn_down", dim, ffn, "ffn")
+        if f.get("act_scales"):
+            w.add_tensor(p + "ffn.act.scales",
+                         rng.uniform(0.5, 1.5, ffn).astype(np.float32))
+        if f["layout"] == "post":
+            norm(p + "layer_output_norm")
+    w.write()
+
+
+# a few sentences for the synthetic BPE merges and WPM words
+CORPUS = ("The quick brown fox jumps over the lazy dog. It's 2024 and we'll "
+          "see 1234 tokens, don't you think? Models read text as tokens; "
+          "the tokenizer splits words into pieces and merges the pairs "
+          "that occur most often. Hello world! café naïve 北京")
+
+
+def bpe_vocab(n_vocab: int, text: str = CORPUS) -> dict:
+    """A byte-level BPE vocab of n_vocab tokens: the 256 byte units, the
+    merges a greedy trainer finds on `text` (the most frequent pair
+    first, ties to the larger pair), filler tokens, and <|endoftext|>
+    last (control, bos and eos)."""
+    from tpulamm_torch.tokenizer.bpe import bytes_to_unicode, gpt2_pretokenize
+    b2u = bytes_to_unicode()
+    tokens = [b2u[b] for b in range(256)]
+    words = Counter("".join(b2u[b] for b in w.encode("utf-8"))
+                    for w in gpt2_pretokenize(text))
+    seqs = {w: list(w) for w in words}
+    merges: list[str] = []
+    known = set(tokens)
+    while len(tokens) < n_vocab - 1:
+        pairs: Counter = Counter()
+        for word, c in words.items():
+            for pair in zip(seqs[word], seqs[word][1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append(f"{a} {b}")
+        if a + b not in known:
+            tokens.append(a + b)
+            known.add(a + b)
+        for word, seq in seqs.items():
+            out, i = [], 0
+            while i < len(seq):
+                if i + 1 < len(seq) and seq[i] == a and seq[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(seq[i])
+                    i += 1
+            seqs[word] = out
+    while len(tokens) < n_vocab - 1:
+        tokens.append(f"<|extra_{len(tokens)}|>")
+    tokens.append("<|endoftext|>")
+    eot = len(tokens) - 1
+    return {"model": "gpt2", "tokens": tokens,
+            "token_type": [1] * eot + [3], "merges": merges,
+            "bos": eot, "eos": eot}
+
+
+def wpm_vocab(n_vocab: int, text: str = CORPUS) -> dict:
+    """A WordPiece vocab in GGUF form (convert-hf-to-gguf's BertModel:
+    a word start "▁w", a continuation piece "w"): the specials [PAD]
+    [UNK] [CLS] [SEP] [MASK], the lower-cased words of `text`, each
+    character of it as a start and as a continuation, and fillers."""
+    import unicodedata
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    norm = "".join(c for c in unicodedata.normalize("NFD", text.lower())
+                   if unicodedata.category(c) != "Mn")
+    words = sorted({w.strip(".,!?;'") for w in norm.split()} - {""})
+    chars = sorted(set(norm) - set(" "))
+    pieces = (["▁" + w for w in words] + ["▁" + c for c in chars] + chars)
+    tokens = specials + list(dict.fromkeys(pieces))
+    while len(tokens) < n_vocab:
+        tokens.append(f"▁extra{len(tokens)}")
+    tokens = tokens[:n_vocab]
+    return {"model": "bert", "tokens": tokens,
+            "token_type": [3] * len(specials)
+            + [1] * (len(tokens) - len(specials)),
+            "bos": 2, "eos": 3, "unk": 1}
+
+
+def _add_vocab(w: GGUFWriter, kind: str, n_vocab: int) -> None:
+    """The tokenizer metadata of a synthetic vocab: "llama"/"spm", "bpe"
+    or "wpm"."""
+    if kind in ("llama", "spm"):
+        voc = spm_vocab(n_vocab)
+        w.add_kv("tokenizer.ggml.model", "llama")
+        w.add_kv("tokenizer.ggml.tokens", voc["tokens"])
+        w.add_kv("tokenizer.ggml.scores",
+                 np.asarray(voc["scores"], np.float32))
+        w.add_kv("tokenizer.ggml.token_type",
+                 np.asarray(voc["token_type"], np.int32))
+        w.add_kv("tokenizer.ggml.bos_token_id", 1)
+        w.add_kv("tokenizer.ggml.eos_token_id", 2)
+        return
+    voc = bpe_vocab(n_vocab) if kind == "bpe" else wpm_vocab(n_vocab)
+    w.add_kv("tokenizer.ggml.model", voc["model"])
+    w.add_kv("tokenizer.ggml.tokens", voc["tokens"])
+    w.add_kv("tokenizer.ggml.token_type",
+             np.asarray(voc["token_type"], np.int32))
+    if voc.get("merges"):
+        w.add_kv("tokenizer.ggml.merges", voc["merges"])
+    w.add_kv("tokenizer.ggml.bos_token_id", voc["bos"])
+    w.add_kv("tokenizer.ggml.eos_token_id", voc["eos"])
+    if "unk" in voc:
+        w.add_kv("tokenizer.ggml.unknown_token_id", voc["unk"])
