@@ -10,7 +10,8 @@ Phases (any failure raises, so the exit code is not 0):
   3. kernels against their plain versions on the card: all six formats at
      M in {1, 8, 64}, N = 1024, K = 768 (three chunks), then Q4_0 at the
      LLaMA-7B projection shapes (qmm at M = 512, qmm_int8 at M = 1, and
-     qmm_int8 also at M = 8 and 16, timed with no limit), with
+     qmm_int8 also at M = 5, 8 and 16 and qmm at the compound verify's
+     M = 20, held to their plain versions and timed with no limit), with
      error, kernel / plain / library time (CUDA events, median of 20
      launches with a cold L2) and the least time the card could take;
      the int8 gemv's and prologue's ptxas register and spill lines;
@@ -89,13 +90,14 @@ Phases (any failure raises, so the exit code is not 0):
      plain embed (cosine >= 0.999); TTFT, tok/s a request (cold or warm)
      and in aggregate, graphs and pool, the tier counters and the launches
      (qmm, qmm_int8 and flash_attention each > 0)
-  4b. the long-context path at full width and depth: a CodeLlama-7B-shape
-     Q4_0 GGUF (32 layers, vocab 32016, rope base 1e6, context 16384)
-     served by Engine(n_ctx=16384, kv_dtype="q8_0") -- generate_fast on a
-     12,000-token prompt (24 ubatches) for 64 greedy tokens (one block of
-     64 steps); the launch counts must be flash_attention 23 x 32,
-     flash_decode 64 x 32, qmm 24 x 128 and qmm_int8 64 x 128 (the lm
-     head is dense); a profile of a 16-step block
+  4b. the long-context path at full width: a CodeLlama-7B-shape Q4_0
+     GGUF (16 layers since phase 11 came, 32 before; vocab 32016, rope
+     base 1e6, context 16384) served by Engine(n_ctx=16384,
+     kv_dtype="q8_0") -- generate_fast on a 12,000-token prompt (24
+     ubatches) for 64 greedy tokens (one block of 64 steps); the launch
+     counts must be flash_attention 23 x 16, flash_decode 64 x 16, qmm 24
+     x 64 and qmm_int8 64 x 64 (the lm head is dense); a profile of a
+     16-step block
   5. end-to-end numerics: the same width at 2 layers, the GPU engine
      against the port's plain path on the CPU (last prefill logits cosine
      >= 0.999; 8 teacher-forced decode steps cosine >= 0.99, the int8
@@ -117,8 +119,9 @@ Phases (any failure raises, so the exit code is not 0):
      at temp 0.9, against the eager steps of their graphs with the same
      seed (the same seed repeats, another does not)
   8. the quantizer and the quality path at LLaMA-7B width (dim 4096, ffn
-     11008, 32 heads, vocab 32000), cut to 2 layers: the host quantizer's
-     time and an F32 source of ~2.65 GB bound the phase. A seeded F32 GGUF
+     11008, 32 heads, vocab 32000), cut to 1 layer (2 before phase 11
+     came): the host quantizer's time, the engines' loads and an F32
+     source of ~1.85 GB bound the phase. A seeded F32 GGUF
      (normal draws, std 0.02, norms 1); cli.gguf_dump on it and
      cli.quantize_stats -l blk.0.attn_q in all six formats; cli.quantize
      (main) to Q8_0, Q5_1, Q5_0, Q4_1, Q4_0 and Q2_K, each file's host
@@ -163,7 +166,7 @@ Phases (any failure raises, so the exit code is not 0):
      two-row step; its first 8 tokens against decode_batch logits and
      apply_guidance on the host, near ties allowed); load s, prefill and
      decode tok/s and the host sampler's ms a token of each run. 9b, after
-     phase 5d: a 2-layer model of LLaMA-7B width with fill-in-the-middle
+     phase 5d: a 1-layer model of LLaMA-7B width with fill-in-the-middle
      ids; beam_search (4 beams, 16 tokens: the same sequence, score within
      1e-3), batched (-np 4 -n 32), parallel (-np 4 -ns 8: each slot
      retires a sequence and prefills the next), infill,
@@ -209,6 +212,35 @@ Phases (any failure raises, so the exit code is not 0):
      qmm_int8 a step, BLOOM_LAUNCHES), a profiled decode step against the
      GGUF bytes it must read, and the card against the CPU plain engine
      (64-token prefill cosine >= 0.999, 8 decode steps >= 0.99)
+  11. speculation and segments. 11a, after phase 9a on the
+     phase-4 model (the target, Engine(n_ctx=2048)) with a
+     TinyLlama-1.1B-width Q4_0 draft (22 layers, 32 / 4 heads, vocab
+     32000, its own seed): generate_speculative_fast at k 4, greedy, 512
+     tokens in and 64 out, against generate_fast's greedy tokens (a
+     parting only at a near tie, top-two gap <= 1e-2 of max|logit|), its
+     launches exact (the prefills' qmm; 573 qmm_int8 a cycle: 4 draft
+     steps x 89, the draft's last write 88, the (1, 5) verify 129); a
+     profiled cycle (one graph launch); temp 0.8 twice with one seed (the
+     same tokens); the target as its own draft (a second engine over the
+     same weights) and its accept rate; tok/s against generate_fast's.
+     11b: generate_prompt_lookup_fast on a repetitive prompt (129
+     qmm_int8 a cycle), generate_speculative_tree with n_seq_dft 2 and
+     generate_lookahead, each against greedy decoding (near ties
+     allowed); then, after phase 9b, at 2 layers of LLaMA-7B width:
+     eval_segmented of two branches and two probes on the card against the
+     CPU plain engine (cosine >= 0.999 a row; the two probes' logits
+     differ). 11c: the server with 4 slots
+     plain, then with --lookup-decoding and -md (the target as its own
+     draft): greedy streamed text equal (near ties allowed), the spec
+     counters > 0, and a mix of two greedy and two sampled slots adding at
+     least one spec block that is not a draft block (a compound verify);
+     then the compound verify (B 4 x 5 rows, M = 20) of the stopped
+     server's engine at exactly 9 qmm a cycle, its greedy slots' tokens
+     against greedy decoding of each slot's history (near ties allowed).
+     11d: cli.speculative in every mode (lookup, --ondevice, -md,
+     -md --ondevice, -md -np 2, --lookahead) and
+     cli.gritlm, in process, at 2 layers of TinyLlama width (a 1-layer
+     draft), against the CPU plain path's greedy choices
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -235,7 +267,9 @@ import numpy as np
 import torch
 
 from tpulamm_torch.cli import gguf_dump, quantize, quantize_stats
+from tpulamm_torch.cli import gritlm as GRITLM
 from tpulamm_torch.cli import main as gen_main
+from tpulamm_torch.cli import speculative as SC_CLI
 from tpulamm_torch.cli.perplexity import compute_perplexity
 from tpulamm_torch.gguf.constants import GGMLType
 from tpulamm_torch.gguf.reader import GGUFReader
@@ -249,7 +283,11 @@ from tpulamm_torch.ops.layers import rms_norm
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
 from tpulamm_torch.quant import formats
 from tpulamm_torch.runtime import decode_graph as DG
+from tpulamm_torch.runtime import spec_tree as ST
+from tpulamm_torch.runtime import speculative as TS
 from tpulamm_torch.runtime.engine import Engine, Timings, forward
+from tpulamm_torch.runtime.kvcache import KVCache
+from tpulamm_torch.runtime.lookahead import generate_lookahead
 from tpulamm_torch.runtime.sampling import (Sampler, SamplingParams,
                                            apply_guidance, apply_penalties)
 from tpulamm_torch.server import server as SV
@@ -519,15 +557,19 @@ def phase_build() -> float:
 
 def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
                   small_m=(1, 8, 64), shapes=SHAPES_7B, prefill_m=PREFILL_M,
-                  batch_m=(8, 16), reps=20) -> dict:
+                  batch_m=(5, 8, 16), verify_m=(20,), reps=20) -> dict:
     """Hold each kernel against its plain version and time every case;
-    the sums over the 7B shapes feed the kernels line. qmm_int8 is also
-    timed over the 7B shapes at the batched decode's rows (batch_m)."""
+    the sums over the 7B shapes feed the kernels line. Over the 7B shapes
+    qmm_int8 is also held and timed at the rows of the batched decode and
+    of a (1, 1+k) verify (batch_m), and qmm at those of the compound
+    verify, B x (1+k) = 20 at B = 4, k = 4 (verify_m)."""
     stats = {name: {"max_abs_err": 0.0, "ms": 0.0,
                     "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                     "bytes_ms": 0.0, "ops_ms": 0.0}
              for name in ("qmm", "qmm_int8")}
-    batch: dict[int, float] = {}
+    batch: dict[tuple[str, int], float] = {}
+    kerns = {"qmm": (Q.qmm_cuda, Q.qmm_ref),
+             "qmm_int8": (Q.qmm_int8_cuda, Q.qmm_int8_ref)}
     logf = kernels.BUILD_DIR / "qmm_int8.log"
     if logf.exists():
         for line in IA.ptxas_lines(logf.read_text()):
@@ -590,21 +632,26 @@ def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
             s["ops_ms"] += t_o
             log(case_line(f"Q4_0 {label} M={m} N={n} K={k}", name, rel,
                           t_k, t_p, t_l, t_b, t_o))
-        for m in batch_m:            # the batched decode's rows: no limit
+        # the batched decode's and the verifies' rows: times without limit
+        for name, m in ([("qmm_int8", m) for m in batch_m]
+                        + [("qmm", m) for m in verify_m]):
+            kern, plain = kerns[name]
             x = torch.randn((m, k), device=device)
-            check_codes(x, qt)
-            rel, ab = rel_err(Q.qmm_int8_cuda(x, qt), Q.qmm_int8_ref(x, qt))
-            note("qmm_int8", rel, ab)
-            t_m = time_ms(lambda: Q.qmm_int8_cuda(x, qt), device, reps)
-            batch[m] = batch.get(m, 0.0) + t_m
-            log(f"[kernels] Q4_0 {label} M={m} N={n} K={k}: qmm_int8 rel "
+            if name == "qmm_int8":
+                check_codes(x, qt)
+            rel, ab = rel_err(kern(x, qt), plain(x, qt))
+            note(name, rel, ab)
+            t_m = time_ms(lambda: kern(x, qt), device, reps)
+            batch[name, m] = batch.get((name, m), 0.0) + t_m
+            log(f"[kernels] Q4_0 {label} M={m} N={n} K={k}: {name} rel "
                 f"{rel:.3e} | kernel {t_m:.4f} ms")
         del qt, w_bf16
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    for m, t in batch.items():
-        log(f"[kernels] qmm_int8 Q4_0 five 7B shapes M={m}: {t:.4f} ms, "
-            f"{t / stats['qmm_int8']['ms']:.2f}x the M=1 {stats['qmm_int8']['ms']:.4f}"
+    for (name, m), t in batch.items():
+        m0 = 1 if name == "qmm_int8" else prefill_m
+        log(f"[kernels] {name} Q4_0 five 7B shapes M={m}: {t:.4f} ms, "
+            f"{t / stats[name]['ms']:.2f}x the M={m0} {stats[name]['ms']:.4f}"
             " ms (reported, no limit)")
     stats["qmm"]["formats"] = qmm_formats(device, rng, formats, reps=reps)
     return stats
@@ -2453,7 +2500,8 @@ GRAPH_PREDICTIONS = {
     "default generate_fast": "80-110 tok/s",
     "megakernel generate_fast": "220-240 tok/s",
     "fused FFN + inkq decode_one": "11-13 ms a step",
-    "16k generate_fast": "75-90 tok/s",
+    # written for 32 layers; phase 4b has run 16 since phase 11 came
+    "16k generate_fast": "75-90 tok/s at 32 layers",
     "batched pl 1 / 4 / 8": "85-110 / 300-400 / 550-750 tok/s",
 }
 
@@ -2890,11 +2938,12 @@ def compare_tool(path: str, device, tool: str, card: dict, cpu: dict) -> str:
 def phase_tools(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
                 cases=None, threads: int = 1) -> dict:
     """Phase 9b: each generation tool on the card beside the same tool on
-    the CPU's plain path (a subprocess each, started together) on a
-    2-layer model of LLaMA-7B width with fill-in-the-middle ids."""
+    the CPU's plain path (a subprocess each, started together) on a model
+    of n_layers of LLaMA-7B width with fill-in-the-middle ids."""
     t_phase = time.perf_counter()
     os.makedirs(SMOKE_DIR, exist_ok=True)
-    path = os.path.join(SMOKE_DIR, "llama7b_shape_q4_0_2l_fim.gguf")
+    path = os.path.join(SMOKE_DIR,
+                        f"llama7b_shape_q4_0_{n_layers}l_fim.gguf")
     write_llama_gguf(path, n_layers, rng, **shape, fim=True)
     cases = tool_cases() if cases is None else cases
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3281,6 +3330,471 @@ def phase_tokenizers(toks: dict) -> dict:
     return out
 
 
+# -- speculation and segments (phase 11) --------------------------------------
+# TinyLlama-1.1B's published config with LLaMA's 32,000-token vocabulary
+# (which TinyLlama shares): the draft of phase 11
+TINYLLAMA_DRAFT = dict(TINYLLAMA, vocab=32000)
+TINYLLAMA_LAYERS = 22
+SPEC_K, SPEC_PREDICT = 4, 64
+# predictions written before phase 11's first run on the card (PERF.md §5)
+SPEC_PREDICTIONS = {
+    "draft": "35-50 tok/s, accept rate < 0.01, 20-28 device ms a cycle",
+    "self": "90-105 tok/s, accept rate 0.95-1.0",
+    "sampled": "accept rate < 0.2 at temp 0.8",
+    "lookup": "90-110 tok/s at accept < 0.1; above 116 where the greedy "
+              "stream repeats",
+    "tree": "30-45 tok/s",
+    "lookahead": "5-10 tok/s (host loop, eager forwards)",
+}
+
+
+def spec_cycle_launches(n_layers_t: int, n_layers_d: int, k: int) -> int:
+    """qmm_int8 launches of one draft-model cycle: k draft steps (4 a
+    layer + the lm head), the draft's last KV write (no head), the
+    (1, 1+k) target verify (4 a layer + the head; M = 1+k <= 16)."""
+    return k * (4 * n_layers_d + 1) + 4 * n_layers_d + 4 * n_layers_t + 1
+
+
+def greedy_parting(ref, prompt: list, want: list, got: list,
+                   label: str, adjust=None) -> str:
+    """got against plain greedy tokens `want` of the same prompt: equal, or
+    parted at a near tie (top-two gap <= TIE of max|logit|) of ref's
+    decode logits teacher-forced through want, taken through
+    adjust(logits, history) where the greedy choice was made from adjusted
+    logits (a repeat penalty). Raises otherwise."""
+    i = first_parting(want, got)
+    if i is None:
+        return f"the same {len(got)} tokens"
+    if i >= min(len(want), len(got)):
+        raise AssertionError(f"{label}: {len(got)} tokens, want {len(want)}")
+    ref.reset_slot(0)
+    lg = ref.prefill(0, prompt)
+    for t in want[:i]:
+        lg = ref.decode_one(0, t)
+    gap = tie_gap(lg if adjust is None else adjust(lg, prompt + want[:i]))
+    ref.reset_slot(0)
+    if gap > TIE:
+        raise AssertionError(f"{label}: parted at token {i} ({want[i]} vs "
+                             f"{got[i]}), top-two gap {gap:.3g} > {TIE}")
+    return f"parted at token {i} of {len(got)} at a near tie (gap {gap:.3g})"
+
+
+def spec_run(label: str, fn, *a, **kw):
+    """A speculator's call timed, its launches counted from 0 ->
+    (tokens, stats, seconds, launches, decode tok/s after the first)."""
+    target = a[0]
+    target.timings = Timings()
+    reset_port_launches()
+    t0 = time.perf_counter()
+    out, _, stats = fn(*a, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in port_launches().items() if v}
+    tok_s = (len(out) - 1) / max(target.timings.t_eval, 1e-9)
+    log(f"[spec] {label}: {len(out)} tokens in {dt:.2f} s, decode "
+        f"{tok_s:.2f} tok/s, {stats.n_target_steps} cycles, drafted "
+        f"{stats.n_drafted}, accepted {stats.n_accepted} (rate "
+        f"{stats.accept_rate:.4f}), launches {launches}")
+    return out, stats, dt, launches, tok_s
+
+
+def cycle_profile(eng, label: str, mode_key: str, cur: int, start: int,
+                  need: int, n_cycles: int = 4) -> dict:
+    """torch.profiler over replays of the captured cycle of `mode_key`
+    (the first graph of the engine whose key begins with it), each staged
+    from the same position: wall and device ms a cycle."""
+    key = next(k for k in eng.graphs.graphs if k[0] == mode_key)
+    g = eng.graphs.graphs[key]
+
+    def step():
+        TS._stage1(g.bufs, cur, start, need, eng.n_ctx, 10 ** 6, -1, 0.0)
+        for _ in range(n_cycles):
+            g.replay()
+    out = profile_steps(eng, label, step, steps=2, per=n_cycles)
+    eng.rollback(0, start)
+    return out
+
+
+def weight_twin(eng):
+    """A second Engine over `eng`'s weights (the same tensors) with a cache,
+    step graphs, host mirrors and generator of its own: the target as its
+    own draft, without a second load of the model."""
+    import copy
+    twin = copy.copy(eng)
+    c = eng.cache
+    twin.cache = KVCache.create(
+        len(c.k), eng.n_slots, eng.n_ctx + 1, c.k[0].shape[1],
+        c.k[0].shape[3], dtype=c.k[0].dtype, dtype_v=c.v[0].dtype,
+        device=eng.device)
+    twin.graphs = DG.DecodeGraphs(eng.device, eng.n_ctx)
+    twin.n_past = np.zeros_like(eng.n_past)
+    twin.cell_pos = np.full_like(eng.cell_pos, -1)
+    twin.ga_i = np.zeros_like(eng.ga_i)
+    twin._gen = torch.Generator(device=eng.device)
+    twin.timings = Timings()
+    return twin
+
+
+def phase_speculation(device, rng, path: str, n_layers: int, smi: str,
+                      shape=LLAMA_7B, prompt_len: int = PROMPT,
+                      n_predict: int = SPEC_PREDICT, k: int = SPEC_K) -> dict:
+    """Phase 11a and 11b at full width on the phase-4 model (the target,
+    Engine(n_ctx=2048)): a TinyLlama-1.1B-width draft (22 layers, GQA 32 /
+    4, vocab 32000, its own seed); generate_speculative_fast at k 4, greedy,
+    512 tokens in and 64 out, against generate_fast's greedy tokens (a
+    parting only at a near tie), with exact launches a cycle; a self draft
+    (a second engine of the target file) and its accept rate; temp 0.8
+    twice with one seed (the same tokens); a profiled cycle; then
+    generate_prompt_lookup_fast on a repetitive prompt, the tree with
+    n_seq_dft 2 and lookahead against greedy decoding."""
+    t_phase = time.perf_counter()
+    dpath = os.path.join(SMOKE_DIR, "tinyllama_shape_q4_0_22l.gguf")
+    write_llama_gguf(dpath, TINYLLAMA_LAYERS, rng, **TINYLLAMA_DRAFT)
+    target = Engine(path, n_ctx=2048, device=device)
+    draft = Engine(dpath, n_ctx=2048, device=device)
+    log(f"[spec] target {n_layers} layers (LLaMA-7B shape), draft "
+        f"{TINYLLAMA_LAYERS} layers (TinyLlama-1.1B width, "
+        f"{os.path.getsize(dpath) / 1e9:.3f} GB) loaded in "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+    out = {}
+    target.generate_fast(prompt, n_predict=n_predict, stop_on_eos=False)
+    target.timings = Timings()
+    plain, _ = target.generate_fast(prompt, n_predict=n_predict,
+                                    stop_on_eos=False)
+    out["plain_tok_s"] = (len(plain) - 1) / target.timings.t_eval
+    log(f"[spec] generate_fast: {out['plain_tok_s']:.2f} tok/s decode "
+        f"({smi})")
+    # draft-model speculation, greedy: the first run captures the cycle
+    TS.generate_speculative_fast(target, draft, prompt, n_predict=n_predict,
+                                 n_draft=k, stop_on_eos=False)
+    got, st, _, launches, tok_s = spec_run(
+        "draft k=4 greedy", TS.generate_speculative_fast, target, draft,
+        prompt, n_predict=n_predict, n_draft=k, stop_on_eos=False)
+    per_cycle = spec_cycle_launches(n_layers, TINYLLAMA_LAYERS, k)
+    expect_launches("spec draft", {
+        "qmm": 4 * n_layers + 1 + 4 * TINYLLAMA_LAYERS + 1,
+        "qmm_int8": per_cycle * st.n_target_steps})
+    log(f"[spec] draft launches exact: qmm {4 * n_layers + 1} + "
+        f"{4 * TINYLLAMA_LAYERS + 1} for the two prefills, qmm_int8 "
+        f"{per_cycle} a cycle ({k} x {4 * TINYLLAMA_LAYERS + 1} draft steps "
+        f"+ {4 * TINYLLAMA_LAYERS} for the draft's last write + "
+        f"{4 * n_layers + 1} for the verify) x {st.n_target_steps} cycles")
+    log(f"[spec] draft greedy vs generate_fast: "
+        f"{greedy_parting(target, prompt, plain, got, 'draft')}")
+    out.update(draft_tok_s=tok_s, draft_accept=st.accept_rate)
+    out.update(cycle_profile(target, "spec_cycle", "spec", plain[0],
+                             prompt_len, k))
+    log(f"[spec] draft: {tok_s:.2f} tok/s against generate_fast's "
+        f"{out['plain_tok_s']:.2f}, accept {st.accept_rate:.4f}, "
+        f"{out['spec_cycle_busy_ms']:.3f} device ms a cycle ({smi}); "
+        f"predicted {SPEC_PREDICTIONS['draft']}")
+    # sampled, one seed twice
+    runs = []
+    for _ in range(2):
+        runs.append(spec_run("draft k=4 temp 0.8 seed 5",
+                             TS.generate_speculative_fast, target, draft,
+                             prompt, n_predict=n_predict, n_draft=k,
+                             temp=0.8, seed=5, stop_on_eos=False))
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError("spec temp 0.8: one seed gave two outputs")
+    out["sampled_accept"] = runs[0][1].accept_rate
+    log(f"[spec] temp 0.8 twice with one seed: the same {len(runs[0][0])} "
+        f"tokens, accept {out['sampled_accept']:.4f} ({smi}); predicted "
+        f"{SPEC_PREDICTIONS['sampled']}")
+    # the target as its own draft: a second engine over the same weights
+    selfd = weight_twin(target)
+    TS.generate_speculative_fast(target, selfd, prompt, n_predict=n_predict,
+                                 n_draft=k, stop_on_eos=False)
+    got, st, _, _, tok_s = spec_run(
+        "self draft k=4 greedy", TS.generate_speculative_fast, target,
+        selfd, prompt, n_predict=n_predict, n_draft=k, stop_on_eos=False)
+    out.update(self_tok_s=tok_s, self_accept=st.accept_rate)
+    log(f"[spec] self draft vs generate_fast: "
+        f"{greedy_parting(target, prompt, plain, got, 'self')}; "
+        f"{tok_s:.2f} tok/s, accept {st.accept_rate:.4f} ({smi}); "
+        f"predicted {SPEC_PREDICTIONS['self']}")
+    del selfd
+    # 11b: prompt lookup on a repetitive prompt
+    rep = (prompt[:64] * (prompt_len // 64))[:prompt_len]
+    rplain, _ = target.generate_fast(rep, n_predict=n_predict,
+                                     stop_on_eos=False)
+    # (no warm-up run: the tok/s of lookup and the tree include capture)
+    got, st, _, launches, tok_s = spec_run(
+        "lookup k=4 greedy, capture included",
+        TS.generate_prompt_lookup_fast, target, rep, n_predict=n_predict,
+        n_draft=k, stop_on_eos=False)
+    expect_launches("spec lookup", {
+        "qmm": 4 * n_layers + 1,
+        "qmm_int8": (4 * n_layers + 1) * st.n_target_steps})
+    out.update(lookup_tok_s=tok_s, lookup_accept=st.accept_rate)
+    log(f"[spec] lookup vs generate_fast: "
+        f"{greedy_parting(target, rep, rplain, got, 'lookup')}; launches "
+        f"exact ({4 * n_layers + 1} qmm_int8 a cycle); {tok_s:.2f} tok/s, "
+        f"accept {st.accept_rate:.4f} ({smi}); predicted "
+        f"{SPEC_PREDICTIONS['lookup']}")
+    # the tree, n_seq_dft 2, with the TinyLlama-width draft
+    n_tree = 32
+    got, st, _, _, tok_s = spec_run(
+        "tree k=4 n_seq_dft=2, capture included",
+        ST.generate_speculative_tree, target, draft,
+        prompt, n_predict=n_tree, n_draft=k, n_seq_dft=2, stop_on_eos=False)
+    out["tree_tok_s"] = tok_s
+    log(f"[spec] tree vs generate_fast: "
+        f"{greedy_parting(target, prompt, plain[:n_tree], got, 'tree')}; "
+        f"{tok_s:.2f} tok/s, drafted {st.n_drafted} ({smi}); predicted "
+        f"{SPEC_PREDICTIONS['tree']}")
+    del draft
+    os.remove(dpath)
+    # lookahead (host loop on eval_segmented); greedy, no penalty
+    greedy = SamplingParams(temp=0.0, penalty_repeat=1.0)
+    n_la = 16
+    target.reset_slot(0)
+    t0 = time.perf_counter()
+    la, _, st = generate_lookahead(target, prompt, n_predict=n_la,
+                                   sampling=greedy, W=4, N=3, G=4,
+                                   stop_on_eos=False)
+    dt = time.perf_counter() - t0
+    log(f"[spec] lookahead W 4 N 3 G 4 vs generate_fast: "
+        f"{greedy_parting(target, prompt, plain[:n_la], la, 'lookahead')}; "
+        f"{n_la / dt:.2f} tok/s with its prefill, {st.n_target_steps} "
+        f"steps, accepted {st.n_accepted} ({smi}); predicted "
+        f"{SPEC_PREDICTIONS['lookahead']}")
+    out.update(graph_report(target, "spec"))
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[spec] phase 11a + 11b (full width) in {out['s']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def spec_recording():
+    """Record the tokens each speculator returns while a CLI runs ->
+    {"out": [...]} (the last call's)."""
+    from tpulamm_torch.runtime import lookahead as LA
+    rec = {"out": None}
+    saved = []
+    for mod, name in ((TS, "generate_speculative"),
+                      (TS, "generate_prompt_lookup"),
+                      (TS, "generate_speculative_fast"),
+                      (TS, "generate_prompt_lookup_fast"),
+                      (ST, "generate_speculative_tree"),
+                      (LA, "generate_lookahead")):
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+
+        def call(*a, _orig=orig, **kw):
+            res = _orig(*a, **kw)
+            rec["out"] = list(res[0])
+            return res
+        setattr(mod, name, call)
+    try:
+        yield rec
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+SPEC_CLI_MODES = {
+    "lookup": ([], "host"),
+    "lookup --ondevice": (["--ondevice"], "fast"),
+    "-md": (["-md", "{draft}"], "host"),
+    "-md --ondevice": (["-md", "{draft}", "--ondevice"], "fast"),
+    "-md -np 2": (["-md", "{draft}", "-np", "2"], "fast"),
+    "--lookahead": (["--lookahead", "-lw", "4", "-ln", "3", "-lg", "4"],
+                    "host"),
+}
+
+
+def phase_spec_small(device, rng, smi: str, shape=LLAMA_7B,
+                     n_layers: int = 2, n_ctx: int = 1024) -> dict:
+    """Phase 11b's eval_segmented and 11c at 2 layers of LLaMA-7B width:
+    eval_segmented of a branch layout on the card against the CPU plain
+    engine (cosine >= 0.999 a row, the two probes apart); the server with
+    4 slots, --lookup-decoding and -md (the target as its own draft), its
+    greedy text against the plain server's (a parting only at a near tie),
+    the spec counters > 0, a compound-verify block from a mix of greedy
+    and sampled slots, and the compound verify's exact qmm launches and
+    greedy tokens. 11d at 2 layers of TinyLlama
+    width (a 1-layer draft): cli.speculative in every mode and cli.gritlm
+    on the card against the CPU plain path's greedy choices."""
+    t_phase = time.perf_counter()
+    path = os.path.join(SMOKE_DIR, "llama7b_shape_q4_0_2l_spec.gguf")
+    write_llama_gguf(path, n_layers, rng, **shape)
+    out = {}
+    gpu = Engine(path, n_ctx=n_ctx, device=device)
+    cpu = Engine(path, n_ctx=n_ctx, device="cpu")
+    prompt = rng.integers(3, shape["vocab"], size=64).tolist()
+    n = len(prompt)
+    pack = [1 | (1 << 16), 2 | (2 << 16)]
+    batch = (np.array([11, 23, 40, 40], np.int32),
+             np.array([n, n, n + 1, n + 1], np.int32),
+             np.array(pack + pack, np.int32))
+    lg = []
+    for eng in (gpu, cpu):
+        eng.prefill(0, prompt)
+        lg.append(eng.eval_segmented(0, *batch))
+    cos = [cosine(a, b) for a, b in zip(*lg)]
+    if not (np.isfinite(lg[0]).all() and min(cos) >= 0.999):
+        raise AssertionError(f"eval_segmented card vs CPU cosines {cos}")
+    # each probe sees its own branch only: the same token at the same
+    # position, two histories, two sets of logits
+    apart = float(np.abs(lg[0][2] - lg[0][3]).max())
+    if not apart > 1e-3 * float(np.abs(lg[0][2]).max()):
+        raise AssertionError(f"eval_segmented: the two probes' logits on "
+                             f"the card are within {apart:.3g}")
+    log(f"[spec-small] eval_segmented (2 branches, 2 probes) card vs CPU: "
+        f"cosines {[round(c, 8) for c in cos]} (>= 0.999); the probes "
+        f"apart by {apart:.4g} on the card")
+    del gpu
+    # 11c: the server, plain, then --lookup-decoding -md (self draft)
+    rep = (prompt[:16] * 4)
+    greedy = {"temperature": 0.0, "repeat_penalty": 1.0, "n_predict": 48,
+              "ignore_eos": True}
+    pieces, engines = {}, {}
+    for label, kw in (("plain", {}),
+                      ("spec", dict(lookup_decoding=True,
+                                    model_draft=path))):
+        started, base = boot_server(path, device, n_slots=4, n_ctx=n_ctx,
+                                    **kw)
+        pieces[label] = [http_stream(base, "/completion",
+                                     dict(greedy, prompt=p))["pieces"]
+                         for p in (prompt, rep)]
+        if label == "spec":
+            m0 = metrics_of(base)
+            # a mix of greedy and sampled slots: the compound verify
+            sampled = {"temperature": 0.8, "top_k": 40, "top_p": 1.0,
+                       "min_p": 0.0, "repeat_penalty": 1.0, "seed": 3,
+                       "n_predict": 48, "ignore_eos": True}
+            with ThreadPoolExecutor(4) as ex:
+                list(ex.map(lambda b: http(base, "/completion", b), [
+                    dict(greedy, prompt=prompt), dict(sampled, prompt=rep),
+                    dict(greedy, prompt=rep), dict(sampled, prompt=prompt)]))
+            m = metrics_of(base)
+        engines[label] = started.sched.engine
+        stop_server(started)
+    spec = {key: m[key] for key in m if key.startswith("spec")}
+    mixed = {key: m[key] - m0[key] for key in ("spec_blocks_total",
+                                                "spec_draft_blocks_total")}
+    n_verify = mixed["spec_blocks_total"] - mixed["spec_draft_blocks_total"]
+    log(f"[spec-small] server counters after the requests: {spec}; the "
+        f"mixed batch added {mixed['spec_blocks_total']:g} spec blocks, "
+        f"{n_verify:g} of them not from the draft (compound verify)")
+    if not (m["spec_blocks_total"] > 0 and m["spec_accepted_total"] > 0
+            and m["spec_draft_blocks_total"] > 0 and n_verify > 0):
+        raise AssertionError(f"server spec counters {spec}, the mixed "
+                             f"batch's {mixed}")
+    for p, a, b in zip((prompt, rep), pieces["plain"], pieces["spec"]):
+        i = first_parting(a, b)
+        verdict = f"the same {len(b)} tokens"
+        if i is not None:
+            gap, big = near_tie(engines["plain"], p, i)
+            if gap > TIE * big:
+                raise AssertionError(f"server: the speculative greedy text "
+                                     f"parted at token {i}, gap "
+                                     f"{gap / big:.3g}")
+            verdict = f"parted at token {i} at a near tie ({gap / big:.3g})"
+        log(f"[spec-small] speculative server vs plain server, greedy: "
+            f"{verdict}")
+    eng = engines.pop("spec")
+    del engines
+    # the compound verify on the stopped server's engine: exact launches
+    hists = {s: (prompt[:20] * 2)[:30 + s] for s in range(4)}
+    for s, h in hists.items():
+        eng.reset_slot(s)
+        eng.prefill(s, h)
+    reset_port_launches()
+    rows, accs, n_steps, posv, _ = eng.spec_lookup_block_multi(
+        {s: 7 + s for s in range(4)}, hists, {s: 24 for s in range(4)},
+        {s: -1 for s in range(4)}, {s: 0.8 * (s % 2) for s in range(4)},
+        11, SPEC_K, 16, False, 40)
+    expect_launches("compound verify",
+                    {"qmm": (4 * n_layers + 1) * n_steps})
+    log(f"[spec-small] compound verify (B 4 x {1 + SPEC_K} rows: M = "
+        f"{4 * (1 + SPEC_K)} > 16), 2 greedy + 2 sampled slots: "
+        f"{n_steps} cycles, exactly {4 * n_layers + 1} qmm a cycle, "
+        f"accepted {accs[:n_steps].sum(axis=0).tolist()} a slot")
+    # the greedy slots' tokens (qmm at M = 20) against greedy decoding of
+    # each slot's history (the decode graphs: qmm_int8 at M = 1)
+    for s in (0, 2):
+        got = [int(t) for r in rows[:n_steps, s] for t in r if t >= 0]
+        h = hists[s] + [7 + s]
+        eng.reset_slot(0)
+        want = eng.generate_fast(h, n_predict=len(got),
+                                 stop_on_eos=False)[0]
+        log(f"[spec-small] compound verify, greedy slot {s} against greedy "
+            f"decoding of its history: "
+            f"{greedy_parting(eng, h, want, got, f'verify slot {s}')}")
+    del eng, cpu
+    os.remove(path)
+    # 11d: cli.speculative in every mode, cli.gritlm, on a 2-layer
+    # TinyLlama-width target with a 1-layer draft of the same widths (the
+    # CLIs load their engines each run)
+    path = os.path.join(SMOKE_DIR, "tinyllama_shape_q4_0_2l_cli.gguf")
+    dpath = os.path.join(SMOKE_DIR, "tinyllama_shape_q4_0_1l_cli.gguf")
+    write_llama_gguf(path, n_layers, rng, **TINYLLAMA_DRAFT)
+    write_llama_gguf(dpath, 1, rng, **TINYLLAMA_DRAFT)
+    cpu = Engine(path, n_ctx=n_ctx, device="cpu")
+    text = "the cat sat on the mat"
+    base = ["-m", path, "-p", text, "-n", "16", "--draft", "3", "-c",
+            str(n_ctx), "--ignore-eos", "--device", device.type]
+    ids = cpu.tokenizer.encode(text, special=True)
+    cpu.reset_slot(0)
+    ref = {"fast": cpu.generate_fast(ids, n_predict=16, stop_on_eos=False)[0]}
+    cpu.reset_slot(0)
+    ref["host"] = cpu.generate(ids, n_predict=16,
+                               sampling=SamplingParams(temp=0.0,
+                                                       ignore_eos=True),
+                               stop_on_eos=False)[0]
+    for mode, (extra, kind) in SPEC_CLI_MODES.items():
+        argv = base + [a.format(draft=dpath) for a in extra]
+        with spec_recording() as rec:
+            rc, _, err, dt = run_cli(f"spec-cli {mode}", SC_CLI.main, argv)
+        if rc != 0 or rec["out"] is None:
+            raise AssertionError(f"cli.speculative {mode}: exit {rc}")
+        # the host modes choose from penalized logits (--repeat-penalty 1.1
+        # over the last 64 tokens, the CLI's defaults)
+        adjust = ((lambda lg, h: penalized(lg, h, 64, 1.1))
+                  if kind == "host" else None)
+        verdict = greedy_parting(cpu, ids, ref[kind], rec["out"],
+                                 f"cli.speculative {mode}", adjust)
+        log(f"[spec-small] cli.speculative {mode}: {verdict} against the "
+            f"CPU's {kind} greedy choices, {dt:.1f} s")
+    res = {}
+    orig = Engine.generate_fast
+    for where in (device.type, "cpu"):
+        rec = {}
+
+        def gen_fast(self, prompt, _orig=orig, _rec=rec, **kw):
+            _rec["prompt"] = self._encode(prompt)
+            _rec["toks"] = _orig(self, prompt, **kw)[0]
+            return _rec["toks"], self.tokenizer.decode(_rec["toks"])
+        Engine.generate_fast = gen_fast
+        try:
+            rc, gout, _, dt = run_cli(f"gritlm {where}", GRITLM.main,
+                                      ["-m", path, "-c", str(n_ctx), "-n",
+                                       "8", "--device", where])
+        finally:
+            Engine.generate_fast = orig
+        if rc != 0:
+            raise AssertionError(f"cli.gritlm on {where}: exit {rc}")
+        res[where] = ([float(x) for x in re.findall(r"is: (-?[0-9.]+)",
+                                                    gout)], rec)
+    sims = np.abs(np.subtract(res[device.type][0], res["cpu"][0]))
+    if len(res["cpu"][0]) != 4 or sims.max() > 1e-2:
+        raise AssertionError(f"gritlm cosines card vs CPU {res}")
+    crec, grec = res["cpu"][1], res[device.type][1]
+    verdict = greedy_parting(cpu, crec["prompt"], crec["toks"], grec["toks"],
+                             "gritlm")
+    log(f"[spec-small] cli.gritlm: cosine matrix card vs CPU within "
+        f"{sims.max():.4f}; generation {verdict}")
+    del cpu
+    for p in (path, dpath):
+        os.remove(p)
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[spec-small] phase 11b-d (2 layers) in {out['s']:.1f} s")
+    return out
+
+
 def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
     """One line for each decode path: tok/s (or ms a step), the profiled
     wall and device ms a step of its graph replays, beside the prediction."""
@@ -3295,7 +3809,8 @@ def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
          f"_mega_step {oi['mega_step_ms']:.3f} ms", prof(oi, "mega_block")),
         ("fused FFN + inkq decode_one",
          f"{1e3 / oi['fused_decode_tok_s']:.3f} ms a step", prof(oi, "fused")),
-        ("16k generate_fast", f"{lc['decode_tok_s']:.2f} tok/s with its "
+        ("16k generate_fast", f"{lc['layers']} layers: "
+         f"{lc['decode_tok_s']:.2f} tok/s with its "
          f"capture, a 64-step block {1e3 / lc['block_ms']:.2f} tok/s",
          prof(lc, "decode16k_block")),
         ("batched pl 1 / 4 / 8", " / ".join(
@@ -3383,9 +3898,13 @@ def main() -> int:
         phase_generation(device, np.random.default_rng(SEED + 14),
                          sl["path"], sl["layers"], smi)
         done("generation")
+        phase_speculation(device, np.random.default_rng(SEED + 19),
+                          sl["path"], sl["layers"], smi)
+        done("speculation")
     finally:
         os.remove(sl["path"])
-    lc = phase_long(device, rng)
+    # 16 layers, cut from 32 to make room for phase 11 in the time limit
+    lc = phase_long(device, rng, n_layers=16)
     done("long")
     phase_numerics(device, rng)
     done("numerics")
@@ -3395,10 +3914,14 @@ def main() -> int:
     done("mega numerics")
     phase_batch_numerics(device, rng)
     done("batch numerics")
-    phase_tools(device, np.random.default_rng(SEED + 15), smi)
+    # 1 layer, cut from 2 to keep the script inside its time limit
+    phase_tools(device, np.random.default_rng(SEED + 15), smi, n_layers=1)
     done("tools")
+    phase_spec_small(device, np.random.default_rng(SEED + 20), smi)
+    done("speculation, 2 layers")
     # a generator of its own, as phase 7 has
-    phase_quality(device, np.random.default_rng(SEED + 13), smi)
+    # 1 layer, cut from 2 to make room for phase 11 in the time limit
+    phase_quality(device, np.random.default_rng(SEED + 13), smi, n_layers=1)
     done("quality")
     # generators of their own, as phase 7 has
     phase_moe(device, np.random.default_rng(SEED + 16), smi)

@@ -714,6 +714,136 @@ def test_mega_error_word(dev, tiny_gguf):
         g.run(1)
 
 
+# -- the speculation cycles as CUDA graphs (runtime/speculative.py) ----------
+# A block's graph replays give the rows, accepted counts and positions of
+# the same cycle called eagerly from the same cache with its own buffers
+# (and, where it samples, its own generator seeded alike); greedy
+# speculation gives the tokens of generate_fast on the card.
+
+@pytest.fixture(scope="module")
+def tiny_draft(tmp_path_factory):
+    from tpulamm_torch.tools.synth import write_llama_gguf
+    path = str(tmp_path_factory.mktemp("d") / "draft.gguf")
+    write_llama_gguf(path, 1, np.random.default_rng(8), dim=1024, ffn=1024,
+                     n_head=8, vocab=1024)
+    return path
+
+
+def _eager_cycles(bufs, body, stage):
+    """Call a cycle eagerly until no row is active -> the read state."""
+    stage(bufs)
+    with torch.no_grad():
+        while bufs.act.any():
+            body()
+    return bufs.read()
+
+
+def _same_cycles(got, ref):
+    n = got["i"]
+    assert n == ref["i"] > 0
+    np.testing.assert_array_equal(got["rows"][:n], ref["rows"][:n])
+    np.testing.assert_array_equal(got["accs"][:n], ref["accs"][:n])
+    np.testing.assert_array_equal(got["pos"], ref["pos"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "stochastic", "match"])
+def test_draft_cycle_graph_equals_eager(dev, tiny_gguf, tiny_draft, mode):
+    from tpulamm_torch.runtime import speculative as TS
+    from tpulamm_torch.runtime.engine import Engine
+    tgt = Engine(tiny_gguf, n_ctx=128, device=dev)
+    dr = Engine(tiny_draft, n_ctx=128, device=dev)
+    prompt = [1, 9, 33, 4, 17, 250]
+    for e in (tgt, dr):
+        e.prefill(0, prompt)
+    n = len(prompt)
+    Q.reset_launches()
+    got = TS.draft_block(tgt, dr, 0, 11, n, 4, 16, tgt._kv_span(40),
+                         dr._kv_span(40), mode, 0.8, 20, 5, -1, 30)
+    torch.cuda.synchronize()
+    steps = got["i"]
+    # a cycle: 4 draft steps (5 a step: 4 a layer + the head), the
+    # draft's last write (4, no head), the (1, 5) verify (9)
+    assert Q.LAUNCHES == {"qmm": 0, "qmm_int8": steps * (4 * 5 + 4 + 9),
+                          "qmm_int8_inkq": 0}
+    for e in (tgt, dr):
+        e.rollback(0, n)
+    bufs = TS.CycleBuffers(1, 5, 16, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    body = TS.draft_cycle_body(tgt, dr, bufs, 4, 0, tgt._kv_span(40),
+                               dr._kv_span(40), mode, 20, gen)
+    ref = _eager_cycles(bufs, body, lambda b: TS._stage1(
+        b, 11, n, 4, 128, 30, -1, 0.8))
+    _same_cycles(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_lookup_multi_cycle_graph_equals_eager(dev, tiny_gguf, greedy):
+    """Four slots in one (4, 5) verify: M = 20 rows take qmm inside the
+    graph."""
+    from tpulamm_torch.runtime import speculative as TS
+    from tpulamm_torch.runtime.engine import Engine
+    eng = Engine(tiny_gguf, n_ctx=128, n_slots=4, device=dev)
+    hists = {s: [1, 9 + s, 33, 4, 9 + s, 33, 4] for s in range(4)}
+    for s, h in hists.items():
+        eng.prefill(s, h)
+    temps = {s: (0.0 if greedy or s % 2 else 0.9) for s in range(4)}
+    start = {s: int(eng.n_past[s]) for s in range(4)}
+    Q.reset_launches()
+    rows, accs, n_steps, posv, _ = eng.spec_lookup_block_multi(
+        {s: 9 + s for s in range(4)}, hists, {s: 20 + s for s in range(4)},
+        {s: -1 for s in range(4)}, temps, 7, 4, 16, greedy, 0 if greedy
+        else 30)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES == {"qmm": 9 * n_steps, "qmm_int8": 0,
+                          "qmm_int8_inkq": 0}
+    for s in range(4):
+        eng.rollback(s, start[s])
+    H = 128 + 4 + 2
+    bufs = TS.CycleBuffers(4, 5, 16, dev, H=H)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    body = TS.lookup_cycle_body(eng, bufs, 4, None, 1, 4,
+                                eng._kv_span(16 * 5 + 10), greedy,
+                                0 if greedy else 30, gen, True)
+    h = np.full((4, H), -1, np.int32)
+    for s in range(4):
+        h[s, :len(hists[s])] = hists[s]
+    ref = _eager_cycles(bufs, body, lambda b: b.stage(
+        [9 + s for s in range(4)], [start[s] for s in range(4)], [1] * 4,
+        [20 + s for s in range(4)], [-1] * 4, [temps[s] for s in range(4)],
+        h))
+    _same_cycles({"i": n_steps, "rows": rows, "accs": accs, "pos": posv},
+                 ref)
+
+
+@pytest.mark.cuda
+def test_tree_cycle_graph_equals_eager(dev, tiny_gguf, tiny_draft):
+    from tpulamm_torch.runtime import spec_tree as ST
+    from tpulamm_torch.runtime import speculative as TS
+    from tpulamm_torch.runtime.engine import Engine
+    tgt = Engine(tiny_gguf, n_ctx=128, device=dev)
+    dr = Engine(tiny_draft, n_ctx=128, device=dev)
+    prompt = [1, 9, 33, 4, 17, 250]
+    out, _, _ = ST.generate_speculative_tree(tgt, dr, prompt, n_predict=24,
+                                             n_draft=4, n_seq_dft=2,
+                                             p_split=0.02, stop_on_eos=False)
+    (g,) = [g for k, g in tgt.graphs.graphs.items() if k[0] == "tree"]
+    got = g.bufs.read()
+    n = len(prompt)
+    for e in (tgt, dr):
+        e.rollback(0, n)
+    span_t, span_d = [k for k in tgt.graphs.graphs if k[0] == "tree"][0][-2:]
+    bufs = TS.CycleBuffers(1, 5, g.bufs.S, dev)
+    body = ST.tree_cycle_body(tgt, dr, bufs, 4, 2, 0.02, span_t, span_d,
+                              True, 40, None)
+    ref = _eager_cycles(bufs, body, lambda b: TS._stage1(
+        b, out[0], n, 7, 128, 23, -1, 0.0))
+    _same_cycles(got, ref)
+
+
 # -- the HTTP server on the card (tpulamm_torch/server/server.py) -------------
 
 @pytest.mark.cuda

@@ -429,22 +429,102 @@ def test_metrics_tiers(servers):
     assert set(t) <= set(j)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(lookup_decoding=True), dict(model_draft="draft.gguf"), dict(tp=2),
-    dict(dp=2), dict(broadcast=("127.0.0.1", 9000)),
-])
+@pytest.mark.parametrize("kw", [dict(tp=2), dict(dp=2),
+                                dict(broadcast=("127.0.0.1", 9000))])
 def test_serve_refuses_unported_tiers(kw):
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 1[04]"):
+                       match="ROADMAP queue 1, item 14"):
         tserver.serve("no-such-model.gguf", **kw)
 
 
 @pytest.mark.parametrize("argv", [
-    ["--lookup-decoding"], ["-md", "d.gguf"], ["--tp", "2"],
-    ["--coordinator", "h:1"], ["--num-processes", "2"],
+    ["--tp", "2"], ["--coordinator", "h:1"], ["--num-processes", "2"],
     ["--broadcast-port", "9"],
 ])
 def test_main_refuses_unported_flags(argv):
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 1[04]"):
+                       match="ROADMAP queue 1, item 14"):
         tserver.main(["-m", "no-such-model.gguf", *argv])
+
+
+# -- the speculative tiers (--lookup-decoding, --model-draft) ------------------
+
+SPEC_KEYS = ("spec_blocks_total", "spec_drafted_total", "spec_accepted_total",
+             "spec_draft_blocks_total")
+
+
+@pytest.fixture(scope="module")
+def spec_servers(tmp_path_factory):
+    """Both servers with --lookup-decoding and a draft model (seed 9) of
+    the target's vocabulary: (JAX base, port base, JAX scheduler, port
+    scheduler, {"jax": JAX draft engine, "port": port draft engine})."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    d = tmp_path_factory.mktemp("spec_srv")
+    path = write_tiny_llama(str(d / "q4.gguf"), GGMLType.Q4_0, seed=5)
+    draft = write_tiny_llama(str(d / "draft.gguf"), GGMLType.Q4_0, seed=9)
+    js, jbase = _boot(jserver.serve, path, lookup_decoding=True,
+                      model_draft=draft)
+    ts, tbase = _boot(tserver.serve, path, lookup_decoding=True,
+                      model_draft=draft, device="cpu")
+    drafts = {"jax": js.sched.engine.draft, "port": ts.sched.engine.draft}
+    yield jbase, tbase, js.sched, ts.sched, drafts
+    for s in (js, ts):
+        s.sched.running = False
+        s.httpd.shutdown()
+    torch.set_num_threads(n)
+
+
+def _use_draft(spec_servers, on: bool):
+    """Attach (on) or detach the draft of both servers while they idle."""
+    *_, jsched, tsched, drafts = spec_servers
+    for sched, key in ((jsched, "jax"), (tsched, "port")):
+        if on:
+            sched.engine.attach_draft(drafts[key])
+        else:
+            sched.engine.draft = None
+
+
+def _spec_delta(base, body):
+    before = _metrics(base)
+    st, raw = _post(base, "/completion", body)
+    assert st == 200, raw
+    after = _metrics(base)
+    return json.loads(raw), {k: after[k] - before[k] for k in SPEC_KEYS}
+
+
+@pytest.mark.parametrize("tier", ["draft", "lookup"])
+@pytest.mark.parametrize("prompt", ["the cat sat on the mat", "a b c a b c"])
+def test_spec_tier_greedy_matches_jax(spec_servers, tier, prompt):
+    """A greedy request alone takes the draft-model tier (draft attached)
+    or the single-slot lookup tier: the JAX server's text, and the same
+    growth of every llamacpp:spec_* counter."""
+    jbase, tbase, *_ = spec_servers
+    _use_draft(spec_servers, tier == "draft")
+    body = _greedy(prompt=prompt, n_predict=24, ignore_eos=True)
+    (j, jd), (t, td) = (_spec_delta(b, body) for b in (jbase, tbase))
+    assert t["content"] == j["content"]
+    assert t["tokens_predicted"] == j["tokens_predicted"] == 24
+    assert td == jd
+    assert td["spec_blocks_total"] > 0 and td["spec_drafted_total"] > 0
+    assert (td["spec_draft_blocks_total"] > 0) == (tier == "draft")
+
+
+@pytest.mark.parametrize("tier", ["draft", "lookup"])
+def test_spec_tier_sampled(spec_servers, tier):
+    """A sampled request alone takes stochastic draft-model speculation or
+    the compound lookup verify at temperature: its seed repeats its text,
+    and the block counters grow as the JAX server's do (accepted drafts
+    depend on the draws)."""
+    jbase, tbase, *_ = spec_servers
+    _use_draft(spec_servers, tier == "draft")
+    body = {"prompt": "the cat", "n_predict": 16, "temperature": 0.8,
+            "top_k": 20, "top_p": 1.0, "min_p": 0.0, "repeat_penalty": 1.0,
+            "seed": 3, "ignore_eos": True}
+    (j, jd), (t, td) = (_spec_delta(b, body) for b in (jbase, tbase))
+    t2, _ = _spec_delta(tbase, body)
+    assert t2["content"] == t["content"]
+    assert t["tokens_predicted"] == j["tokens_predicted"] == 16
+    for k in SPEC_KEYS[:2] + SPEC_KEYS[3:]:
+        assert (td[k] > 0) == (jd[k] > 0), (k, jd, td)
+    assert td["spec_blocks_total"] > 0

@@ -2,7 +2,7 @@
 writes loads in the JAX engine and one the JAX engine writes loads in the
 port, for a bf16 and a q8_0 cache, and both continue greedily with the
 same tokens; a K/V layout or shape mismatch raises ValueError (with the
-JAX message), a cache with segments raises NotImplementedError.
+JAX message); a cache with segments round-trips in both directions.
 
 Tiny Q4_0 GGUF, f32 compute. Tolerances: equal arrays after a load; equal
 greedy tokens over 12 steps.
@@ -115,17 +115,32 @@ def test_shape_mismatch_raises(path, tmp_path):
         session.load_session(fname, other)
 
 
-def test_segments_raise(path, tmp_path):
-    _, te = _engines(path, "bf16")
-    te.prefill(0, [1, 300, 301])
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_segments_round_trip(path, tmp_path, writer):
+    """A cache holding segments (a segmented batch of two branches) saved
+    by one package loads in the other with its segment plane, and both
+    score the same branch probe alike."""
+    je, te = _engines(path, "bf16")
+    src, dst = (te, je) if writer == "port" else (je, te)
+    save = session.save_session if writer == "port" else jsession.save_session
+    load = jsession.load_session if writer == "port" else session.load_session
+    seg = [1 | (1 << 16), 2 | (2 << 16)]
+    src.prefill(0, [1, 300, 301])
+    src.eval_segmented(0, np.array([11, 23], np.int32),
+                       np.array([3, 3], np.int32), np.array(seg, np.int32))
     fname = str(tmp_path / "s.bin")
-    session.save_session(fname, te, [1, 300, 301])
-    z = _arrays(fname)
-    z["seg"][0, 1] = 1 | (2 << 16)
-    with open(fname, "wb") as fh:
-        np.savez_compressed(fh, **z)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        session.load_session(fname, te)
+    save(fname, src, [1, 300, 301])
+    assert load(fname, dst) == [1, 300, 301]
+    np.testing.assert_array_equal(np.asarray(dst.cache.seg),
+                                  np.asarray(src.cache.seg))
+    np.testing.assert_array_equal(np.asarray(dst.cache.pos),
+                                  np.asarray(src.cache.pos))
+    assert np.count_nonzero(np.asarray(dst.cache.seg)) == 2
+    np.testing.assert_array_equal(dst.cell_pos, src.cell_pos)
+    probe = (np.array([40], np.int32), np.array([4], np.int32),
+             np.array(seg[1:], np.int32))
+    a, b = dst.eval_segmented(0, *probe), src.eval_segmented(0, *probe)
+    assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
 
 
 def test_not_a_session_file(path, tmp_path):

@@ -4,7 +4,6 @@ from __future__ import annotations
 
 import os
 
-SPEC_ITEM = "ROADMAP queue 1, item 10 (speculation)"
 TRAIN_ITEM = "ROADMAP queue 1, item 13 (training and LoRA)"
 MESH_ITEM = "ROADMAP queue 1, item 14 (parallelism)"
 DISTRIBUTED_FLAGS = ("coordinator", "num_processes", "process_id")
@@ -32,19 +31,13 @@ def add_unported_args(p) -> None:
                        help=f"multi-host runs: not ported ({MESH_ITEM})")
 
 
-def refuse_unported(tp: int = 1, dp: int = 1, lookup_decoding: bool = False,
-                    model_draft: str | None = None,
-                    multihost: bool = False, lora: str | None = None) -> None:
+def refuse_unported(tp: int = 1, dp: int = 1, multihost: bool = False,
+                    lora: str | None = None) -> None:
     """Raise for an option of the JAX CLIs and server the port does not
     run yet, naming the ROADMAP item that brings it."""
     if lora:
         raise NotImplementedError(
             f"--lora: LoRA adapters are not ported yet ({TRAIN_ITEM})")
-    if lookup_decoding or model_draft:
-        flag = "--lookup-decoding" if lookup_decoding else "--model-draft"
-        raise NotImplementedError(
-            f"{flag}: the speculative serving tiers are not ported yet "
-            f"({SPEC_ITEM})")
     if tp > 1 or dp > 1 or multihost:
         what = (f"--tp {tp} / --dp {dp}" if tp > 1 or dp > 1
                 else "multi-host runs")

@@ -2,8 +2,9 @@
 (counterpart of tpulamm.models.loader) for every architecture of
 models.config but mamba.
 
-Quantized tensors are repacked once (quant/repack.py, numpy; the layers
-in parallel threads) into the mm or rows planes and copied to the device;
+Quantized tensors are repacked once (quant/repack.py, numpy; the token
+embedding, the lm head and the layers in parallel threads) into the mm or
+rows planes and copied to the device;
 weights that do not tile (K % 256 or N % 128) are stored dense. A fused
 attn_qkv weight is split into wq/wk/wv rows at load time (every row of a
 block-quant tensor is coded on its own, so the split is exact;
@@ -218,38 +219,50 @@ def load_model(path: str, *, compute_dtype: str | None = None,
     params: dict[str, Any] = {}
     emb = tm.req("token_embd")
     n, k = emb.shape
-    if emb.ggml_type in SPECS:
-        params["tok_emb"] = QTensor.from_gguf_raw(
-            np.asarray(emb.data), emb.ggml_type, (n, k), layout="rows",
-            device=device)
-    else:
+
+    def embedding():
+        if emb.ggml_type in SPECS:
+            return QTensor.from_gguf_raw(
+                np.asarray(emb.data), emb.ggml_type, (n, k), layout="rows",
+                device=device)
         dt = torch.float32 if emb.ggml_type == GGMLType.F32 else cfg.cdtype
-        params["tok_emb"] = _dense(emb.to_f32(), dt, device)
+        return _dense(emb.to_f32(), dt, device)
+
+    def head():
+        out: dict[str, Any] = {}
+        if tm.has("output"):
+            tm.mm(out, "output", "output", required=True)
+        elif cfg.tie_embeddings:
+            out["output"] = _mm_from_rows(emb.as_rows(), emb.ggml_type,
+                                          (n, k), cfg, device)
+        return out
+
     tm.norm(params, "tok_norm", "token_embd_norm")
     tm.norm(params, "out_norm", "output_norm")
     for pkey, name in (("type_emb", "token_types"),
                        ("pos_emb", "position_embd")):
         if tm.has(name):
             params[pkey] = _dense(tm.req(name).to_f32(), cfg.cdtype, device)
-    if tm.has("output"):
-        tm.mm(params, "output", "output", required=True)
-    elif cfg.arch not in ("bert", "nomic-bert"):
+    if not tm.has("output") and cfg.arch not in ("bert", "nomic-bert"):
         # tied embeddings: the lm head reuses token_embd (minicpm; the
         # fallbacks of llm_load_tensors, llama.cpp:158-162, :454, :801);
         # bert is an embedding model with no lm head
         cfg.tie_embeddings = True
-        params["output"] = _mm_from_rows(emb.as_rows(), emb.ggml_type, (n, k),
-                                         cfg, device)
-    # the layers repack in parallel threads: numpy releases the GIL in the
-    # copies and bit operations that take the time (about 4x faster on 8
-    # cores at LLaMA-7B shape)
+
+    # the token embedding, the head and the layers repack in parallel
+    # threads: numpy releases the GIL in the copies and bit operations
+    # that take the time (about 4x faster on 8 cores at LLaMA-7B shape;
+    # the embedding and the head are most of a model of a layer or two)
     def layer(i):
         if abort is not None and abort():
             raise AbortError(f"model load cancelled at layer {i}")
         return _layer_params(tm, cfg, i)
     try:
         with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
-            params["layers"] = list(ex.map(layer, range(cfg.n_layers)))
+            emb_f, head_f = ex.submit(embedding), ex.submit(head)
+            layers = list(ex.map(layer, range(cfg.n_layers)))
+            params = {"tok_emb": emb_f.result(), **params,
+                      **head_f.result(), "layers": layers}
     except AbortError:
         reader.close()
         raise

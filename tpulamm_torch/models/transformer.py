@@ -28,7 +28,12 @@ decide here (`flash_choice`) with "on CUDA" in place of "on TPU", on the
 ubatch length the JAX engine would pad to (its bucket); where they pick a
 kernel, ops.flash_attention runs it at the exact length, masking by qlen
 (ALiBi keeps the einsum path, as in the JAX package). Elsewhere the
-einsum path runs, with the q8_0 scale folds in the JAX order.
+einsum path runs, with the q8_0 scale folds in the JAX order. A forward
+given packed segment ranges (`segs`: lookahead, tree speculation,
+eval_segmented) takes the einsum path with the segment mask
+(transformer.py:183, :256, :340-351): a key cell of segment 0 is visible
+to every query, any other only to a query whose id lo falls in the key's
+[lo, hi].
 """
 
 from __future__ import annotations
@@ -107,10 +112,12 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
               positions: torch.Tensor, cache: KVCache, layer_idx: int,
               slots: int | torch.Tensor | None, cells: torch.Tensor,
               kv_span: int | None = None, angles: tuple | None = None,
-              t_bucket: int | None = None) -> tuple:
+              t_bucket: int | None = None,
+              segs: torch.Tensor | None = None) -> tuple:
     """angles: rope_angles(cfg.rope, positions), shared by every layer;
     t_bucket: the padded ubatch length the kernel choice is made on
-    (None = T)."""
+    (None = T); segs: (B, T) packed segment ranges of the queries (None:
+    the main sequence, no segment mask)."""
     B, T, _ = h.shape
     hd = cfg.head_dim
     if layer.get("wqkv_fused") is not None:
@@ -139,11 +146,13 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
 
     S_full = cache.k[layer_idx].shape[2]
     span = kv_span if kv_span is not None and kv_span < S_full else S_full
-    kernel = flash_choice(cfg, T if t_bucket is None else t_bucket, span,
-                          h.device.type == "cuda")
+    # segment ranges only the einsum path masks (transformer.py:183, :256)
+    kernel = (None if segs is not None else
+              flash_choice(cfg, T if t_bucket is None else t_bucket, span,
+                           h.device.type == "cuda"))
 
     # always an in-place write, whichever path reads the cache below
-    write_kv(cache, layer_idx, k, v, slots, cells, positions)
+    write_kv(cache, layer_idx, k, v, slots, cells, positions, segs)
 
     def rows(arr):
         """This batch's cache rows: slots=None covers the FIRST B rows in
@@ -202,6 +211,14 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         mask = live & (kpos[:, None, :] <= positions[:, :, None])
     else:
         mask = live.expand(B, T, kpos.shape[-1])
+    if segs is not None:
+        # segment visibility (transformer.py:340-351): key seg 0 is the
+        # main sequence; else the query id must lie in the key's [lo, hi]
+        kseg = rows(cache.seg)[:, :span]
+        klo = (kseg & 0xFFFF)[:, None, :]
+        khi = (kseg >> 16)[:, None, :]
+        qid = (segs & 0xFFFF)[:, :, None]
+        mask = mask & ((klo == 0) | ((klo <= qid) & (qid <= khi)))
     probs = masked_softmax(scores, mask[:, None, None, :, :])
     if vsc is not None:
         # q8_0 V: the row scale folds into probs (s is the contracted axis)
@@ -279,12 +296,15 @@ def _layer_ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, cache: KVCache,
             slots: int | torch.Tensor | None, cells: torch.Tensor,
-            kv_span: int | None = None, t_bucket: int | None = None
+            kv_span: int | None = None, t_bucket: int | None = None,
+            segs: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, KVCache]:
     """tokens/positions/cells: (B, T); slots: (B,) slot ids, the slot of a
     one-row batch as an int, or None for the first B slots; t_bucket: the
     length the JAX engine pads this ubatch to, on which the attention
-    kernel is chosen (None = T) -> (logits (B, T, vocab) f32, cache updated
+    kernel is chosen (None = T); segs: (B, T) packed segment ranges
+    (lo | hi << 16) of the tokens, written to the cache's segment plane
+    and masking attention (None: all 0, the main sequence) -> (logits (B, T, vocab) f32, cache updated
     in place); without params["output"] (embedding models such as bert)
     the final hidden states (B, T, dim) f32 take the logits' place."""
     missing = unsupported_features(cfg)
@@ -310,7 +330,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     def attn(layer, il, x):
         out, _ = attention(layer, cfg, x, positions, cache, il, slots, cells,
-                           kv_span, angles, t_bucket)
+                           kv_span, angles, t_bucket, segs)
         return out
 
     for il, layer in enumerate(params["layers"]):

@@ -36,6 +36,12 @@
   renumbers a slot (the server keeps active slots a low prefix)
 - embed runs the forward without the lm head over a slot's ubatches and
   pools the final-norm hidden states (the server's /embedding)
+- speculation (runtime.speculative, spec_tree, lookahead): eval_tokens
+  (the verify of the host loops), eval_segmented (a compound batch with
+  packed segment ranges, the einsum attention with the segment mask), and
+  the serving hooks spec_lookup_block, spec_lookup_block_multi,
+  attach_draft and spec_draft_block, whose cycles are captured graphs in
+  this engine's pool
 - the opt-in decode kernels (the JAX package's TPULAMM_MEGAKERNEL,
   TPULAMM_FUSED_FFN and TPULAMM_INT8_INKQ, here Engine options):
   megakernel=True makes each generate_fast step of a one-slot engine one
@@ -119,6 +125,8 @@ class Timings:
 
 class Engine:
     KV_SPAN_MIN = 256
+    # the decode block lengths (a speculation block's max_steps bucket)
+    DECODE_BUCKETS = dg.DECODE_BUCKETS
 
     def __init__(self, model_path: str, *, n_ctx: int = 2048,
                  n_slots: int = 1, n_ubatch: int = 512,
@@ -331,21 +339,25 @@ class Engine:
         return next(b for b in PREFILL_BUCKETS if b >= t)
 
     def _step(self, tok: np.ndarray, pos: np.ndarray, cel: np.ndarray,
-              slot: int, params=None) -> torch.Tensor:
+              slot: int, params=None, segs: np.ndarray | None = None
+              ) -> torch.Tensor:
         """One eager forward over one slot's (1, T) prefill ubatch; returns
         device logits, or hidden states where `params` (default the
-        engine's) lack the lm head (decode steps replay graphs: _graph)."""
+        engine's) lack the lm head (decode steps replay graphs: _graph).
+        segs: (1, T) packed segment ranges (eval_segmented)."""
         n = tok.shape[1]
-        # one host-to-device copy for tokens, positions and cells
-        host = torch.from_numpy(np.stack([tok, pos, cel]).astype(np.int64))
-        t, p, c = host.to(self.device)
+        # one host-to-device copy for tokens, positions, cells (and segs)
+        rows = [tok, pos, cel] + ([] if segs is None else [segs])
+        host = torch.from_numpy(np.stack(rows).astype(np.int64))
+        t, p, c, *sg = host.to(self.device)
         with torch.no_grad():
             logits, self.cache = forward(self.params if params is None
                                          else params, self.cfg, t, p,
                                          self.cache, slot, c,
                                          kv_span=self._kv_span(0),
                                          t_bucket=(self._bucket_for(n)
-                                                   if n > 1 else 1))
+                                                   if n > 1 else 1),
+                                         segs=sg[0] if sg else None)
         return logits
 
     def _run_device(self, slot: int, tokens: np.ndarray,
@@ -439,6 +451,36 @@ class Engine:
         if pooling == "cls":
             return h[0]
         return h[-1]
+
+    def eval_tokens(self, slot: int, tokens: list[int]) -> np.ndarray:
+        """Evaluate a token chunk from n_past, returning logits at every
+        position ((T, vocab)); the verify of the host speculation loops."""
+        t0 = time.perf_counter()
+        toks = np.asarray(tokens, np.int32)
+        pos = (self.n_past[slot] + np.arange(len(toks))).astype(np.int32)
+        cells = self._cells_for(slot, len(toks), pos)
+        logits = self._run(slot, toks, pos, cells)
+        self.n_past[slot] += len(toks)
+        self.timings.t_eval += time.perf_counter() - t0
+        self.timings.n_eval += len(toks)
+        return logits
+
+    def eval_segmented(self, slot: int, tokens: np.ndarray,
+                       positions: np.ndarray,
+                       segs: np.ndarray) -> np.ndarray:
+        """Evaluate a compound batch with explicit per-token positions and
+        packed segment ranges (lo | hi << 16) -> logits at every position
+        (engine.py:710-751 of the JAX package): the multi-seq_id batch of
+        lookahead decoding. Cells are allocated as for any ubatch; n_past
+        does not move. The forward takes the einsum attention with the
+        segment mask."""
+        t = len(tokens)
+        positions = np.asarray(positions, np.int32)
+        cells = self._cells_for(slot, t, positions)
+        logits = self._step(np.asarray(tokens, np.int32)[None],
+                            positions[None], cells[None], int(slot),
+                            segs=np.asarray(segs, np.int32)[None])
+        return logits[0].cpu().numpy()
 
     # -- decode steps: the step graphs (runtime.decode_graph) ----------------
     def _graph(self, path: str, B: int, span, slots, sampler) -> dg.StepGraph:
@@ -745,6 +787,113 @@ class Engine:
 
     def _eos(self) -> int:
         return self.tokenizer.vocab.eos_id if self.tokenizer else 2
+
+    # -- speculative serving blocks (engine.py:1343-1517 of the JAX
+    # package; the cycles are runtime.speculative's captured graphs) ------
+    def _spec_preflight(self, slot: int, k: int) -> int:
+        if self.mega is not None:
+            raise ValueError("speculation: plain engines only")
+        n = int(self.n_past[slot])
+        if not np.array_equal(self.cell_pos[slot, :n], np.arange(n)):
+            raise ValueError(f"slot {slot}: cells not contiguous")
+        if n + k + 1 > self.n_ctx:
+            raise ValueError("speculation block would overflow n_ctx")
+        return n
+
+    def spec_lookup_block(self, slot: int, carry: int, hist: list[int],
+                          k: int, steps: int, budget: int, eos_id: int):
+        """One greedy single-slot prompt-lookup speculation block
+        (lookup.cpp fused into serving): up to `steps` cycles of the
+        n-gram draft and a (1, 1+k) verify on the device, up to
+        steps * (k + 1) tokens. Updates n_past / cell_pos for the emitted
+        prefix. Returns (rows, accs, n_steps, pos) as host values."""
+        from tpulamm_torch.runtime.speculative import lookup_block
+        n = self._spec_preflight(slot, k)
+        if len(hist) != n:
+            raise ValueError(f"hist has {len(hist)} tokens, slot holds {n}")
+        st = lookup_block(self, [slot], [carry], [hist], k, steps,
+                          self._kv_span(budget + 2 * k + 2), [budget],
+                          [eos_id], [0.0], True, 40, 0)
+        return st["rows"][:, 0], st["accs"][:, 0], st["i"], int(st["pos"][0])
+
+    def spec_lookup_block_multi(self, active: dict[int, int],
+                                hists: dict[int, list[int]],
+                                budgets: dict[int, int],
+                                eos_ids: dict[int, int],
+                                temps: dict[int, float],
+                                seed: int, k: int, steps: int,
+                                greedy: bool, top_k: int):
+        """Multi-slot lookup-speculation block: every active slot drafts
+        from its own history and ONE (B, 1+k) compound forward over the
+        first _b_rows slots verifies them all a cycle; a slot freezes on
+        EOS, budget or context while the rest go on. greedy=False samples
+        each position at its slot's temperature and accepts while the
+        sample equals the draft. Returns (rows (steps, B, k+1), accs
+        (steps, B), n_steps, posv (B,), emitted (B,))."""
+        from tpulamm_torch.runtime.speculative import lookup_block
+        for s in active:
+            n = self._spec_preflight(s, k)
+            if len(hists[s]) != n:
+                raise ValueError(
+                    f"slot {s}: hist has {len(hists[s])}, holds {n}")
+        B = self._b_rows(active) or self.n_slots
+        self._assert_b_cover(active, B)
+        rows = range(B)
+        st = lookup_block(
+            self, list(rows), [active.get(r, 0) for r in rows],
+            [hists[r] if r in active else [] for r in rows], k, steps,
+            self._kv_span(steps * (k + 1) + 2 * k + 2),
+            [budgets[r] if r in active else 0 for r in rows],
+            [eos_ids[r] if r in active else -1 for r in rows],
+            [temps[r] if r in active else 0.0 for r in rows], greedy, top_k,
+            seed, multi=True)
+        return st["rows"], st["accs"], st["i"], st["pos"], st["emitted"]
+
+    def attach_draft(self, draft) -> None:
+        """Attach a draft Engine for spec_draft_block (server
+        --model-draft)."""
+        if draft.n_slots != 1 or draft.mega is not None:
+            raise ValueError("draft engine must be single-slot, without "
+                             "the megakernel")
+        self.draft = draft
+        self._draft_synced: list[int] | None = None
+
+    def spec_draft_block(self, slot: int, carry: int, hist: list[int],
+                         k: int, steps: int, temp: float, top_k: int,
+                         seed: int, eos_id: int, budget: int):
+        """One draft-MODEL speculation block for serving (speculative.cpp
+        fused into the scheduler): the attached draft proposes k tokens a
+        cycle, one (1, 1+k) target forward verifies. Greedy (temp <= 0) is
+        output-exact; temp > 0 runs true speculative sampling over one
+        vocabulary. The draft's KV is synced to the slot's history first
+        (a no-op when it continues the previous block). Returns (rows,
+        accs, n_steps, pos)."""
+        from tpulamm_torch.runtime.speculative import draft_block, spec_mode
+        draft = getattr(self, "draft", None)
+        if draft is None:
+            raise ValueError("no draft engine attached")
+        n = self._spec_preflight(slot, k)
+        if len(hist) != n:
+            raise ValueError(f"hist has {len(hist)} tokens, slot holds {n}")
+        if n + k + 1 > draft.n_ctx:
+            raise ValueError("draft n_ctx too small for this block")
+        if self._draft_synced != hist:
+            draft.reset_slot(0)
+            if hist:
+                draft.prefill(0, hist)
+            self._draft_synced = list(hist)
+        need = budget + 2 * k + 2
+        st = draft_block(self, draft, slot, carry, n, k, steps,
+                         self._kv_span(need), draft._kv_span(need),
+                         spec_mode(self, draft, temp <= 0.0),
+                         temp, top_k, seed, eos_id, budget)
+        n_steps, pos = st["i"], int(st["pos"][0])
+        if n_steps:
+            block = [int(t) for r in st["rows"][:n_steps, 0] for t in r
+                     if t >= 0]
+            # positions n..pos-1 hold [carry] + block[:-1]
+            self._draft_synced = list(hist) + [carry] + block[:-1]
+        return st["rows"][:, 0], st["accs"][:, 0], n_steps, pos
 
     def generate_fast(self, prompt, *, n_predict: int = 128,
                       temp: float = 0.0, top_k: int = 40, seed: int = 0,

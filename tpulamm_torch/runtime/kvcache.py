@@ -11,7 +11,11 @@ builds its result and copies it back into the same storage).
   per-(b, h, cell) f32 row scales in ks / vs; K and V independently.
 - position surgery: seq_rm, seq_keep, seq_cp, seq_add and seq_div (which
   re-rotate cached K by the position change), defrag.
-Segment ids (seg) belong to lookahead and eval_segmented, later slices.
+- the segment plane seg: a (B, S) int32 packed range lo | hi << 16 a
+  cell, 0 = the main sequence (visible to every query); the multi-seq_id
+  batch masks of lookahead, tree speculation and eval_segmented. write_kv
+  writes it with the positions (zeros without segs); seq_cp and defrag
+  carry it; the other ops leave it, as the JAX ones do.
 """
 
 from __future__ import annotations
@@ -35,6 +39,11 @@ class KVCache:
     pos: torch.Tensor       # (B, S) int32, -1 = empty cell
     ks: list | None = None  # L x (B, H_kv, S) f32 K row scales (q8_0 K)
     vs: list | None = None  # L x (B, H_kv, S) f32 V row scales (q8_0 V)
+    seg: torch.Tensor | None = None  # (B, S) int32 packed lo | hi << 16
+
+    def __post_init__(self):
+        if self.seg is None:
+            self.seg = torch.zeros_like(self.pos)
 
     @staticmethod
     def create(n_layers: int, n_slots: int, n_ctx: int, n_kv_heads: int,
@@ -62,7 +71,9 @@ class KVCache:
             v=bufs(qtype_v, dtype_v if dtype_v is not None else dtype),
             pos=torch.full((n_slots, n_ctx), -1, dtype=torch.int32,
                            device=device),
-            ks=scales(qtype_k), vs=scales(qtype_v))
+            ks=scales(qtype_k), vs=scales(qtype_v),
+            seg=torch.zeros((n_slots, n_ctx), dtype=torch.int32,
+                            device=device))
 
 
 def q8_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -99,12 +110,13 @@ def clear(cache: KVCache) -> KVCache:
 
 
 def seq_cp(cache: KVCache, src: int, dst: int) -> KVCache:
-    """Copy slot src's cells (K, V, scales, positions) onto slot dst, in
-    place (llama_kv_cache_seq_cp)."""
+    """Copy slot src's cells (K, V, scales, positions, segments) onto slot
+    dst, in place (llama_kv_cache_seq_cp)."""
     for bufs in (cache.k, cache.v, cache.ks, cache.vs):
         for buf in bufs or ():
             buf[dst].copy_(buf[src])
     cache.pos[dst].copy_(cache.pos[src])
+    cache.seg[dst].copy_(cache.seg[src])
     return cache
 
 
@@ -163,13 +175,14 @@ def _apply_pos_change(cache: KVCache, mask: torch.Tensor,
 
 def defrag(cache: KVCache) -> KVCache:
     """Compact live cells to the front of each slot, keeping their order
-    (llama_kv_cache_defrag): a stable gather of k, v, ks, vs and pos, each
-    copied back into its own buffer."""
+    (llama_kv_cache_defrag): a stable gather of k, v, ks, vs, pos and seg,
+    each copied back into its own buffer."""
     S = cache.pos.shape[1]
     live = cache.pos >= 0
     ar = torch.arange(S, device=cache.pos.device)
     order = torch.argsort(torch.where(live, ar, S + ar), dim=-1, stable=True)
     cache.pos.copy_(torch.gather(torch.where(live, cache.pos, -1), 1, order))
+    cache.seg.copy_(torch.gather(cache.seg, 1, order))
     for bufs in (cache.k, cache.v):
         for buf in bufs:
             idx = order[:, None, :, None].expand(-1, buf.shape[1], -1,
@@ -184,7 +197,8 @@ def defrag(cache: KVCache) -> KVCache:
 
 def write_kv(cache: KVCache, layer: int, k_new: torch.Tensor,
              v_new: torch.Tensor, slots: int | torch.Tensor | None,
-             cells: torch.Tensor, positions: torch.Tensor) -> KVCache:
+             cells: torch.Tensor, positions: torch.Tensor,
+             segs: torch.Tensor | None = None) -> KVCache:
     """Store roped K / V for a ubatch (llm_build_kv_store equivalent), in
     place; a q8_0 K or V is quantized per (b, h, cell) row first.
 
@@ -193,7 +207,9 @@ def write_kv(cache: KVCache, layer: int, k_new: torch.Tensor,
     cells: (B, T) cell indices
     to write (padding rows target the trash cell: the engine allocates
     n_ctx + 1 cells and pads with cell n_ctx); positions: (B, T) token
-    positions, written to the position table at layer 0 (-1 = empty).
+    positions, written to the position table at layer 0 (-1 = empty);
+    segs: (B, T) packed segment ranges written to the segment plane with
+    them (None: zeros, the main sequence).
     """
     B, T, H, _ = k_new.shape
     dev = k_new.device
@@ -217,6 +233,8 @@ def write_kv(cache: KVCache, layer: int, k_new: torch.Tensor,
         else:
             bufs[layer].index_put_(idx, rows.to(bufs[layer].dtype))
     if layer == 0:
-        cache.pos.index_put_((sl[:, None], cells.to(torch.long)),
-                             positions.to(torch.int32))
+        at = (sl[:, None], cells.to(torch.long))
+        cache.pos.index_put_(at, positions.to(torch.int32))
+        cache.seg.index_put_(at, torch.zeros_like(positions, dtype=torch.int32)
+                             if segs is None else segs.to(torch.int32))
     return cache

@@ -12,9 +12,9 @@ file either package writes loads in the other: a numpy .npz (its entries
 stored where the JAX package deflates them; np.load reads both) with the
 per-layer (B, H_kv, S, D) K/V stacked to (L, ...), bf16 stored as its
 uint16 bits, k_dtype / v_dtype as numpy-style names ("bfloat16", "int8",
-"float32"), ks / vs row scales for a q8_0 cache, pos, seg, n_past,
-cell_pos, ga_i, tokens and meta. The port has no segment plane yet: it
-writes seg as zeros and refuses a file whose seg is not.
+"float32"), ks / vs row scales for a q8_0 cache, pos, seg (the packed
+segment plane of lookahead and tree speculation), n_past, cell_pos,
+ga_i, tokens and meta.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def save_session(path: str, engine, tokens: list[int] | None = None) -> None:
             v=_stack(cache.v),
             **extra,
             pos=pos,
-            seg=np.zeros_like(pos),
+            seg=cache.seg.cpu().numpy(),
             n_past=engine.n_past,
             cell_pos=engine.cell_pos,
             ga_i=engine.ga_i,
@@ -100,18 +100,15 @@ def load_session(path: str, engine) -> list[int]:
             meta["dim"] != engine.cfg.dim:
         raise ValueError("session/model shape mismatch: "
                          f"{meta} vs engine n_ctx={engine.n_ctx}")
-    if "seg" in z.files and np.any(z["seg"]):
-        raise NotImplementedError(
-            f"{path}: the cache holds segments (lookahead / "
-            "eval_segmented), which the port does not run yet (ROADMAP "
-            "queue 1, item 10)")
     kd = str(z["k_dtype"])
     vd = str(z["v_dtype"]) if "v_dtype" in z.files else kd
     new = KVCache(
         k=_split(z["k"], kd), v=_split(z["v"], vd),
         pos=torch.from_numpy(np.ascontiguousarray(z["pos"])),
         ks=_split(z["ks"], "float32") if "ks" in z.files else None,
-        vs=_split(z["vs"], "float32") if "vs" in z.files else None)
+        vs=_split(z["vs"], "float32") if "vs" in z.files else None,
+        seg=(torch.from_numpy(np.ascontiguousarray(z["seg"]))
+             if "seg" in z.files else None))
     # the step graphs were captured on the engine's cache storage and
     # layout (-ctk / -ctv): a swapped layout is an error
     old = engine.cache
@@ -136,6 +133,7 @@ def load_session(path: str, engine) -> list[int]:
         for d, s_ in zip(dst or [], src or []):
             d.copy_(s_)
     old.pos.copy_(new.pos)
+    old.seg.copy_(new.seg)
     engine.n_past = z["n_past"].copy()
     engine.cell_pos = z["cell_pos"].copy()
     engine.ga_i = z["ga_i"].copy()

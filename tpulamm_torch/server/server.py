@@ -12,8 +12,13 @@ and running slots share one batched decode step per iteration
 (update_slots, server.cpp:1617) -- new requests prefill into a free slot
 and join the batch.
 
-Decode runs in three tiers, as in the JAX server: device blocks with
-greedy or temp + top-k sampling inside the step graph
+Decode runs in the JAX server's tiers: the speculative blocks
+(`--model-draft`: one active slot, draft-model speculation through
+`Engine.spec_draft_block`; `--lookup-decoding`: prompt-lookup
+speculation, one greedy slot through `spec_lookup_block`, several slots
+or sampled ones through the compound verify of `spec_lookup_block_multi`;
+each counted in the `llamacpp:spec_*` counters of `/metrics`), device
+blocks with greedy or temp + top-k sampling inside the step graph
 (`Engine.decode_batch_fast`), device blocks with the full sampler chain
 (`decode_batch_sampled`), and single steps sampled on the host
 (`decode_batch`: grammar, stop strings, n_probs, mirostat, logit bias).
@@ -25,10 +30,9 @@ tokenize, render JSON and pass queues. A graph capture in the default
 (global) mode is safe because no other thread of the server touches CUDA
 meanwhile.
 
-Not ported yet, and refused by `serve` / `main`: the speculative tiers
-(`--lookup-decoding`, `--model-draft`; ROADMAP queue 1, item 10), and the
-`--tp` / `--dp` mesh and the multi-host transport (the distributed
-arguments, `--broadcast-port`, `--mh-heartbeat`; item 14).
+Not ported yet, and refused by `serve` / `main`: the `--tp` / `--dp` mesh
+and the multi-host transport (the distributed arguments,
+`--broadcast-port`, `--mh-heartbeat`; ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -45,8 +49,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from tpulamm_torch.cli._common import (DISTRIBUTED_FLAGS, MESH_ITEM,
-                                       SPEC_ITEM, add_unported_args,
-                                       refuse_unported, require_file)
+                                       add_unported_args, refuse_unported,
+                                       require_file)
 from tpulamm_torch.grammar.engine import Grammar
 from tpulamm_torch.grammar.json_schema import json_grammar, schema_to_grammar
 from tpulamm_torch.ops.device_sampling import fast_chain_eligible
@@ -106,6 +110,13 @@ class Metrics:
         # fast blocks that used the full device sampler chain
         # (penalties + default queue) rather than plain temp/top-k
         self.sampled_blocks = 0
+        # speculative (prompt-lookup or draft-model) blocks + their
+        # economics
+        self.spec_blocks = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        # spec blocks verified against the --model-draft draft engine
+        self.spec_draft_blocks = 0
         # prompt tokens satisfied from a cached KV prefix (cache_prompt)
         self.cached_prompt_tokens = 0
 
@@ -128,6 +139,14 @@ class Metrics:
             f"llamacpp:decode_slow_steps_total {self.slow_steps}\n"
             "# TYPE llamacpp:decode_sampled_blocks_total counter\n"
             f"llamacpp:decode_sampled_blocks_total {self.sampled_blocks}\n"
+            "# TYPE llamacpp:spec_blocks_total counter\n"
+            f"llamacpp:spec_blocks_total {self.spec_blocks}\n"
+            "# TYPE llamacpp:spec_drafted_total counter\n"
+            f"llamacpp:spec_drafted_total {self.spec_drafted}\n"
+            "# TYPE llamacpp:spec_accepted_total counter\n"
+            f"llamacpp:spec_accepted_total {self.spec_accepted}\n"
+            "# TYPE llamacpp:spec_draft_blocks_total counter\n"
+            f"llamacpp:spec_draft_blocks_total {self.spec_draft_blocks}\n"
             "# TYPE llamacpp:prompt_cached_tokens_total counter\n"
             f"llamacpp:prompt_cached_tokens_total "
             f"{self.cached_prompt_tokens}\n")
@@ -136,10 +155,18 @@ class Metrics:
 class Scheduler(threading.Thread):
     """update_slots loop: assign queued requests to slots, batch-decode."""
 
-    def __init__(self, engine, n_slots: int):
+    LOOKUP_DRAFT = 4     # n-gram draft length for the lookup spec blocks
+    LOOKUP_STEPS = 64    # verify steps per spec block
+    DRAFT_K = 4          # draft-model proposal length (--model-draft)
+    DRAFT_STEPS = 32     # verify steps per draft-model block
+
+    def __init__(self, engine, n_slots: int, lookup_decoding: bool = False):
         super().__init__(daemon=True)
         self.engine = engine
         self.n_slots = n_slots
+        # opt-in prompt-lookup speculation (wins on weight-streaming-bound
+        # models)
+        self.lookup_decoding = lookup_decoding
         self.slots = [SlotState() for _ in range(n_slots)]
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self.metrics = Metrics()
@@ -516,6 +543,135 @@ class Scheduler(threading.Thread):
             self._emit_generated(i, toks, accept=True)
         return True
 
+    # -- the speculative tiers (server.py:553-715 of the JAX package) -----
+    def _spec_ready(self, i: int, k: int) -> bool:
+        """Slot i can take a speculation block: its history is what the
+        engine holds, in contiguous cells, with room for a cycle."""
+        eng = self.engine
+        n = int(eng.n_past[i])
+        return (len(self.slots[i].hist) == n and n + k + 1 <= eng.n_ctx
+                and np.array_equal(eng.cell_pos[i, :n], np.arange(n)))
+
+    def _count_spec(self, drafted: int, accepted: int,
+                    draft: bool = False) -> None:
+        with self.metrics.lock:
+            self.metrics.spec_blocks += 1
+            self.metrics.spec_draft_blocks += int(draft)
+            self.metrics.spec_drafted += drafted
+            self.metrics.spec_accepted += accepted
+
+    def _emit_spec(self, i: int, carry: int, rows) -> None:
+        """Emit a slot's speculative rows: the engine fed the carry and
+        every emitted token but the last, which is the new carry."""
+        block = [int(t) for r in rows for t in r if t >= 0]
+        slot = self.slots[i]
+        slot.hist.append(carry)
+        slot.hist.extend(block[:-1])
+        self._emit_generated(i, block)
+
+    def _run_lookup_block(self, i: int, carry: int) -> bool:
+        """Single-active-slot greedy prompt-lookup speculation: one device
+        block emits up to LOOKUP_STEPS * (k + 1) tokens with no drafting
+        model (lookup.cpp fused into serving). False -> caller falls
+        back."""
+        eng = self.engine
+        slot = self.slots[i]
+        k = self.LOOKUP_DRAFT
+        if not self._spec_ready(i, k):
+            return False
+        remaining = slot.req.n_predict - slot.n_gen
+        budget = min(max(remaining, 1), self.LOOKUP_STEPS * (k + 1))
+        stop_eos = not slot.req.params.ignore_eos
+        try:
+            rows, accs, n_steps, _ = eng.spec_lookup_block(
+                i, carry, slot.hist, k, self.LOOKUP_STEPS, budget,
+                eng._eos() if stop_eos else -1)
+        except ValueError:
+            return False
+        if n_steps == 0:
+            return False
+        self._count_spec(k * n_steps, int(accs[:n_steps].sum()))
+        self._emit_spec(i, carry, rows[:n_steps])
+        return True
+
+    def _run_draft_block(self, i: int, carry: int) -> bool:
+        """Single-active-slot draft-MODEL speculation (--model-draft,
+        speculative.cpp fused into serving): the attached draft engine
+        proposes, one (1, 1+k) target forward verifies. Greedy requests
+        are output-exact; temperature requests run true speculative
+        sampling. False -> caller falls back."""
+        eng = self.engine
+        slot = self.slots[i]
+        k = self.DRAFT_K
+        if getattr(eng, "draft", None) is None or not self._spec_ready(i, k):
+            return False
+        p = slot.req.params
+        temp = max(p.temp, 0.0)
+        top_k = p.top_k if temp > 0.0 else 40
+        remaining = slot.req.n_predict - slot.n_gen
+        budget = min(max(remaining, 1), self.DRAFT_STEPS * (k + 1))
+        try:
+            rows, accs, n_steps, _ = eng.spec_draft_block(
+                i, carry, slot.hist, k, self.DRAFT_STEPS, temp, top_k,
+                self._block_seed({i: carry}),
+                eng._eos() if not p.ignore_eos else -1, budget)
+        except ValueError:
+            return False
+        if n_steps == 0:
+            return False
+        self._count_spec(k * n_steps, int(accs[:n_steps].sum()), draft=True)
+        self._emit_spec(i, carry, rows[:n_steps])
+        return True
+
+    def _run_lookup_block_multi(self, active: dict[int, int],
+                                greedy: bool = True) -> bool:
+        """Multi-slot speculative serving: every active slot drafts by
+        prompt lookup and one (B, 1+k) compound forward verifies all of
+        them a cycle. greedy=False samples each position at its slot's
+        temperature (greedy slots at temp 0) and accepts while the sample
+        equals the draft. False -> caller falls back."""
+        eng = self.engine
+        k = self.LOOKUP_DRAFT
+        top_k = 0
+        if not greedy:
+            # the sampled verify takes ONE top_k: the stochastic slots
+            # must agree on it (greedy slots never consult it)
+            tks = {self.slots[i].req.params.top_k for i in active
+                   if self.slots[i].req.params.temp > 0.0}
+            if len(tks) != 1:
+                return False
+            top_k = tks.pop()
+        if not all(self._spec_ready(i, k) for i in active):
+            return False
+        eos = eng._eos()
+        olds = {i: int(eng.n_past[i]) for i in active}
+        try:
+            rows, accs, n_steps, posv, _ = eng.spec_lookup_block_multi(
+                active, {i: self.slots[i].hist for i in active},
+                {i: max(self.slots[i].req.n_predict - self.slots[i].n_gen,
+                        1) for i in active},
+                {i: (eos if not self.slots[i].req.params.ignore_eos
+                     else -1) for i in active},
+                {i: max(self.slots[i].req.params.temp, 0.0)
+                 for i in active},
+                self._block_seed(active), k, self.LOOKUP_STEPS, greedy,
+                top_k)
+        except ValueError:
+            return False
+        if n_steps == 0:
+            return False
+        tot_acc = 0
+        for i, carry in active.items():
+            if int(posv[i]) == olds[i]:
+                continue            # slot never advanced (budget edge)
+            tot_acc += int(accs[:n_steps, i].sum())
+            self._emit_spec(i, carry, rows[:n_steps, i])
+        # drafted = k a cycle each slot actually ran (a slot that froze
+        # early has -1 rows for the remaining cycles)
+        ran = (rows[:n_steps] >= 0).any(axis=-1)
+        self._count_spec(k * int(ran.sum()), tot_acc)
+        return True
+
     def _compact_slots(self):
         """Keep active slot ids a low prefix: when a high-numbered slot
         outlives its neighbours, the _b_rows compaction bucket stays
@@ -579,6 +735,30 @@ class Scheduler(threading.Thread):
             if not active:
                 time.sleep(0.002)
                 continue
+            # the speculative tiers (the JAX server's order): a draft
+            # model serves a single active slot, greedy or sampled;
+            # prompt lookup serves one greedy slot by the single-slot
+            # block, several or sampled ones by the compound verify
+            spec_ok = self._block_ok(active, self._fast_eligible)
+            if (spec_ok and len(active) == 1
+                    and getattr(self.engine, "draft", None) is not None):
+                i = next(iter(active))
+                if self._run_draft_block(i, active[i]):
+                    with self.metrics.lock:
+                        self.metrics.fast_blocks += 1
+                    continue
+            if self.lookup_decoding and spec_ok:
+                greedy = all(self.slots[i].req.params.temp <= 0.0
+                             for i in active)
+                if greedy and len(active) == 1:
+                    i = next(iter(active))
+                    ok = self._run_lookup_block(i, active[i])
+                else:
+                    ok = self._run_lookup_block_multi(active, greedy=greedy)
+                if ok:
+                    with self.metrics.lock:
+                        self.metrics.fast_blocks += 1
+                    continue
             # multi-token device blocks when every active request uses
             # block-reproducible sampling; the block samples with ONE
             # top_k, so stochastic requests must agree on it (greedy ones
@@ -956,15 +1136,20 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8080,
     raises unless "cpu" is asked for), start the Scheduler and serve HTTP
     until the server is shut down. `started` (an Event) gets the httpd and
     the scheduler as attributes and is set once the port is bound.
-    tp / dp > 1, lookup_decoding, model_draft and broadcast (multi-host)
-    raise: ROADMAP queue 1, items 10 and 14."""
-    refuse_unported(tp, dp, lookup_decoding, model_draft,
-                    multihost=broadcast is not None)
+    lookup_decoding: the prompt-lookup speculative tiers; model_draft: a
+    draft GGUF, loaded as a one-slot Engine on the same device and
+    attached for draft-model speculation. tp / dp > 1 and broadcast
+    (multi-host) raise: ROADMAP queue 1, item 14."""
+    refuse_unported(tp, dp, multihost=broadcast is not None)
     from tpulamm_torch.runtime.engine import Engine
     engine = Engine(model_path, n_ctx=n_ctx, n_slots=n_slots,
                     compute_dtype=compute_dtype, kv_dtype=cache_type_k,
                     kv_dtype_v=cache_type_v, device=device)
-    sched = Scheduler(engine, n_slots)
+    if model_draft:
+        engine.attach_draft(Engine(model_draft, n_ctx=n_ctx, n_slots=1,
+                                   compute_dtype=compute_dtype,
+                                   device=device))
+    sched = Scheduler(engine, n_slots, lookup_decoding=lookup_decoding)
     if system_prompt:
         sched.set_system_prompt(system_prompt)
     sched.start()
@@ -1000,9 +1185,13 @@ def main(argv=None):
     p.add_argument("-ctv", "--cache-type-v", default=None,
                    choices=KV_CACHE_TYPES)
     p.add_argument("--lookup-decoding", action="store_true",
-                   help=f"prompt-lookup speculation: not ported ({SPEC_ITEM})")
+                   help="prompt-lookup speculation (greedy-exact; wins on "
+                        "weight-bound models)")
     p.add_argument("-md", "--model-draft", default=None,
-                   help=f"draft-model speculation: not ported ({SPEC_ITEM})")
+                   help="draft model GGUF: single-active-slot draft-model "
+                        "speculation (greedy-exact; temp>0 runs true "
+                        "speculative sampling -- accept iff u <= p/q, "
+                        "residual resample)")
     p.add_argument("-spf", "--system-prompt-file", default=None,
                    help="file with a system prompt shared by every slot "
                         "(one prefill + seq_cp fan-out; server.cpp -spf)")
@@ -1010,11 +1199,11 @@ def main(argv=None):
     args = p.parse_args(argv)
     multihost = any(getattr(args, a) is not None for a in (
         *DISTRIBUTED_FLAGS, "broadcast_port", "mh_heartbeat"))
-    refuse_unported(args.tp, args.dp, args.lookup_decoding, args.model_draft,
-                    multihost)
+    refuse_unported(args.tp, args.dp, multihost=multihost)
     logm.setup(args, "server")
     logm.log(f"args: {vars(args)}")
     require_file(p, args.model)
+    require_file(p, args.model_draft, "draft model")
     system_prompt = None
     if args.system_prompt_file:
         with open(args.system_prompt_file, errors="replace") as f:
@@ -1022,7 +1211,8 @@ def main(argv=None):
     serve(args.model, args.host, args.port, n_slots=args.parallel,
           n_ctx=args.ctx_size, compute_dtype=args.compute_dtype,
           cache_type_k=args.cache_type_k, cache_type_v=args.cache_type_v,
-          system_prompt=system_prompt, device=args.device)
+          system_prompt=system_prompt, lookup_decoding=args.lookup_decoding,
+          model_draft=args.model_draft, device=args.device)
 
 
 if __name__ == "__main__":

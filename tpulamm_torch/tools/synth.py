@@ -62,13 +62,15 @@ def spm_vocab(n_vocab: int) -> dict:
 def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
                      n_head: int, vocab: int, n_ctx_train: int = 2048,
                      freq_base: float = 10000.0, qtype=GGMLType.Q4_0,
-                     std: float = 0.02, fim: bool = False) -> None:
+                     std: float = 0.02, fim: bool = False,
+                     n_kv: int | None = None) -> None:
     """A LLaMA-shape GGUF, norm weights 1: with qtype Q4_0 every matrix is
     random Q4_0 blocks; with F32 it is normal draws of standard deviation
     `std` (0.02, LLaMA's initializer range, puts the logits' spread near
     1.3 at dim 4096). fim: name the first four filler ids of the vocab
     the fill-in-the-middle prefix, suffix, middle and end-of-text tokens
-    (what cli.infill needs)."""
+    (what cli.infill needs). n_kv: KV heads (GQA; default n_head)."""
+    n_kv = n_head if n_kv is None else n_kv
     if qtype not in (GGMLType.Q4_0, GGMLType.F32):
         raise ValueError(f"synthetic models are Q4_0 or F32, not {qtype!r}")
     w = GGUFWriter(path)
@@ -78,7 +80,7 @@ def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
           "llama.embedding_length": dim,
           "llama.block_count": n_layers, "llama.feed_forward_length": ffn,
           "llama.attention.head_count": n_head,
-          "llama.attention.head_count_kv": n_head,
+          "llama.attention.head_count_kv": n_kv,
           "llama.rope.dimension_count": dim // n_head,
           "llama.attention.layer_norm_rms_epsilon": 1e-5,
           "llama.vocab_size": vocab}
@@ -105,7 +107,9 @@ def write_llama_gguf(path: str, n_layers: int, rng, dim: int, ffn: int,
         w.add_tensor(p + "attn_norm.weight", ones)
         w.add_tensor(p + "ffn_norm.weight", ones)
         for t in ("attn_q", "attn_k", "attn_v", "attn_output"):
-            q4(p + t + ".weight", dim, dim)
+            q4(p + t + ".weight",
+               dim * n_kv // n_head if t in ("attn_k", "attn_v") else dim,
+               dim)
         q4(p + "ffn_gate.weight", ffn, dim)
         q4(p + "ffn_up.weight", ffn, dim)
         q4(p + "ffn_down.weight", dim, ffn)
