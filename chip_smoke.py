@@ -241,6 +241,43 @@ Phases (any failure raises, so the exit code is not 0):
      -md --ondevice, -md -np 2, --lookahead) and
      cli.gritlm, in process, at 2 layers of TinyLlama width (a 1-layer
      draft), against the CPU plain path's greedy choices
+  12. mamba and llava (slice 17), after phase 10. 12a: a mamba-2.8b-width
+     Q4_0 model (state-spaces/mamba-2.8b-hf: hidden 2560, d_inner 5120,
+     d_state 16, d_conv 4, dt_rank 160, vocab 50280, the tied head) cut to
+     16 of its 64 layers, written by tools.synth.write_mamba_gguf through
+     convert_hf, in Engine(n_ctx=1024): generate_fast on a 512-token prompt
+     for one 64-step block through the step graph (the state's buffers
+     static), twice (the same tokens; exactly 2 qmm a layer for the
+     ubatch and 2 qmm_int8 a layer and step: ssm_in and ssm_out; ssm_x,
+     ssm_dt and the 50,280-row head stay dense); a profiled decode step and
+     prefill, the dense head timed alone against the step; the session
+     file (MAGIC-recurrent) saved and loaded back in place (the state
+     equal bit for bit, the next logits within 1e-6 of max|logit|); then 2
+     layers of the same widths on the card against the CPU plain engine
+     (64-token prefill cosine >= 0.999, 8 teacher-forced decode steps >=
+     0.99; 17 greedy tokens at float32 compute, where both compute one
+     function, parting only at a near tie; at the default compute, where
+     the card's steps take int8 activations, any parting is printed). 12b: a
+     full-width CLIP ViT-L/14-336 mmproj (openai/clip-vit-large-patch14-
+     336: hidden 1024, 23 of 24 blocks written (llava reads layer -2), 16
+     heads, ffn 4096, quick_gelu; llava-1.5's mlp projector to 4096) written
+     by tools.synth.write_clip_gguf twice from one seed, the second with
+     llava-v1.6-vicuna-7b's image_grid_pinpoints (spatial_unpad); a
+     2-layer LLaMA-7B / Vicuna-7B-width Q4_0 language model with an SPM
+     vocab: the card's bf16 encode of a 336 x 336 image against the CPU's
+     f32 plain encode (cosine >= MIN_CLIP_COS) with the encode times; then
+     cli.llava in process on a 336 x 336 .npy image (576 embeddings) and
+     on a 672 x 672 one through anyres (2,928), n_ctx 4096, 16 greedy
+     tokens, each launching flash_attention exactly once a layer for each
+     ubatch (text or embeddings) of a bucket >= 64 at span >= 1,024
+     (LLAVA_FLASH_UBATCHES: 3 and 7), and qmm and qmm_int8. 12c:
+     make_bench_model --targets padtest,llava;
+     longctx_bench in process on the 2-layer LLaMA-7B-width model at n_ctx
+     8192 ({einsum, flash} x {bf16, q8_0}, 64 decode steps, the flash
+     runs' greedy parity against einsum reported; flash_attention and
+     flash_decode launched); preset running cli.main from a YAML file;
+     collect_results over the JSON lines of tpulamm_torch.bench and the
+     long-context rows
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -299,9 +336,11 @@ from tpulamm_torch.tools import perf_report
 from tpulamm_torch.tools.quality_table import build_corpus, quality_table
 from tpulamm_torch.tools.profile_window import HostDtoH, count_dtoh
 from tpulamm_torch.tools.mega_ablation import step as mega_call
-from tpulamm_torch.tools.synth import (FAMILIES, random_blocks,
+from tpulamm_torch.tools.synth import (FAMILIES, LLAVA16_PINPOINTS,
+                                       random_blocks, write_clip_gguf,
                                        write_family_gguf, write_llama_gguf,
-                                       write_mixtral_gguf)
+                                       write_mamba_gguf, write_mixtral_gguf)
+from tpulamm_torch.tokenizer.spm import build_tokenizer
 from tpulamm_torch.tools.timing import nvidia_smi, time_ms
 
 SEED = 1234
@@ -321,6 +360,10 @@ FORMATS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1,
 SHAPES_7B = {"wqkv": (12288, 4096), "wo": (4096, 4096),
              "gate_up": (22016, 4096), "down": (4096, 11008),
              "lm_head": (32768, 4096)}
+# mamba-2.8b's two products that tile (phase 12a): ssm_in 2560 -> 2 x 5120
+# and ssm_out 5120 -> 2560, held in phase 3 at the prefill and decode rows
+MAMBA_PROJ_SHAPES = {"mamba ssm_in": (10240, 2560),
+                     "mamba ssm_out": (2560, 5120)}
 LLAMA_7B = dict(dim=4096, ffn=11008, n_head=32, vocab=32000)
 # Code Llama 7B (Meta's release): LLaMA-7B widths, MHA, a 16k context
 CODELLAMA_7B = dict(dim=4096, ffn=11008, n_head=32, vocab=32016,
@@ -557,12 +600,16 @@ def phase_build() -> float:
 
 def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
                   small_m=(1, 8, 64), shapes=SHAPES_7B, prefill_m=PREFILL_M,
-                  batch_m=(5, 8, 16), verify_m=(20,), reps=20) -> dict:
+                  batch_m=(5, 8, 16), verify_m=(20,),
+                  held=MAMBA_PROJ_SHAPES, reps=20) -> dict:
     """Hold each kernel against its plain version and time every case;
     the sums over the 7B shapes feed the kernels line. Over the 7B shapes
     qmm_int8 is also held and timed at the rows of the batched decode and
     of a (1, 1+k) verify (batch_m), and qmm at those of the compound
-    verify, B x (1+k) = 20 at B = 4, k = 4 (verify_m)."""
+    verify, B x (1+k) = 20 at B = 4, k = 4 (verify_m). The held shapes
+    are checked and timed as the 7B ones, at prefill_m and 1 row, outside
+    the sums, from generators of their own (seed SEED + 23), so that the
+    later phases draw the inputs they drew without them."""
     stats = {name: {"max_abs_err": 0.0, "ms": 0.0,
                     "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                     "bytes_ms": 0.0, "ops_ms": 0.0}
@@ -608,21 +655,29 @@ def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
                               *time_case(kern, plain, x, qt, w_bf16, peak,
                                          device, reps)))
         del qt, w_bf16
-    for label, (n, k) in shapes.items():
-        qt = QTensor.from_gguf_raw(random_blocks(GGMLType.Q4_0, n, k, rng),
+    held_gens = (np.random.default_rng(SEED + 23),
+                 torch.Generator(device).manual_seed(SEED + 23))
+    for label, (n, k) in {**shapes, **held}.items():
+        summed = label in shapes
+        r, gen = (rng, None) if summed else held_gens
+        qt = QTensor.from_gguf_raw(random_blocks(GGMLType.Q4_0, n, k, r),
                                    GGMLType.Q4_0, (n, k), device=device)
         w_bf16 = dequant_mm(qt, torch.bfloat16)          # library yardstick
         for name, m, kern, plain, peak in (
                 ("qmm", prefill_m, Q.qmm_cuda, Q.qmm_ref, PEAK_BF16_OPS),
                 ("qmm_int8", 1, Q.qmm_int8_cuda, Q.qmm_int8_ref,
                  PEAK_INT8_OPS)):
-            x = torch.randn((m, k), device=device)
+            x = torch.randn((m, k), device=device, generator=gen)
             if name == "qmm_int8":
                 check_codes(x, qt)
             rel, ab = rel_err(kern(x, qt), plain(x, qt))
             note(name, rel, ab)
             t_k, t_p, t_l, t_b, t_o = time_case(kern, plain, x, qt, w_bf16,
                                                 peak, device, reps)
+            log(case_line(f"Q4_0 {label} M={m} N={n} K={k}", name, rel,
+                          t_k, t_p, t_l, t_b, t_o))
+            if not summed:
+                continue
             s = stats[name]
             s["ms"] += t_k
             s["plain_ms"] += t_p
@@ -630,11 +685,9 @@ def phase_kernels(device, rng, formats=FORMATS, small=(1024, 768),
             s["bound_ms"] += max(t_b, t_o)
             s["bytes_ms"] += t_b
             s["ops_ms"] += t_o
-            log(case_line(f"Q4_0 {label} M={m} N={n} K={k}", name, rel,
-                          t_k, t_p, t_l, t_b, t_o))
         # the batched decode's and the verifies' rows: times without limit
         for name, m in ([("qmm_int8", m) for m in batch_m]
-                        + [("qmm", m) for m in verify_m]):
+                        + [("qmm", m) for m in verify_m] if summed else []):
             kern, plain = kerns[name]
             x = torch.randn((m, k), device=device)
             if name == "qmm_int8":
@@ -1456,8 +1509,8 @@ def eager_block(eng, path: str, slots, tok, pos, act, n_steps: int,
         body = DG.mega_step(eng, MD.mega_decode_layers, bufs,
                             eng._mega_span(n_steps), slots, sample)
     else:
-        body = DG.forward_step(eng, forward, bufs, eng._kv_span(n_steps),
-                               slots, sample)
+        body = DG.forward_step(eng, eng._model_forward(), bufs,
+                               eng._kv_span(n_steps), slots, sample)
     bufs.stage(tok, pos, pos, act, temp)
     with torch.no_grad():
         for _ in range(n_steps):
@@ -3355,6 +3408,23 @@ def spec_cycle_launches(n_layers_t: int, n_layers_d: int, k: int) -> int:
     return k * (4 * n_layers_d + 1) + 4 * n_layers_d + 4 * n_layers_t + 1
 
 
+def parting_gap(ref, prompt: list, want: list, got: list, adjust=None):
+    """(index of the first parting of got from want or None, the top-two
+    gap over max|logit| of ref's logits there, teacher-forced through
+    want and taken through adjust(logits, history); None where a length
+    differs)."""
+    i = first_parting(want, got)
+    if i is None or i >= min(len(want), len(got)):
+        return i, None
+    ref.reset_slot(0)
+    lg = ref.prefill(0, prompt)
+    for t in want[:i]:
+        lg = ref.decode_one(0, t)
+    gap = tie_gap(lg if adjust is None else adjust(lg, prompt + want[:i]))
+    ref.reset_slot(0)
+    return i, gap
+
+
 def greedy_parting(ref, prompt: list, want: list, got: list,
                    label: str, adjust=None) -> str:
     """got against plain greedy tokens `want` of the same prompt: equal, or
@@ -3362,17 +3432,11 @@ def greedy_parting(ref, prompt: list, want: list, got: list,
     decode logits teacher-forced through want, taken through
     adjust(logits, history) where the greedy choice was made from adjusted
     logits (a repeat penalty). Raises otherwise."""
-    i = first_parting(want, got)
+    i, gap = parting_gap(ref, prompt, want, got, adjust)
     if i is None:
         return f"the same {len(got)} tokens"
-    if i >= min(len(want), len(got)):
+    if gap is None:
         raise AssertionError(f"{label}: {len(got)} tokens, want {len(want)}")
-    ref.reset_slot(0)
-    lg = ref.prefill(0, prompt)
-    for t in want[:i]:
-        lg = ref.decode_one(0, t)
-    gap = tie_gap(lg if adjust is None else adjust(lg, prompt + want[:i]))
-    ref.reset_slot(0)
     if gap > TIE:
         raise AssertionError(f"{label}: parted at token {i} ({want[i]} vs "
                              f"{got[i]}), top-two gap {gap:.3g} > {TIE}")
@@ -3795,6 +3859,395 @@ def phase_spec_small(device, rng, smi: str, shape=LLAMA_7B,
     return out
 
 
+# -- phase 12: mamba and llava (slice 17) -------------------------------------
+
+# state-spaces/mamba-2.8b-hf's config.json: hidden 2560, intermediate (d_inner)
+# 5120, state 16, conv kernel 4, time_step_rank 160, vocab 50280, the head
+# tied to the embedding; 64 layers, run at 16
+MAMBA_2_8B = dict(dim=2560, d_inner=5120, d_state=16, d_conv=4, dt_rank=160,
+                  vocab=50280)
+MAMBA_LAYERS = 16
+# openai/clip-vit-large-patch14-336, llava-1.5's and llava-v1.6's tower:
+# hidden 1024, 24 layers (llava reads layer -2: 23 written), 16 heads, ffn
+# 4096, image 336, patch 14, quick_gelu; llava-1.5's mlp projector to 4096
+CLIP_VIT_L_336 = dict(hidden=1024, n_heads=16, n_layers=24, ffn=4096,
+                      image=336, patch=14, proj_dim=4096, skip_last=1)
+LLAVA_PROMPT = "USER: <image>\ndescribe the image ASSISTANT:"
+# the card's bf16 CLIP encode against the CPU's f32 plain encode
+MIN_CLIP_COS = 0.995
+# phase 12's launch counts, written before its first chip run (PERF.md
+# section 5): ssm_in and ssm_out tile and take qmm for a 512-token ubatch
+# and qmm_int8 a decode step; ssm_x (N 192), ssm_dt (K 160) and the
+# 50,280-row tied head do not tile and stay dense
+MAMBA_LAUNCHES_A_LAYER = {"qmm": 2, "qmm_int8": 2}
+# what phase 12 was predicted to show, written before its first chip run
+# (PERF.md section 5)
+MAMBA_PREDICTIONS = {
+    "prefill tok/s": "3,000-8,000", "decode tok/s": "300-600",
+    "decode busy ms": "1.5-3.0", "head share of a step": "25-40%",
+    "phase 12a s": "30-60",
+}
+LLAVA_PREDICTIONS = {
+    "clip encode ms (1 tile / 5 tiles)": "5-30 / 20-150",
+    "embeddings (1.5 / anyres)": "576 / 2,928",
+    "flash_attention (1.5 / anyres)": "4 / 12", "phase 12b s": "30-60",
+}
+# the prefill ubatches (n_ubatch 512) of each cli.llava run that launch
+# flash_attention once a layer: those whose bucket has >= 64 rows at a span
+# of >= 1,024 cells (Engine.flash_choice); the decode steps run einsum
+# below span 8,192. LLAVA_PROMPT is 12 tokens before <image> (BOS
+# included; bucket 16: einsum) and 39 after it (bucket 64: flash once the
+# span is 1,024).
+# 1.5: embeddings 512 (cells 524, span 1,024) + 64 (588) + the 39 text
+# tokens (627) = 3 ubatches, 6 launches at 2 layers. anyres: embeddings
+# 5 x 512 + 368 (cells up to 2,940) + the 39 text tokens = 7 ubatches, 14
+# launches. (The prediction above, 4 / 12, left out the text ubatch.)
+LLAVA_FLASH_UBATCHES = {"1.5": 3, "1.6": 7}
+
+
+def phase_mamba(device, rng, smi: str, shape=MAMBA_2_8B,
+                n_layers: int = MAMBA_LAYERS, cmp_layers: int = 2,
+                prompt_len: int = PROMPT, n_steps: int = 64,
+                n_ctx: int = 1024, cmp_prompt: int = 64,
+                steps: int = 8) -> dict:
+    """Phase 12a: a mamba-2.8b-width Q4_0 model cut to n_layers, written by
+    tools.synth.write_mamba_gguf through convert_hf, in Engine(n_ctx):
+    generate_fast on a 512-token prompt for one 64-step block through the
+    step graph, twice (the same tokens; the second run's launches exactly
+    MAMBA_LAUNCHES_A_LAYER x layers for the ubatch and a step); a profiled
+    decode step and prefill, the dense head timed alone; the session file
+    round trip (the state back in place, the next logits equal); then a
+    cmp_layers model of the same widths on the card against the CPU plain
+    engine (cosines at the default compute; greedy tokens at float32
+    compute parting only at a near tie, and at the default compute
+    printed)."""
+    from tpulamm_torch.models.transformer import _proj
+    from tpulamm_torch.runtime import session
+    t_phase = time.perf_counter()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    seed = int(rng.integers(1 << 30))
+    path = os.path.join(SMOKE_DIR, f"mamba_2_8b_width_q4_0_{n_layers}l.gguf")
+    t0 = time.perf_counter()
+    write_mamba_gguf(path, n_layers, seed, **shape)
+    t_write = time.perf_counter() - t0
+    prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+    t0 = time.perf_counter()
+    eng = Engine(path, n_ctx=n_ctx, device=device)
+    t_load = time.perf_counter() - t0
+    lyr = eng.params["layers"][0]
+    dense = [k for k in ("ssm_in", "ssm_x", "ssm_dt", "ssm_out")
+             if not isinstance(lyr[k], QTensor)]
+    if not isinstance(eng.params["output"], QTensor):
+        dense.append("output (tied)")
+    if not eng.recurrent or dense != ["ssm_x", "ssm_dt", "output (tied)"]:
+        raise AssertionError(f"mamba: recurrent {eng.recurrent}, dense "
+                             f"{dense}")
+    ids_a, _ = eng.generate_fast(prompt, n_predict=n_steps + 1,
+                                 stop_on_eos=False)
+    eng.timings = Timings()
+    reset_port_launches()
+    ids_b, _ = eng.generate_fast(prompt, n_predict=n_steps + 1,
+                                 stop_on_eos=False)
+    tm = eng.timings
+    want = {k: v * n_layers for k, v in MAMBA_LAUNCHES_A_LAYER.items()}
+    got = expect_launches("mamba", {"qmm": want["qmm"],
+                                    "qmm_int8": want["qmm_int8"] * tm.n_step})
+    if ids_a != ids_b or tm.n_step != n_steps:
+        raise AssertionError(f"mamba: two greedy runs disagree or ran "
+                             f"{tm.n_step} steps, not {n_steps}")
+    out = {"write_s": t_write, "load_s": t_load, "layers": n_layers,
+           "launches": {k: v for k, v in got.items() if v},
+           "prefill_tok_s": tm.n_prefill / tm.t_prefill,
+           "decode_tok_s": (len(ids_b) - 1) / tm.t_eval}
+    log(f"[mamba] {n_layers} of 64 layers at mamba-2.8b width: write "
+        f"{t_write:.2f} s (convert_hf, Q4_0), load {t_load:.2f} s; dense "
+        f"{dense}; prefill {prompt_len} tokens {out['prefill_tok_s']:.1f} "
+        f"tok/s, one {tm.n_step}-step generate_fast block "
+        f"{out['decode_tok_s']:.2f} tok/s; launches {out['launches']} "
+        f"(expected {want['qmm']} qmm for the ubatch and {want['qmm_int8']} "
+        "qmm_int8 a step); two runs gave the same tokens")
+    graph_report(eng, "mamba")
+    if device.type == "cuda":
+        out["decode_one_ms"] = wall_ms(lambda: eng.decode_one(0, 5))
+        out.update(profile_steps(eng, "mamba_decode",
+                                 lambda: eng.decode_one(0, 5)))
+        out.update(profile_steps(
+            eng, "mamba_prefill",
+            lambda: (eng.reset_slot(0), eng.prefill(0, prompt)), steps=1))
+        h = torch.randn(1, 1, shape["dim"], device=device).to(eng.cfg.cdtype)
+        head = eng.params["output"]
+        out["head_ms"] = time_ms(lambda: _proj(h, head, eng.cfg), device)
+        st = eng.cache
+        state_b = 2 * (st.conv[:, 0].numel() + st.ssm[:, 0].numel()) * 4
+        gguf_b = gguf_step_bytes(path)
+        port_b = (sum(w.n_bytes for w in quant_weights(eng))
+                  + sum(lyr[k].numel() * lyr[k].element_size()
+                        for lyr in eng.params["layers"]
+                        for k in ("ssm_x", "ssm_dt"))
+                  + head.numel() * (head.element_size() + 2 * 4) + state_b)
+        busy = out["mamba_decode_busy_ms"]
+        out["bound_ms"] = (gguf_b + state_b) / HBM_BYTES_PER_S * 1e3
+        log(f"[mamba] decode step: {out['decode_one_ms']:.3f} ms wall (no "
+            f"profiler), {busy:.3f} ms on the device; the dense tied head "
+            f"alone {out['head_ms']:.4f} ms ({out['head_ms'] / busy:.1%} of "
+            f"the step; bf16 {tuple(head.shape)} read, made f32 and read "
+            f"again); it must read {gguf_b / 1e9:.4f} GB of GGUF blocks and "
+            f"{state_b / 1e6:.2f} MB of state: bound {out['bound_ms']:.4f} ms "
+            f"at 3.35 TB/s ({out['bound_ms'] / busy:.1%} of the step); the "
+            f"port moves ~{port_b / 1e9:.4f} GB a step")
+    # the session file: the state back into its buffers in place
+    sess = os.path.join(SMOKE_DIR, "mamba.session")
+    eng.reset_slot(0)
+    eng.prefill(0, prompt[:cmp_prompt])
+    saved = (eng.cache.conv.clone(), eng.cache.ssm.clone())
+    t0 = time.perf_counter()
+    session.save_session(sess, eng, prompt[:cmp_prompt])
+    t_save = time.perf_counter() - t0
+    before = eng.decode_one(0, 7)
+    eng.reset_slot(0)
+    ptr = eng.cache.ssm.data_ptr()
+    toks = session.load_session(sess, eng)
+    if (toks != prompt[:cmp_prompt] or int(eng.n_past[0]) != cmp_prompt
+            or eng.cache.ssm.data_ptr() != ptr
+            or not torch.equal(eng.cache.ssm, saved[1])
+            or not torch.equal(eng.cache.conv, saved[0])):
+        raise AssertionError("mamba: the session did not restore the state")
+    after = eng.decode_one(0, 7)
+    err = float(np.abs(after - before).max() / np.abs(before).max())
+    if err > 1e-6:
+        raise AssertionError(f"mamba: logits after the session load differ "
+                             f"({err:.3g} of max|logit|)")
+    log(f"[mamba] session file: {os.path.getsize(sess) / 1e6:.2f} MB saved in "
+        f"{t_save:.3f} s, loaded in place (the state equal bit for bit), the "
+        f"next step's logits within {err:.3g} of max|logit| (<= 1e-6)")
+    os.remove(sess)
+    del eng
+    os.remove(path)
+    # the card against the CPU plain engine at cmp_layers: logits at the
+    # default compute (the card's decode steps take int8 activations);
+    # greedy tokens at float32 compute, where both compute one function
+    # (qmm at every M on the card), as phase 8 compares its perplexities
+    path = os.path.join(SMOKE_DIR, f"mamba_2_8b_width_q4_0_{cmp_layers}l.gguf")
+    write_mamba_gguf(path, cmp_layers, seed, **shape)
+    gpu = Engine(path, n_ctx=256, device=device)
+    cpu = Engine(path, n_ctx=256, device="cpu")
+    cmp = card_vs_cpu(gpu, cpu, prompt[:cmp_prompt], steps)
+    log(f"[mamba] card vs CPU plain engine ({cmp_layers} layers): prefill "
+        f"{cmp_prompt} tokens cosine {cmp['cos_prefill']!r} (>= 0.999); "
+        f"{steps} teacher-forced decode steps cosines "
+        f"{[round(c, 6) for c in cmp['cos_steps']]} (>= 0.99)")
+    greedy = {}
+    for cdt, (g, c) in (("bfloat16", (gpu, cpu)), ("float32", (
+            Engine(path, n_ctx=256, device=device, compute_dtype="float32"),
+            Engine(path, n_ctx=256, device="cpu",
+                   compute_dtype="float32")))):
+        greedy[cdt] = [e.generate_fast(prompt[:cmp_prompt], n_predict=17,
+                                       stop_on_eos=False)[0] for e in (g, c)]
+        if cdt == "float32":
+            verdict = greedy_parting(c, prompt[:cmp_prompt], greedy[cdt][1],
+                                     greedy[cdt][0], "mamba greedy card vs "
+                                     "CPU at float32")
+        else:
+            i, gap = parting_gap(c, prompt[:cmp_prompt], greedy[cdt][1],
+                                 greedy[cdt][0])
+            verdict = ("the same 17 tokens" if i is None else
+                       f"parted at token {i}, the CPU's top-two gap {gap!r} "
+                       "of max|logit| (not held: int8 activations)")
+        log(f"[mamba] generate_fast 17 greedy tokens, card vs CPU at "
+            f"{cdt} compute: {verdict}")
+    del gpu, cpu
+    os.remove(path)
+    out.update(cos_prefill=cmp["cos_prefill"],
+               cos_decode_min=min(cmp["cos_steps"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mamba] phase 12a {out['phase_s']:.1f} s; predicted "
+        f"{MAMBA_PREDICTIONS}; {smi}")
+    return out
+
+
+def host_ms(call, device, n: int = 3) -> float:
+    """wall_ms on the card (synchronized), the host clock on the CPU."""
+    if device.type == "cuda":
+        return wall_ms(call, n)
+    t0 = time.perf_counter()
+    call()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_llava(device, rng, smi: str, clip=CLIP_VIT_L_336,
+                lm_shape=LLAMA_7B, pinpoints=LLAVA16_PINPOINTS,
+                lm_layers: int = 2, n_predict: int = 16,
+                n_ctx: int = 4096) -> dict:
+    """Phase 12b: a full-width CLIP ViT-L/14-336 mmproj (llava-1.5's mlp
+    projector to 4096) written by tools.synth.write_clip_gguf through
+    convert_hf_clip, twice from one seed: without and with llava-v1.6's
+    image_grid_pinpoints (spatial_unpad, an image_newline); a language
+    model of lm_layers at LLaMA-7B / Vicuna-7B width with an SPM vocab.
+    The card's bf16 encode of a 336 x 336 image against the CPU's f32
+    plain encode (cosine >= MIN_CLIP_COS) and the encode times; then
+    cli.llava in process on a 336 x 336 .npy image (576 embeddings) and on
+    a 672 x 672 one through anyres, each launching flash_attention as
+    LLAVA_FLASH_UBATCHES says besides qmm and qmm_int8.
+    Returns the language model's path (phase 12c uses it)."""
+    from tpulamm_torch.cli import llava as LLAVA
+    from tpulamm_torch.models import clip as CLIP
+    t_phase = time.perf_counter()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    seed = int(rng.integers(1 << 30))
+    lm = os.path.join(SMOKE_DIR, f"llava_lm_7b_width_q4_0_{lm_layers}l.gguf")
+    write_llama_gguf(lm, lm_layers, rng, **lm_shape)
+    mm = {}
+    t0 = time.perf_counter()
+    for tag, kw in (("1.5", {}), ("1.6", dict(pinpoints=pinpoints,
+                                               merge="spatial_unpad"))):
+        mm[tag] = os.path.join(SMOKE_DIR, f"mmproj_vit_l_336_{tag}.gguf")
+        write_clip_gguf(mm[tag], seed, **clip, **kw)
+    t_write = time.perf_counter() - t0
+    base, proj = clip["image"], clip["proj_dim"]
+    n_base = (base // clip["patch"]) ** 2
+    imgs = {}
+    for side in (base, 2 * base):
+        imgs[side] = os.path.join(SMOKE_DIR, f"image_{side}.npy")
+        np.save(imgs[side], rng.integers(0, 256, (side, side, 3),
+                                         dtype=np.uint8))
+    out = {"write_s": t_write}
+    # the tower: the card's bf16 encode against the CPU's f32 plain encode
+    ccfg, cp = CLIP.load_clip(mm["1.5"], device=device)
+    pix = CLIP.preprocess_image(np.load(imgs[base]), ccfg)[None]
+    emb = CLIP.encode_image(ccfg, cp, pix)
+    out["encode_ms"] = host_ms(lambda: CLIP.encode_image(ccfg, cp, pix),
+                               device)
+    rcfg, rp = CLIP.load_clip(mm["1.5"], compute_dtype=torch.float32,
+                              device="cpu")
+    t0 = time.perf_counter()
+    ref = CLIP.encode_image(rcfg, rp, pix).numpy()
+    t_cpu = time.perf_counter() - t0
+    del rp, cp
+    cos = cosine(emb.cpu().numpy().ravel(), ref.ravel())
+    if not cos >= MIN_CLIP_COS or emb.shape != (1, n_base, proj):
+        raise AssertionError(f"CLIP: card vs CPU cosine {cos!r} (>= "
+                             f"{MIN_CLIP_COS}), shape {tuple(emb.shape)}")
+    acfg, ap = CLIP.load_clip(mm["1.6"], device=device)
+    img2 = np.load(imgs[2 * base])
+    n_any = CLIP.encode_image_anyres(acfg, ap, img2).shape[0]
+    out["anyres_ms"] = host_ms(
+        lambda: CLIP.encode_image_anyres(acfg, ap, img2), device)
+    del ap
+    log(f"[llava] CLIP ViT-L/14-336 ({ccfg.n_layers} blocks, bf16): mmproj "
+        f"files written in {t_write:.2f} s; a {base} x {base} image -> "
+        f"{tuple(emb.shape)} in {out['encode_ms']:.2f} ms wall on the card "
+        f"(CPU f32 plain encode {t_cpu:.2f} s), cosine {cos!r} (>= "
+        f"{MIN_CLIP_COS}); anyres {2 * base} x {2 * base} -> {n_any} "
+        "embeddings (canvas "
+        f"{CLIP.select_best_resolution((2 * base, 2 * base), pinpoints)}, "
+        f"spatial_unpad) in {out['anyres_ms']:.2f} ms wall with the host "
+        "preprocessing")
+    runs = {}
+    for tag, side, n_emb in (("1.5", base, n_base),
+                             ("1.6", 2 * base, n_any)):
+        reset_port_launches()
+        rc, text, err, dt = run_cli(
+            f"llava {tag}", LLAVA.main,
+            ["-m", lm, "--mmproj", mm[tag], "--image", imgs[side], "-p",
+             LLAVA_PROMPT, "-n", str(n_predict), "--temp", "0", "-c",
+             str(n_ctx), "--verbose", "--device", str(device.type)])
+        got = {k: v for k, v in port_launches().items() if v}
+        want = LLAVA_FLASH_UBATCHES[tag] * lm_layers
+        if (rc != 0 or got.get("flash_attention", 0) != want
+                or not got.get("qmm") or not got.get("qmm_int8")
+                or f"({n_emb}, {proj})" not in err):
+            raise AssertionError(f"llava {tag}: rc {rc}, launches {got} "
+                                 f"(flash_attention {want} expected), "
+                                 f"{n_emb} embeddings expected")
+        runs[tag] = {"s": dt, "launches": got, "embeds": n_emb}
+        log(f"[llava] cli.llava {tag} ({side} x {side}, {n_emb} embeddings, "
+            f"{lm_layers}-layer LLaMA-7B-width LM, n_ctx {n_ctx}): {dt:.2f} s "
+            f"in process (loads included), launches {got} (flash_attention "
+            f"{want} = {lm_layers} layers x ubatches of a bucket >= 64 at "
+            "span >= 1,024)")
+    out.update(runs=runs, lm=lm)
+    for p in (*mm.values(), *imgs.values()):
+        os.remove(p)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[llava] phase 12b {out['phase_s']:.1f} s; predicted "
+        f"{LLAVA_PREDICTIONS}; {smi}")
+    return out
+
+
+def phase_harness_tools(device, lm: str, smi: str, n_ctx: int = 8192,
+                        n_gen: int = 64) -> dict:
+    """Phase 12c: the harness tools on the card. make_bench_model
+    --targets padtest,llava (the files' tensor counts); longctx_bench in
+    process on the 2-layer LLaMA-7B-width model at n_ctx 8192 ({einsum,
+    flash} x {bf16, q8_0}, its greedy parity of flash against einsum,
+    flash_attention and flash_decode launched); preset running cli.main
+    from a YAML file; collect_results over the JSON lines of
+    tpulamm_torch.bench and the long-context rows."""
+    from tpulamm_torch import bench as BENCH
+    from tpulamm_torch.tools import collect_results as CR
+    from tpulamm_torch.tools import longctx_bench as LB
+    from tpulamm_torch.tools import make_bench_model as MB
+    from tpulamm_torch.tools import preset as PR
+    t_phase = time.perf_counter()
+    work = os.path.join(SMOKE_DIR, "harness12")
+    os.makedirs(work, exist_ok=True)
+    out = {}
+    t0 = time.perf_counter()
+    run_tool("make_bench_model", MB.main,
+             ["--out", work, "--targets", "padtest,llava"])
+    for name, n in (("padtest_q4.gguf", 2), ("llava_lm_q4.gguf", 4)):
+        with GGUFReader(os.path.join(work, name)) as r:
+            if r.metadata["llama.block_count"] != n:
+                raise AssertionError(f"make_bench_model: {name}")
+    out["make_bench_model_s"] = time.perf_counter() - t0
+    rows_path = os.path.join(work, "longctx.json")
+    reset_port_launches()
+    run_tool("longctx_bench", LB.main,
+             ["-m", lm, "--ctxs", str(n_ctx), "--n-gen", str(n_gen),
+              "--json", rows_path, "--device",
+              str(device.type)])
+    got = {k: v for k, v in port_launches().items() if v}
+    with open(rows_path) as f:
+        rows = json.load(f)
+    if (len(rows) != 4 or not got.get("flash_attention")
+            or not got.get("flash_decode")):
+        raise AssertionError(f"longctx_bench: {len(rows)} rows, launches "
+                             f"{got}")
+    out["longctx"] = rows
+    log(f"[harness12] longctx_bench n_ctx {n_ctx}: launches {got}; parity "
+        "of flash against einsum " + ", ".join(
+            f"{r['kv']} {r['parity_vs_einsum']}" for r in rows
+            if "parity_vs_einsum" in r))
+    preset = os.path.join(work, "gen.yaml")
+    with open(preset, "w") as f:
+        f.write(f"tool: main\nmodel: {lm}\nprompt: \"The quick brown fox\"\n"
+                f"n-predict: 8\ntemp: 0\ndevice: {device.type}\n")
+    reset_port_launches()
+    text = run_tool("preset", PR.main, [preset])
+    got = {k: v for k, v in port_launches().items() if v}
+    if not text.startswith("The quick brown fox") or not got.get("qmm_int8"):
+        raise AssertionError(f"preset: {text[:80]!r}, launches {got}")
+    results = os.path.join(work, "perf_results.jsonl")
+    mm = BENCH.run(device=str(device))
+    with open(results, "w") as f:
+        f.write(json.dumps({"test": "matmult", "dtype": "q4_0",
+                            "gflops": mm["gflops"], "device": mm["device"]})
+                + "\n")
+        for r in rows:
+            f.write(json.dumps({"test": "inference",
+                                "dtype": f"{r['attn']} {r['kv']}",
+                                "prompt_tps": r["pp"], "gen_tps": r["tg"],
+                                "device": mm["device"]}) + "\n")
+    table = run_tool("collect_results", CR.main, [results])
+    if ("matmul performance" not in table or table.count("| einsum ") != 2
+            or table.count("| flash ") != 2):
+        raise AssertionError("collect_results: tables missing")
+    shutil.rmtree(work)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[harness12] phase 12c {out['phase_s']:.1f} s; {smi}")
+    return out
+
+
 def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
     """One line for each decode path: tok/s (or ms a step), the profiled
     wall and device ms a step of its graph replays, beside the prediction."""
@@ -3930,6 +4383,16 @@ def main() -> int:
     done("families")
     phase_bloom(device, np.random.default_rng(SEED + 18), smi)
     done("bloom")
+    # phase 12 (slice 17), generators of their own
+    phase_mamba(device, np.random.default_rng(SEED + 21), smi)
+    done("mamba")
+    lv = phase_llava(device, np.random.default_rng(SEED + 22), smi)
+    done("llava")
+    try:
+        phase_harness_tools(device, lv["lm"], smi)
+        done("harness tools")
+    finally:
+        os.remove(lv["lm"])
     decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "

@@ -1,5 +1,5 @@
-"""The port's generic forward against the JAX one for every architecture
-the JAX package runs but mamba.
+"""The port's generic forward against the JAX one for every attention
+architecture the JAX package runs (mamba: tests/test_torch_mamba.py).
 
 - forward parity: the tiny HF models of tests/test_archs_forward.py
   (converted by the JAX convert_hf at F32) and its 8 synthetic
@@ -18,7 +18,7 @@ the JAX package runs but mamba.
 - gates: for every family of tools.synth.FAMILIES and the MoE model, the
   megakernel gate (build_mega) and the ffn_fused gate choose what the
   JAX gates choose; QKV is not fused under qk-norm (persimmon), as in the
-  JAX engine; unsupported_features names mamba only.
+  JAX engine; unsupported_features refuses no architecture.
 """
 
 import numpy as np
@@ -415,10 +415,10 @@ def test_qkv_not_fused_under_qk_norm(models):
 
 
 def test_unsupported_features_only_mamba():
+    """Since mamba came (models/mamba.py), no architecture is refused."""
     for arch in ARCH_SPECS:
         cfg = ModelConfig(arch=arch)
-        assert unsupported_features(cfg) == (
-            ["arch=mamba"] if arch == "mamba" else [])
+        assert unsupported_features(cfg) == []
     flags = ModelConfig(post_norm=True, parallel_residual=True, pos_emb=True,
                         tok_norm=True, qk_norm=True, max_alibi_bias=8.0,
                         clamp_kqv=6.0, n_expert=8, causal=False,

@@ -641,6 +641,35 @@ def test_fused_ffn_graph_logits_equal_eager_forward(dev, tiny_gguf):
 
 
 @pytest.mark.cuda
+def test_mamba_step_graph_equals_eager_steps(dev, tmp_path):
+    """A mamba engine's decode block (a captured step over the state's
+    static buffers) against the same step called eagerly from the same
+    state: the same tokens; ssm_in, ssm_out and the tied head one
+    qmm_int8 each a layer and step; the state keeps its storage."""
+    from chip_smoke import eager_block
+    from tpulamm_torch.runtime.engine import Engine
+    from tpulamm_torch.tools.synth import write_mamba_gguf
+    path = str(tmp_path / "mamba.gguf")
+    write_mamba_gguf(path, 2, 11, dim=1024, d_inner=2048, d_state=16,
+                     d_conv=4, dt_rank=64, vocab=1024)
+    eng = Engine(path, n_ctx=128, device=dev)
+    assert eng.recurrent
+    eng.prefill(0, [1, 9, 33, 4, 17, 250])
+    conv, ssm = eng.cache.conv, eng.cache.ssm
+    saved = (conv.clone(), ssm.clone(), int(eng.n_past[0]))
+    Q.reset_launches()
+    got = eng.decode_batch_fast({0: 11}, 12)[0]
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES["qmm_int8"] == (2 * 2 + 1) * 12
+    assert eng.cache.conv.data_ptr() == conv.data_ptr()
+    conv.copy_(saved[0])
+    ssm.copy_(saved[1])
+    b, tok, pos, act = eng._block_inputs({0: 11}, 12, "reference")
+    ref = eager_block(eng, "step", None, tok, pos, act, 12)
+    assert got == [int(t) for t in ref[:, 0]]
+
+
+@pytest.mark.cuda
 def test_replay_adds_the_capture_launches(dev, tiny_gguf):
     eng, toks = _slots_engine(tiny_gguf, dev, 1)
     Q.reset_launches()

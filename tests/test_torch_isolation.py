@@ -1,7 +1,10 @@
 """The port stands alone: importing every tpulamm_torch module and
 chip_smoke.py loads no jax, nothing of the tpulamm package and no
 `regex` (the JAX BPE tokenizer's dependency, absent on the GPU machine),
-and no source file of theirs imports any of them."""
+and no source file of theirs imports any of them; nor do they load
+`transformers` or `PIL`, which the GPU machine lacks too: no source
+imports either at module level (a function may, where it skips without
+them: make_bench_model's mmproj target, clip.load_image)."""
 
 import ast
 import pathlib
@@ -30,6 +33,32 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "regex") or top == "tpulamm"
 
 
+def _absent_on_card(name: str) -> bool:
+    return name.split(".")[0] in ("transformers", "PIL")
+
+
+def _import_names(node) -> list[str]:
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom):
+        return [node.module or ""]
+    return []
+
+
+def _module_level(tree):
+    """The statements run at import: the module body and what its
+    top-level if / try / with blocks hold."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        yield node
+        if isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                for sub in getattr(node, field, []):
+                    todo.extend(sub.body if isinstance(
+                        sub, ast.ExceptHandler) else [sub])
+
+
 def test_imports_load_no_jax_or_tpulamm():
     code = ("import importlib, json, sys\n"
             f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -40,22 +69,20 @@ def test_imports_load_no_jax_or_tpulamm():
     import json
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "tpulamm_torch.runtime.engine" in loaded
-    bad = [m for m in loaded if _forbidden(m)]
+    bad = [m for m in loaded if _forbidden(m) or _absent_on_card(m)]
     assert not bad, bad
 
 
 def test_sources_import_no_jax_or_tpulamm():
     bad = []
     for p in SOURCES:
-        for node in ast.walk(ast.parse(p.read_text(), str(p))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            bad += [f"{p.relative_to(ROOT)}: {n}" for n in names
+        tree = ast.parse(p.read_text(), str(p))
+        for node in ast.walk(tree):
+            bad += [f"{p.relative_to(ROOT)}: {n}" for n in _import_names(node)
                     if _forbidden(n)]
+        for node in _module_level(tree):
+            bad += [f"{p.relative_to(ROOT)}: {n} at module level"
+                    for n in _import_names(node) if _absent_on_card(n)]
     assert not bad, bad
 
 

@@ -228,11 +228,16 @@ def main(argv=None):
                 while (n < min(len(saved), len(all_tokens)) - 1
                        and saved[n] == all_tokens[n]):
                     n += 1
-                # recurrent (mamba) states, reusable only when exact: item 12
-                if n > 0:
+                if engine.recurrent and n != int(engine.n_past[0]):
+                    # a recurrent state cannot be rolled back to a shorter
+                    # prefix; only an exact-state continuation is reusable
+                    engine.reset_slot(0)
+                    gen_input = all_tokens
+                elif n > 0:
                     # keep the matching prefix's KV, re-eval the rest
                     # (prompt-cache prefix reuse, main.cpp:600-620)
-                    engine.rollback(0, n)
+                    if not engine.recurrent:
+                        engine.rollback(0, n)
                     gen_input = all_tokens[n:]
                     print(f"prompt cache: reusing {n} of "
                           f"{len(all_tokens)} prompt tokens",

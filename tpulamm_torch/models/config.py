@@ -12,8 +12,8 @@ bert, nomic-bert, bloom, stablelm, qwen, qwen2, phi2, plamo, codeshell,
 orion, internlm2, minicpm, gemma, starcoder2, mamba.
 
 Counterpart of tpulamm.models.config with a torch compute dtype. The port
-parses every architecture's metadata; models.transformer runs all of them
-but mamba, which raises.
+parses every architecture's metadata and runs all of them:
+models.transformer the attention ones, models.mamba mamba.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """GGUF model loader -> (ModelConfig, params dict) on a torch device
 (counterpart of tpulamm.models.loader) for every architecture of
-models.config but mamba.
+models.config.
 
 Quantized tensors are repacked once (quant/repack.py, numpy; the token
 embedding, the lm head and the layers in parallel threads) into the mm or
@@ -147,6 +147,17 @@ def _layer_params(tm: _TensorMap, cfg: ModelConfig, i: int) -> dict[str, Any]:
                        ("layer_out_norm", "layer_output_norm"),
                        ("ffn_norm", "ffn_norm")):
         tm.norm(out, pkey, pre + name)
+    if cfg.arch == "mamba":
+        # the SSM block (loader.py:158-170): the four projections as matmul
+        # weights (ssm_x and ssm_dt, F32 in the file, stay dense; ssm_dt's
+        # bias lands in ssm_dt_b), the conv, A and D f32
+        for pkey in ("ssm_in", "ssm_x", "ssm_dt", "ssm_out"):
+            tm.mm(out, pkey, pre + pkey, required=True)
+        for pkey in ("ssm_conv1d", "ssm_a", "ssm_d"):
+            out[pkey] = tm.f32(tm.req(pre + pkey))
+        if pre + "ssm_conv1d.bias" in tm.t:
+            out["ssm_conv1d_b"] = tm.f32(tm.t[pre + "ssm_conv1d.bias"])
+        return out
     if tm.has(pre + "attn_qkv"):
         (out["wq"], out["wk"], out["wv"]), (qi, ki, vi) = \
             _split_qkv(tm, tm.req(pre + "attn_qkv"), cfg)

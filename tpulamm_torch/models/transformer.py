@@ -1,5 +1,6 @@
-"""Generic transformer forward for every architecture of models.config
-but mamba (counterpart of tpulamm.models.transformer).
+"""Generic transformer forward for every attention architecture of
+models.config (counterpart of tpulamm.models.transformer; mamba's
+recurrent blocks are models/mamba.py, which the engine picks for it).
 
 One feature-flagged forward, as in the JAX package, with the axes of the
 reference's per-arch graph functions (build_*, llama.cpp:5708-8308):
@@ -58,9 +59,9 @@ Params = dict[str, Any]
 
 
 def unsupported_features(cfg: ModelConfig) -> list[str]:
-    """Structural features of cfg this forward does not run: mamba's
-    recurrent blocks (models/mamba.py, ROADMAP queue 1 item 12)."""
-    return [f"arch={cfg.arch}"] if cfg.arch == "mamba" else []
+    """Structural features of cfg the port does not run: none since mamba
+    (models/mamba.py) came; the loader asks before it reads a tensor."""
+    return []
 
 
 def _proj(x: torch.Tensor, w, cfg: ModelConfig, bias=None) -> torch.Tensor:
@@ -297,7 +298,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, cache: KVCache,
             slots: int | torch.Tensor | None, cells: torch.Tensor,
             kv_span: int | None = None, t_bucket: int | None = None,
-            segs: torch.Tensor | None = None
+            segs: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, KVCache]:
     """tokens/positions/cells: (B, T); slots: (B,) slot ids, the slot of a
     one-row batch as an int, or None for the first B slots; t_bucket: the
@@ -306,12 +308,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     (lo | hi << 16) of the tokens, written to the cache's segment plane
     and masking attention (None: all 0, the main sequence) -> (logits (B, T, vocab) f32, cache updated
     in place); without params["output"] (embedding models such as bert)
-    the final hidden states (B, T, dim) f32 take the logits' place."""
-    missing = unsupported_features(cfg)
-    if missing:
-        raise NotImplementedError(f"forward features not ported yet: "
-                                  f"{missing} (ROADMAP queue 1)")
-    h = embed(params, cfg, tokens)
+    the final hidden states (B, T, dim) f32 take the logits' place.
+    embeds (B, T, dim), when given, replaces the token-embedding lookup:
+    the reference's llama_batch.embd input (llama.cpp:8530-8537), through
+    which llava splices projected image embeddings into the stream."""
+    h = (embeds.to(cfg.cdtype) if embeds is not None
+         else embed(params, cfg, tokens))
     angles = (rope_angles(cfg.rope, positions) if cfg.rope.kind != "none"
               else None)
     if cfg.emb_scale != 1.0:

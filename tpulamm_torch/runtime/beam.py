@@ -37,7 +37,8 @@ class Beam:
 def beam_search(engine, prompt, *, n_beams: int = 4, n_predict: int = 64,
                 slot_base: int = 0) -> tuple[list[int], float]:
     """Returns (best token sequence, length-normalized logprob)."""
-    # recurrent (mamba) state, whose forks the JAX search refuses: item 12
+    assert not engine.recurrent or n_beams == 1, \
+        "beam forking needs copyable state"
     assert slot_base + n_beams <= engine.n_slots, \
         f"beam search needs {n_beams} slots (engine has {engine.n_slots})"
     if isinstance(prompt, str):

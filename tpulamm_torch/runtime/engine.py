@@ -35,7 +35,15 @@
   runs eagerly after each replay of the forward's graph); move_slot
   renumbers a slot (the server keeps active slots a low prefix)
 - embed runs the forward without the lm head over a slot's ubatches and
-  pools the final-norm hidden states (the server's /embedding)
+  pools the final-norm hidden states (the server's /embedding);
+  eval_embeds feeds precomputed input embeddings (llava's image) in
+  n_ubatch chunks at their exact length, with the prefill's kernel choice
+- a recurrent model (mamba, models.mamba) carries a MambaState of per-slot
+  conv and SSM rows in place of the KV cache, as the JAX engine's
+  `recurrent` branches do: no cells, no span, no context shift; rollback
+  and position surgery raise; its decode blocks are step graphs over the
+  state's static buffers; the megakernel, the sampled block, eval_embeds,
+  eval_segmented and speculation are refused
 - speculation (runtime.speculative, spec_tree, lookahead): eval_tokens
   (the verify of the host loops), eval_segmented (a compound batch with
   packed segment ranges, the einsum attention with the segment mask), and
@@ -63,6 +71,7 @@ import numpy as np
 import torch
 
 from tpulamm_torch.grammar.engine import Grammar
+from tpulamm_torch.models import mamba
 from tpulamm_torch.models.llama import forward
 from tpulamm_torch.models.loader import AbortError, load_model
 from tpulamm_torch.ops import device_sampling as ds
@@ -181,12 +190,18 @@ class Engine:
             return (getattr(torch, t) if isinstance(t, str) else t), None
         kd, qk = storage(kv_dtype)
         vd, qv = storage(kv_dtype if kv_dtype_v is None else kv_dtype_v)
-        # cell n_ctx is the trash cell for padding rows
-        self.cache = KVCache.create(
-            self.cfg.n_layers, n_slots, n_ctx + 1, self.cfg.n_kv_heads,
-            self.cfg.head_dim, dtype=kd or torch.bfloat16,
-            dtype_v=vd or torch.bfloat16, qtype_k=qk, qtype_v=qv,
-            device=self.device)
+        # recurrent archs (mamba) carry an SSM state instead of a KV cache
+        self.recurrent = self.cfg.arch == "mamba"
+        if self.recurrent:
+            self.cache = mamba.MambaState.create(self.cfg, n_slots,
+                                                 self.device)
+        else:
+            # cell n_ctx is the trash cell for padding rows
+            self.cache = KVCache.create(
+                self.cfg.n_layers, n_slots, n_ctx + 1, self.cfg.n_kv_heads,
+                self.cfg.head_dim, dtype=kd or torch.bfloat16,
+                dtype_v=vd or torch.bfloat16, qtype_k=qk, qtype_v=qv,
+                device=self.device)
         # host mirror of the cache's cell positions: cell allocation
         # (llama_kv_cache_find_slot, llama.cpp:2207) needs no device sync
         self.n_past = np.zeros(n_slots, np.int64)
@@ -256,10 +271,11 @@ class Engine:
 
     def _build_mega(self):
         """The decode megakernel's operands when the model and cache
-        qualify (engine.py:196-203 of the JAX package): a bf16 cache, an
-        output head and out_norm, no out_norm bias; else None."""
+        qualify (engine.py:196-203 of the JAX package): not recurrent, a
+        bf16 cache, an output head and out_norm, no out_norm bias; else
+        None."""
         c, p = self.cache, self.params
-        if (c.ks is not None or c.vs is not None
+        if (self.recurrent or c.ks is not None or c.vs is not None
                 or c.k[0].dtype != torch.bfloat16
                 or c.v[0].dtype != torch.bfloat16
                 or p.get("output") is None or p.get("out_norm") is None
@@ -287,13 +303,20 @@ class Engine:
         return self._token_pieces
 
     # -- low-level ubatch execution ------------------------------------------
+    def _model_forward(self):
+        """The forward of this engine's family: models.mamba's for a
+        recurrent model, else this module's `forward` (looked up at each
+        call, so a test can substitute it)."""
+        return mamba.forward if self.recurrent else forward
+
     def _kv_span(self, need: int) -> int | None:
         """Attention-span bucket of a forward: _occupied_span(need), so
         attention reads only span cells. None (the full cache) on a
         megakernel engine, as in the JAX one (engine.py:451): its prefill,
         decode_one and decode_batch then make the JAX kernel choice;
-        _mega_step keeps its own span view."""
-        if self.mega is not None:
+        _mega_step keeps its own span view. None for a recurrent model: it
+        has no KV span (engine.py:451)."""
+        if self.mega is not None or self.recurrent:
             return None
         return self._occupied_span(need)
 
@@ -315,8 +338,9 @@ class Engine:
         not streamed every step. None = the full batch. The slots=None
         forward reads and writes the FIRST B cache rows, so no renumbering
         is needed while slots are assigned lowest-free first. The
-        megakernel engine keeps the full batch, as the JAX one does."""
-        if self.mega is not None:
+        megakernel and recurrent engines keep the full batch, as the JAX
+        ones do."""
+        if self.mega is not None or self.recurrent:
             return None
         hi = max(ids) + 1
         b = 1 << (hi - 1).bit_length() if hi > 1 else 1
@@ -339,25 +363,26 @@ class Engine:
         return next(b for b in PREFILL_BUCKETS if b >= t)
 
     def _step(self, tok: np.ndarray, pos: np.ndarray, cel: np.ndarray,
-              slot: int, params=None, segs: np.ndarray | None = None
-              ) -> torch.Tensor:
+              slot: int, params=None, segs: np.ndarray | None = None,
+              embeds: np.ndarray | None = None) -> torch.Tensor:
         """One eager forward over one slot's (1, T) prefill ubatch; returns
         device logits, or hidden states where `params` (default the
         engine's) lack the lm head (decode steps replay graphs: _graph).
-        segs: (1, T) packed segment ranges (eval_segmented)."""
+        segs: (1, T) packed segment ranges (eval_segmented); embeds: (1, T,
+        dim) input embeddings in place of the tokens' (eval_embeds)."""
         n = tok.shape[1]
         # one host-to-device copy for tokens, positions, cells (and segs)
         rows = [tok, pos, cel] + ([] if segs is None else [segs])
         host = torch.from_numpy(np.stack(rows).astype(np.int64))
         t, p, c, *sg = host.to(self.device)
+        kw = {} if embeds is None else {"embeds": torch.from_numpy(
+            np.array(embeds, np.float32)).to(self.device)}
         with torch.no_grad():
-            logits, self.cache = forward(self.params if params is None
-                                         else params, self.cfg, t, p,
-                                         self.cache, slot, c,
-                                         kv_span=self._kv_span(0),
-                                         t_bucket=(self._bucket_for(n)
-                                                   if n > 1 else 1),
-                                         segs=sg[0] if sg else None)
+            logits, self.cache = self._model_forward()(
+                self.params if params is None else params, self.cfg, t, p,
+                self.cache, slot, c, kv_span=self._kv_span(0),
+                t_bucket=self._bucket_for(n) if n > 1 else 1,
+                segs=sg[0] if sg else None, **kw)
         return logits
 
     def _run_device(self, slot: int, tokens: np.ndarray,
@@ -375,7 +400,10 @@ class Engine:
         return logits.cpu().numpy()
 
     def _cells_for(self, slot: int, n: int, positions: np.ndarray) -> np.ndarray:
-        """Allocate n free cells (host mirror of llama_kv_cache_find_slot)."""
+        """Allocate n free cells (host mirror of llama_kv_cache_find_slot);
+        a recurrent state has none (zeros)."""
+        if self.recurrent:
+            return np.zeros(n, np.int32)
         free = np.flatnonzero(self.cell_pos[slot] < 0)
         if len(free) < n:
             raise RuntimeError(
@@ -388,7 +416,10 @@ class Engine:
 
     # -- public API ------------------------------------------------------------
     def reset_slot(self, slot: int):
-        self.seq_rm(slot)
+        if self.recurrent:
+            self.cache.reset_slot(slot)
+        else:
+            self.seq_rm(slot)
         self.n_past[slot] = 0
         self.cell_pos[slot] = -1
         self.ga_i[slot] = 0
@@ -474,6 +505,7 @@ class Engine:
         lookahead decoding. Cells are allocated as for any ubatch; n_past
         does not move. The forward takes the einsum attention with the
         segment mask."""
+        assert not self.recurrent, "segmented eval needs attention"
         t = len(tokens)
         positions = np.asarray(positions, np.int32)
         cells = self._cells_for(slot, t, positions)
@@ -481,6 +513,30 @@ class Engine:
                             positions[None], cells[None], int(slot),
                             segs=np.asarray(segs, np.int32)[None])
         return logits[0].cpu().numpy()
+
+    def eval_embeds(self, slot: int, embeds: np.ndarray) -> np.ndarray:
+        """Feed precomputed input embeddings (T, dim) in place of token ids
+        -- the reference's llama_batch.embd path (llama.cpp:8530-8537,
+        llava.cpp:llava_eval_image_embed; engine.py:766-812 of the JAX
+        package): n_ubatch chunks, each at its exact length with the
+        prefill's kernel choice, advancing n_past. Returns the final
+        position's logits."""
+        assert not self.recurrent, "embedding injection needs attention"
+        t0 = time.perf_counter()
+        embeds = np.asarray(embeds, np.float32)
+        out = None
+        for off in range(0, len(embeds), self.n_ubatch):
+            chunk = embeds[off:off + self.n_ubatch]
+            t = len(chunk)
+            pos = (self.n_past[slot] + np.arange(t)).astype(np.int32)
+            cells = self._cells_for(slot, t, pos)
+            logits = self._step(np.zeros((1, t), np.int32), pos[None],
+                                cells[None], int(slot), embeds=chunk[None])
+            self.n_past[slot] += t
+            out = logits[0, t - 1].cpu().numpy()
+        self.timings.t_eval += time.perf_counter() - t0
+        self.timings.n_eval += len(embeds)
+        return out
 
     # -- decode steps: the step graphs (runtime.decode_graph) ----------------
     def _graph(self, path: str, B: int, span, slots, sampler) -> dg.StepGraph:
@@ -502,8 +558,8 @@ class Engine:
                 body = dg.mega_step(self, mega_decode_layers, bufs, span,
                                     slots, sample)
             else:
-                body = dg.forward_step(self, forward, bufs, span, slots,
-                                       sample)
+                body = dg.forward_step(self, self._model_forward(), bufs,
+                                       span, slots, sample)
             return bufs, body, gen
         return self.graphs.get((path, B, span, slots, sampler), make)
 
@@ -591,12 +647,13 @@ class Engine:
 
     # -- multi-token decode blocks (the serving path) -------------------------
     def _block_inputs(self, toks: dict[int, int], n_steps: int, name: str):
-        """The guards of a decode block (contiguous cells, room for
-        n_steps + 1 more), then (B, tok, pos, act) host arrays over the
-        _b_rows bucket."""
+        """The guards of a decode block (contiguous cells but for a
+        recurrent state, room for n_steps + 1 more), then (B, tok, pos,
+        act) host arrays over the _b_rows bucket."""
         for s in toks:
             n = int(self.n_past[s])
-            if not np.array_equal(self.cell_pos[s, :n], np.arange(n)):
+            if not self.recurrent and not np.array_equal(
+                    self.cell_pos[s, :n], np.arange(n)):
                 raise ValueError(f"slot {s}: cells not contiguous; "
                                  "use decode_batch")
             if n + n_steps + 1 > self.n_ctx:
@@ -619,8 +676,9 @@ class Engine:
         for s in toks:
             start = int(self.n_past[s])
             self.n_past[s] = start + n_steps
-            self.cell_pos[s, start:start + n_steps] = np.arange(
-                start, start + n_steps)
+            if not self.recurrent:
+                self.cell_pos[s, start:start + n_steps] = np.arange(
+                    start, start + n_steps)
             res[s] = [int(t) for t in out[:, s]]
         self.timings.t_eval += time.perf_counter() - t0
         self.timings.n_eval += n_steps * len(toks)
@@ -665,7 +723,10 @@ class Engine:
         samplers: {slot: runtime.sampling.Sampler} supplies per-slot
         params and the penalty history (Sampler.prev). The caller must
         accept() the returned tokens into each Sampler to keep host state
-        canonical for the next block."""
+        canonical for the next block. Refused for a recurrent model, as
+        in the JAX engine."""
+        if self.recurrent:
+            raise ValueError("sampled fast path: non-recurrent engines only")
         b, tok, pos, act = self._block_inputs(toks, n_steps,
                                               "decode_batch_sampled")
         t0 = time.perf_counter()
@@ -699,18 +760,31 @@ class Engine:
         return self._finish_block(toks, n_steps, out.cpu().numpy(), t0)
 
     def rollback(self, slot: int, n_past: int):
-        """Drop KV cells at positions >= n_past."""
+        """Drop KV cells at positions >= n_past. A recurrent state cannot
+        be rolled back (NotImplementedError)."""
+        if self.recurrent:
+            raise NotImplementedError("cannot roll back a recurrent state")
         self.seq_rm(slot, int(n_past))
         self.n_past[slot] = n_past
 
+    def _no_surgery(self):
+        if self.recurrent:
+            raise NotImplementedError("position surgery on a recurrent "
+                                      "(mamba) state; use reset_slot")
+
     def seq_rm(self, slot: int, p0: int = 0, p1: int = kv.INT32_MAX):
+        self._no_surgery()
         kv.seq_rm(self.cache, slot, p0, p1)
         cp = self.cell_pos[slot]
         cp[(cp >= p0) & (cp < p1)] = -1
 
     def seq_cp(self, src: int, dst: int):
-        """Copy a slot's KV cells and host state to another slot."""
-        kv.seq_cp(self.cache, src, dst)
+        """Copy a slot's KV cells (or recurrent rows) and host state to
+        another slot."""
+        if self.recurrent:
+            self.cache.copy_slot(src, dst)
+        else:
+            kv.seq_cp(self.cache, src, dst)
         self.n_past[dst] = self.n_past[src]
         self.cell_pos[dst] = self.cell_pos[src]
         self.ga_i[dst] = self.ga_i[src]
@@ -726,6 +800,7 @@ class Engine:
         self.reset_slot(src)
 
     def seq_add(self, slot: int, p0: int, p1: int, delta: int):
+        self._no_surgery()
         kv.seq_add(self.cache, slot, p0, p1, delta, self.cfg.rope)
         cp = self.cell_pos[slot]
         m = (cp >= p0) & (cp < p1)
@@ -733,6 +808,7 @@ class Engine:
         cp[m & (cp < 0)] = -1
 
     def seq_div(self, slot: int, p0: int, p1: int, d: int):
+        self._no_surgery()
         kv.seq_div(self.cache, slot, p0, p1, d, self.cfg.rope)
         cp = self.cell_pos[slot]
         m = (cp >= p0) & (cp < p1)
@@ -740,6 +816,8 @@ class Engine:
 
     # -- context management (main.cpp:540-598) --------------------------------
     def _maybe_shift(self, slot: int):
+        if self.recurrent:               # unbounded context; nothing to shift
+            return
         if self.grp_attn_n > 1:
             self._self_extend(slot)
             return
@@ -756,7 +834,10 @@ class Engine:
 
     def defrag(self):
         """Compact live cells to the front of every slot, keeping their
-        order, and the host cell mirror with them."""
+        order, and the host cell mirror with them (nothing for a recurrent
+        state)."""
+        if self.recurrent:
+            return
         kv.defrag(self.cache)
         for row in self.cell_pos:
             live = row[row >= 0]
@@ -791,8 +872,9 @@ class Engine:
     # -- speculative serving blocks (engine.py:1343-1517 of the JAX
     # package; the cycles are runtime.speculative's captured graphs) ------
     def _spec_preflight(self, slot: int, k: int) -> int:
-        if self.mega is not None:
-            raise ValueError("speculation: plain engines only")
+        if self.mega is not None or self.recurrent:
+            raise ValueError("speculation: plain, non-recurrent engines "
+                             "only")
         n = int(self.n_past[slot])
         if not np.array_equal(self.cell_pos[slot, :n], np.arange(n)):
             raise ValueError(f"slot {slot}: cells not contiguous")
@@ -852,9 +934,9 @@ class Engine:
     def attach_draft(self, draft) -> None:
         """Attach a draft Engine for spec_draft_block (server
         --model-draft)."""
-        if draft.n_slots != 1 or draft.mega is not None:
-            raise ValueError("draft engine must be single-slot, without "
-                             "the megakernel")
+        if draft.n_slots != 1 or draft.mega is not None or draft.recurrent:
+            raise ValueError("draft engine must be single-slot, "
+                             "non-recurrent, without the megakernel")
         self.draft = draft
         self._draft_synced: list[int] | None = None
 
@@ -907,7 +989,14 @@ class Engine:
         holds the returned tokens, all but the last where the output
         filled the blocks exactly. The megakernel serves a one-slot engine
         (engine.py:1538-1544). Needs a fresh slot (it is reset). Returns
-        (token_ids, text)."""
+        (token_ids, text).
+
+        A recurrent state cannot be rolled back, where the JAX engine's
+        rollback after an over-running block raises: its blocks run exactly
+        the steps still wanted (the same step graph, replayed fewer times),
+        and a block whose EOS comes before its last step is run again from
+        a copy of the slot's rows taken before it, up to the EOS, so the
+        state and n_past hold the returned tokens."""
         tokens = self._encode(prompt)
         self.reset_slot(slot)
         logits = self.prefill(slot, tokens)
@@ -921,13 +1010,23 @@ class Engine:
         while len(out) < n_predict and not (stop_on_eos and eos in out):
             if self.abort_callback is not None and self.abort_callback():
                 break                  # the partial output; the slot is valid
-            n = dg.pick_block(n_predict - len(out),
-                              self.n_ctx - int(self.n_past[slot]) - 1)
+            room = self.n_ctx - int(self.n_past[slot]) - 1
+            n = (min(n_predict - len(out), dg.DECODE_BUCKETS[-1], room)
+                 if self.recurrent else
+                 dg.pick_block(n_predict - len(out), room))
             if n <= 0:
                 break                  # context full: no shift, as in JAX
             startb = int(self.n_past[slot])
+            rows = (self.cache.save_slot(slot)
+                    if self.recurrent and stop_on_eos else None)
             toks = self._block(path, int(slot), [out[-1]], [startb], [1], n,
                                [temp], top_k, seed + len(out))
+            if rows is not None and eos in toks[:-1, 0]:
+                # the same seed repeats the block's draws up to the EOS
+                n = int(np.flatnonzero(toks[:, 0] == eos)[0]) + 1
+                self.cache.restore_slot(slot, rows)
+                toks = self._block(path, int(slot), [out[-1]], [startb], [1],
+                                   n, [temp], top_k, seed + len(out))
             self.n_past[slot] = startb + n
             self.cell_pos[slot, startb:startb + n] = np.arange(startb,
                                                                startb + n)
@@ -937,7 +1036,7 @@ class Engine:
         if stop_on_eos and eos in out:
             out = out[:out.index(eos)]
         target = start0 + min(len(out), total_written)
-        if target != int(self.n_past[slot]):
+        if target != int(self.n_past[slot]) and not self.recurrent:
             self.rollback(slot, target)
         self.timings.t_eval += time.perf_counter() - t0
         self.timings.n_eval += len(out)

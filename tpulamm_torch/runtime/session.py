@@ -14,7 +14,9 @@ per-layer (B, H_kv, S, D) K/V stacked to (L, ...), bf16 stored as its
 uint16 bits, k_dtype / v_dtype as numpy-style names ("bfloat16", "int8",
 "float32"), ks / vs row scales for a q8_0 cache, pos, seg (the packed
 segment plane of lookahead and tree speculation), n_past, cell_pos,
-ga_i, tokens and meta.
+ga_i, tokens and meta. A recurrent (mamba) engine's file has the magic
+MAGIC + "-recurrent" and its state's conv and ssm (L, n_slots, ...) f32
+arrays with n_past and tokens, as the JAX package writes it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ import torch
 from tpulamm_torch.runtime.kvcache import KVCache
 
 MAGIC = "tpulamm-session-v2"   # v2: KV buffers are head-major (B, H, S, D)
-# recurrent (mamba) state files, MAGIC + "-recurrent": ROADMAP item 12
 
 
 def _np_dtype_name(dt: torch.dtype) -> str:
@@ -43,6 +44,14 @@ def _stack(bufs: list) -> np.ndarray:
 
 def save_session(path: str, engine, tokens: list[int] | None = None) -> None:
     cache = engine.cache
+    toks = np.asarray(tokens if tokens is not None else [], np.int32)
+    if engine.recurrent:
+        with open(path, "wb") as fh:
+            np.savez(fh, magic=np.array(MAGIC + "-recurrent"),
+                     conv=cache.conv.cpu().numpy(),
+                     ssm=cache.ssm.cpu().numpy(), n_past=engine.n_past,
+                     tokens=toks)
+        return
     extra = {}
     if cache.ks is not None:
         extra["ks"] = _stack(cache.ks)
@@ -67,7 +76,7 @@ def save_session(path: str, engine, tokens: list[int] | None = None) -> None:
             n_past=engine.n_past,
             cell_pos=engine.cell_pos,
             ga_i=engine.ga_i,
-            tokens=np.asarray(tokens if tokens is not None else [], np.int32),
+            tokens=toks,
             meta=np.array(json.dumps({
                 "n_ctx": engine.n_ctx, "n_slots": engine.n_slots,
                 "arch": engine.cfg.arch, "dim": engine.cfg.dim,
@@ -90,8 +99,20 @@ def load_session(path: str, engine) -> list[int]:
     """Restore engine state in place; returns the saved token history."""
     z = np.load(path, allow_pickle=False)
     if str(z["magic"]) == MAGIC + "-recurrent":
-        raise NotImplementedError(f"{path}: a recurrent (mamba) state; "
-                                  "other model families: ROADMAP item 12")
+        st = engine.cache
+        if (not engine.recurrent or z["conv"].shape != tuple(st.conv.shape)
+                or z["ssm"].shape != tuple(st.ssm.shape)):
+            raise ValueError(f"{path}: a recurrent state of conv "
+                             f"{z['conv'].shape}, ssm {z['ssm'].shape} does "
+                             "not fit this engine")
+        # in place: the captured step graphs read these buffers
+        st.conv.copy_(torch.from_numpy(z["conv"]))
+        st.ssm.copy_(torch.from_numpy(z["ssm"]))
+        engine.n_past = z["n_past"].copy()
+        return [int(t) for t in z["tokens"]]
+    if engine.recurrent:
+        raise ValueError(f"{path}: a KV-cache state does not fit a "
+                         "recurrent engine")
     if str(z["magic"]) != MAGIC:
         raise ValueError(f"{path}: not a tpulamm session file")
     meta = json.loads(str(z["meta"]))

@@ -236,10 +236,10 @@ def generate_speculative_tree(target, draft, prompt, *,
     tokens plain greedy decoding would. Returns (token_ids, text,
     SpecStats)."""
     for eng, name in ((target, "target"), (draft, "draft")):
-        if eng.mega is not None or eng.n_slots != 1:
+        if eng.mega is not None or eng.n_slots != 1 or eng.recurrent:
             raise ValueError(
-                f"{name} engine must be single-slot, without the "
-                "megakernel, for on-device tree speculation")
+                f"{name} engine must be single-slot, non-recurrent, "
+                "without the megakernel, for on-device tree speculation")
     if n_seq_dft < 2:
         raise ValueError("n_seq_dft must be >= 2 (use the chain path "
                          "generate_speculative_fast for single-branch)")

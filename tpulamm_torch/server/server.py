@@ -323,7 +323,8 @@ class Scheduler(threading.Thread):
         # shift happened: cells contiguous, n_past == len(hist)). The
         # shared system prefix is reused even without cache_prompt.
         common = 0
-        if (req.cache_prompt or self.system_tokens) and slot.hist:
+        if ((req.cache_prompt or self.system_tokens) and slot.hist
+                and not eng.recurrent):
             n_hist = len(slot.hist)
             if (int(eng.n_past[i]) == n_hist and np.array_equal(
                     eng.cell_pos[i, :n_hist], np.arange(n_hist))):
@@ -545,11 +546,13 @@ class Scheduler(threading.Thread):
 
     # -- the speculative tiers (server.py:553-715 of the JAX package) -----
     def _spec_ready(self, i: int, k: int) -> bool:
-        """Slot i can take a speculation block: its history is what the
-        engine holds, in contiguous cells, with room for a cycle."""
+        """Slot i can take a speculation block: the engine is not
+        recurrent, its history is what the engine holds, in contiguous
+        cells, with room for a cycle."""
         eng = self.engine
         n = int(eng.n_past[i])
-        return (len(self.slots[i].hist) == n and n + k + 1 <= eng.n_ctx
+        return (not eng.recurrent and len(self.slots[i].hist) == n
+                and n + k + 1 <= eng.n_ctx
                 and np.array_equal(eng.cell_pos[i, :n], np.arange(n)))
 
     def _count_spec(self, drafted: int, accepted: int,
@@ -680,10 +683,10 @@ class Scheduler(threading.Thread):
         bucket (one KV-row copy per migration). This trades away the
         target slot's cached prompt prefix (cache_prompt), which is worth
         strictly less than streaming idle KV rows on every step. A
-        megakernel engine keeps the full batch (_b_rows), so nothing
-        moves there."""
+        megakernel or recurrent engine keeps the full batch (_b_rows), so
+        nothing moves there."""
         eng = self.engine
-        if eng.mega is not None:
+        if eng.mega is not None or eng.recurrent:
             return
         while True:
             busy = [i for i, s in enumerate(self.slots)
@@ -774,7 +777,8 @@ class Scheduler(threading.Thread):
             # second tier: the full device sampler chain (penalties +
             # default queue) -- covers the OpenAI-default request shape
             # that would otherwise take the per-token host loop
-            if (self._block_ok(active, fast_chain_eligible)
+            if (not self.engine.recurrent
+                    and self._block_ok(active, fast_chain_eligible)
                     and self._run_sampled_block(active)):
                 with self.metrics.lock:
                     self.metrics.fast_blocks += 1

@@ -8,12 +8,17 @@ Writers: `write_llama_gguf` (LLaMA shape, Q4_0 or F32),
 `write_mixtral_gguf` (LLaMA with GQA and top-k MoE experts, Q4_0, an F32
 router) and `write_family_gguf` (one small model of each architecture
 family in FAMILIES, with the JAX loader's per-arch tensor names), with
-synthetic SPM, BPE (`bpe_vocab`) and WPM (`wpm_vocab`) vocabularies.
+synthetic SPM, BPE (`bpe_vocab`) and WPM (`wpm_vocab`) vocabularies; and,
+through tools.convert_hf from HF-named state dicts drawn a tensor at a
+time, `write_mamba_gguf` (a Mamba checkpoint) and `write_clip_gguf` (a
+CLIP vision tower with a llava projector, an mmproj).
 """
 
 from __future__ import annotations
 
+import zlib
 from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -403,3 +408,137 @@ def _add_vocab(w: GGUFWriter, kind: str, n_vocab: int) -> None:
     w.add_kv("tokenizer.ggml.eos_token_id", voc["eos"])
     if "unk" in voc:
         w.add_kv("tokenizer.ggml.unknown_token_id", voc["unk"])
+
+
+class LazyStateDict:
+    """A read-only state dict whose tensors are drawn when read: name ->
+    fn(rng) with an rng seeded by (seed, crc32(name)), so a tensor does not
+    depend on the order of reads and the f32 source of a large model is
+    never whole in memory (the converter quantizes one tensor at a time)."""
+
+    def __init__(self, makers: dict, seed: int):
+        self.makers = makers
+        self.seed = seed
+
+    def __contains__(self, name) -> bool:
+        return name in self.makers
+
+    def __getitem__(self, name) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, zlib.crc32(name.encode())))
+        return np.asarray(self.makers[name](rng), np.float32)
+
+
+def _normal(shape, std):
+    return lambda rng: rng.standard_normal(shape, np.float32) * std
+
+
+def _const(shape, value):
+    return lambda rng: np.full(shape, value, np.float32)
+
+
+def write_mamba_gguf(path: str, n_layers: int, seed: int, dim: int,
+                     d_inner: int, d_state: int, d_conv: int, dt_rank: int,
+                     vocab: int, qtype=GGMLType.Q4_0) -> None:
+    """A Mamba GGUF through convert_hf.convert_mamba, the tied head (no
+    lm_head), from a state dict of HF MambaForCausalLM names drawn as that
+    model initializes them: projections N(0, 0.02), but out_proj N(0,
+    0.2 / sqrt(n_layers)) (at 0.02 the mixers' updates are small beside
+    the tied embedding, and greedy decoding repeats its input token);
+    dt_proj weight uniform in +-dt_rank^-0.5 and its bias the inverse
+    softplus of dt log-uniform in [1e-3, 1e-1], A_log = log(1..d_state),
+    D = 1, the conv uniform in +-d_conv^-0.5, norms 1.
+    qtype quantizes every 2-D weight the converter quantizes (in_proj,
+    out_proj, the embedding)."""
+    from tpulamm_torch.tools.convert_hf import convert_mamba
+
+    def dt_bias(rng):
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), d_inner))
+        return dt + np.log(-np.expm1(-dt))
+
+    a_log = np.log(np.arange(1, d_state + 1, dtype=np.float32))
+    mk = {"backbone.embeddings.weight": _normal((vocab, dim), 0.02),
+          "backbone.norm_f.weight": _const((dim,), 1.0)}
+    for i in range(n_layers):
+        h = f"backbone.layers.{i}."
+        mk.update({
+            h + "norm.weight": _const((dim,), 1.0),
+            h + "mixer.in_proj.weight": _normal((2 * d_inner, dim), 0.02),
+            h + "mixer.conv1d.weight": lambda rng: rng.uniform(
+                -d_conv ** -0.5, d_conv ** -0.5, (d_inner, 1, d_conv)),
+            h + "mixer.conv1d.bias": lambda rng: rng.uniform(
+                -d_conv ** -0.5, d_conv ** -0.5, d_inner),
+            h + "mixer.x_proj.weight": _normal(
+                (dt_rank + 2 * d_state, d_inner), 0.02),
+            h + "mixer.dt_proj.weight": lambda rng: rng.uniform(
+                -dt_rank ** -0.5, dt_rank ** -0.5, (d_inner, dt_rank)),
+            h + "mixer.dt_proj.bias": dt_bias,
+            h + "mixer.A_log": lambda rng: np.broadcast_to(
+                a_log, (d_inner, d_state)),
+            h + "mixer.D": _const((d_inner,), 1.0),
+            h + "mixer.out_proj.weight": _normal(
+                (dim, d_inner), 0.2 / np.sqrt(n_layers)),
+        })
+    cfg = SimpleNamespace(
+        model_type="mamba", hidden_size=dim, num_hidden_layers=n_layers,
+        intermediate_size=d_inner, state_size=d_state, conv_kernel=d_conv,
+        time_step_rank=dt_rank, vocab_size=vocab, layer_norm_epsilon=1e-5)
+    convert_mamba(LazyStateDict(mk, seed), cfg, path, qtype=qtype)
+
+
+# llava-v1.6-vicuna-7b's config.json image_grid_pinpoints, flattened
+LLAVA16_PINPOINTS = (336, 672, 672, 336, 672, 672, 1008, 336, 336, 1008)
+
+
+def write_clip_gguf(path: str, seed: int, hidden: int, n_heads: int,
+                    n_layers: int, ffn: int, image: int, patch: int,
+                    proj_dim: int, skip_last: int = 1,
+                    pinpoints: tuple = (), merge: str | None = None) -> None:
+    """An mmproj GGUF through convert_hf.convert_hf_clip: a CLIP vision
+    tower (quick_gelu) with llava-1.5's `mlp` projector to proj_dim, from
+    a state dict of HF CLIPVisionModel names (weights N(0, 0.02), biases
+    N(0, 0.01), the class and position embeddings N(0, 0.02), norms 1);
+    the last skip_last blocks are not written (llava's
+    vision_feature_layer -2). pinpoints / merge: llava-1.6's anyres keys,
+    with an image_newline of N(0, 0.02) under "spatial_unpad"."""
+    from tpulamm_torch.tools.convert_hf import convert_hf_clip
+    pre = "vision_model."
+    n_pos = (image // patch) ** 2 + 1
+    mk = {pre + "embeddings.patch_embedding.weight": _normal(
+              (hidden, 3, patch, patch), 0.02),
+          pre + "embeddings.class_embedding": _normal((hidden,), 0.02),
+          pre + "embeddings.position_embedding.weight": _normal(
+              (n_pos, hidden), 0.02),
+          pre + "pre_layrnorm.weight": _const((hidden,), 1.0),
+          pre + "pre_layrnorm.bias": _const((hidden,), 0.0)}
+    shapes = {"self_attn.q_proj": (hidden, hidden),
+              "self_attn.k_proj": (hidden, hidden),
+              "self_attn.v_proj": (hidden, hidden),
+              "self_attn.out_proj": (hidden, hidden),
+              "mlp.fc1": (ffn, hidden), "mlp.fc2": (hidden, ffn)}
+    for i in range(n_layers - skip_last):
+        h = f"{pre}encoder.layers.{i}."
+        for name, shape in shapes.items():
+            mk[h + name + ".weight"] = _normal(shape, 0.02)
+            mk[h + name + ".bias"] = _normal((shape[0],), 0.01)
+        for ln in ("layer_norm1", "layer_norm2"):
+            mk[h + ln + ".weight"] = _const((hidden,), 1.0)
+            mk[h + ln + ".bias"] = _const((hidden,), 0.0)
+    sd = LazyStateDict(mk, seed)
+    proj = LazyStateDict({
+        "multi_modal_projector.linear_1.weight": _normal(
+            (proj_dim, hidden), 0.02),
+        "multi_modal_projector.linear_1.bias": _normal((proj_dim,), 0.01),
+        "multi_modal_projector.linear_2.weight": _normal(
+            (proj_dim, proj_dim), 0.02),
+        "multi_modal_projector.linear_2.bias": _normal((proj_dim,), 0.01)},
+        seed + 1)
+    proj_sd = {k: proj[k] for k in proj.makers}
+    cfg = SimpleNamespace(
+        num_hidden_layers=n_layers, hidden_size=hidden,
+        intermediate_size=ffn, num_attention_heads=n_heads,
+        layer_norm_eps=1e-5, image_size=image, patch_size=patch)
+    newline = (LazyStateDict({"nl": _normal((proj_dim,), 0.02)}, seed + 2)
+               ["nl"] if merge == "spatial_unpad" else None)
+    convert_hf_clip(sd, cfg, path, proj_sd=proj_sd, skip_last=skip_last,
+                    image_grid_pinpoints=pinpoints, mm_patch_merge_type=merge,
+                    image_newline=newline)
