@@ -121,8 +121,9 @@ Phases (any failure raises, so the exit code is not 0):
   8. the quantizer and the quality path at LLaMA-7B width (dim 4096, ffn
      11008, 32 heads, vocab 32000), cut to 1 layer (2 before phase 11
      came): the host quantizer's time, the engines' loads and an F32
-     source of ~1.85 GB bound the phase. A seeded F32 GGUF
-     (normal draws, std 0.02, norms 1); cli.gguf_dump on it and
+     source of ~1.85 GB bound the phase; each sub-step's seconds are
+     printed. A seeded F32 GGUF (normal draws, std 0.02, norms 1; written
+     in a thread while the kernels build); cli.gguf_dump on it and
      cli.quantize_stats -l blk.0.attn_q in all six formats; cli.quantize
      (main) to Q8_0, Q5_1, Q5_0, Q4_1, Q4_0 and Q2_K, each file's host
      seconds and bytes, its tensor types (norms F32, output.weight Q8_0
@@ -278,6 +279,44 @@ Phases (any failure raises, so the exit code is not 0):
      flash_decode launched); preset running cli.main from a YAML file;
      collect_results over the JSON lines of tpulamm_torch.bench and the
      long-context rows
+  13. training and LoRA (slice 18). 13a, started before the build in a
+     process of its own (it launches none of the port's kernels, and the
+     script waits for it before it times any): cli.train at TinyLlama-1.1B's
+     published shape (hidden 2048, intermediate 5632, 22 layers, 32 / 4
+     heads, vocab 32000 from a tools.synth vocab GGUF, rope base 1e4), ctx
+     512, batch 4, 8 AdamW steps on the repository's prose, f32 without
+     TF32: its seconds a step (the first apart), tokens/s, TFLOP/s against
+     67 and max_memory_allocated; after phase 12 its F32 file quantized
+     to Q4_0 (cli.quantize) and run by generate_fast, 512 tokens in and 64
+     greedy out, exactly 89 qmm for the ubatch and 89 qmm_int8 a decode
+     step. 13a': 2 layers of the same width, the card against the CPU
+     from one init and the same batches (batch 2 x 64): the loss within
+     1e-5 relative and each gradient's cosine >= 0.99999; 3 AdamW steps,
+     the card's params within 1e-5 of each tensor's max|p| of the CPU's
+     AdamW fed the card's gradients (each side's own steps printed: Adam
+     turns the rounding of a gradient near its eps into the sign of a
+     step); 2 L-BFGS steps (lr 1.0), each loss within 1e-4 relative, the
+     line-search trials of each side printed; a step with gradient
+     checkpointing against the same step without (cosine >= 0.99999).
+     13b: 2 layers of LLaMA-7B width, Q4_0: cli.finetune (r 8, wq and
+     wv, ctx 128, -b 4, 8 steps, no kernel launched), cli.export_lora,
+     then cli.main --lora and cli.main on the
+     exported file, 32 greedy tokens each: the same tokens (a parting only
+     at a near tie), exactly 9 qmm for the ubatch and 9 qmm_int8 a step in
+     both, the patched planes equal byte for byte (any difference
+     printed); 2 finetune steps (batch 1) card against CPU: the losses
+     within 1e-5 relative, the first step's resolved adapter gradients
+     cosine >= 0.99999, the adapters within 1e-5 of max|a| and max|b| of
+     the CPU's AdamW fed the card's gradients. 13c: tools.imatrix on the
+     same base over 2 chunks of 512 on the card and on the CPU: the same
+     tensors and counts, the column means within 1e-5 of each tensor's
+     largest; cli.quantize --imatrix with the card's file (the base to
+     Q5_0) differs from the plain Q5_0 file. 13d: quality_table --train
+     (10 steps, 1 chunk), passkey_train (2 steps of batch 1 over 8
+     documents, then evaluate at n_ctx 8192 with --grp-attn-n 4, 1 trial)
+     and spec_bench (a target and a draft of 20 steps each, 32 tokens,
+     k 4: the trained pair's accept rates). The CPU sides run in a process
+     of their own (4 threads) while the card's run
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -2348,24 +2387,38 @@ def quality_card_vs_cpu(path: str, device, toks: list, n_ctx: int) -> dict:
     return out
 
 
-def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
-                  n_ctx: int = 512, n_chunks: int = 2, cmp_ctx: int = 128,
-                  corpus: bytes | None = None) -> dict:
-    """Phase 8: the quantizer and the quality path at full width."""
-    t_phase = time.perf_counter()
+def quality_source(rng, shape=LLAMA_7B, n_layers: int = 2) -> tuple:
+    """Phase 8's seeded F32 source (normal draws, std 0.02, norms 1) ->
+    (path, seconds to write it)."""
     os.makedirs(SMOKE_DIR, exist_ok=True)
     src = os.path.join(SMOKE_DIR, "quality_f32.gguf")
+    t0 = time.perf_counter()
+    write_llama_gguf(src, n_layers, rng, **shape, qtype=GGMLType.F32)
+    return src, time.perf_counter() - t0
+
+
+def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
+                  n_ctx: int = 512, n_chunks: int = 2, cmp_ctx: int = 128,
+                  corpus: bytes | None = None, source=None) -> dict:
+    """Phase 8: the quantizer and the quality path at full width. source:
+    quality_source(rng, shape, n_layers)'s result, written beforehand
+    (during the build), or None to write it here."""
+    t_phase = time.perf_counter()
+    src, write_s = (quality_source(rng, shape, n_layers) if source is None
+                    else source)
     made = [src]
+    steps = {"source write (during the build)" if source else
+             "source write": write_s}
     try:
-        t0 = time.perf_counter()
-        write_llama_gguf(src, n_layers, rng, **shape, qtype=GGMLType.F32)
         log(f"[quality] F32 source, {n_layers} layers of LLaMA-7B width: "
-            f"{os.path.getsize(src)} bytes written in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{os.path.getsize(src)} bytes written in {write_s:.1f} s"
+            f"{' (during the build)' if source else ''}")
+        t0 = time.perf_counter()
         run_tool("gguf_dump", gguf_dump.main, [src])
         run_tool("quantize_stats", quantize_stats.main,
                  ["-m", src, "-l", "blk.0.attn_q", "--per-layer"])
-        log(f"[quality] dump and stats: {time.perf_counter() - t0:.1f} s")
+        steps["gguf_dump and quantize_stats"] = time.perf_counter() - t0
+        t_q = time.perf_counter()
         cli_files, quant_s = {}, {}
         plain = GGUFReader(src).tensors["blk.0.attn_q.weight"].to_f32()[:64]
         for fmt in QUALITY_FORMATS:
@@ -2391,6 +2444,7 @@ def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
                 f"{os.path.getsize(path)} bytes; types as expected; "
                 "blk.0.attn_q rows 0-63 equal the numpy quantizer")
 
+        steps["cli.quantize x 6"] = time.perf_counter() - t_q
         corpus = build_corpus() if corpus is None else corpus
         snaps = []
 
@@ -2402,6 +2456,7 @@ def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
         rows = quality_table(src, corpus=corpus, n_ctx=n_ctx,
                              n_chunks=n_chunks, log=rec, device=device)
         qt_s = time.perf_counter() - t0
+        steps["quality_table (its 6 quantizes, 7 engines)"] = qt_s
         files = {fmt: os.path.join(SMOKE_DIR, f"quality_{fmt}.gguf")
                  for fmt in QUALITY_FORMATS}
         made += list(files.values()) + [
@@ -2475,6 +2530,8 @@ def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
                                          f"launches {r['launches']} != "
                                          f"{want}")
             cmp_rows[fmt] = c
+        steps["card vs CPU (7 files, 3 engines each)"] = \
+            time.perf_counter() - t0
         log(f"[quality] card vs CPU: {time.perf_counter() - t0:.1f} s")
 
         # each generate_fast of the e2e run (a 1-token prompt, then its
@@ -2498,6 +2555,7 @@ def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
             calls.append(steps)
             return res
         reset_port_launches()
+        t0 = time.perf_counter()
         pattern = os.path.join(SMOKE_DIR, "quality_{fmt}.gguf")
         Engine.generate_fast = counted
         try:
@@ -2506,6 +2564,8 @@ def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
                              "--device", str(device)])
         finally:
             Engine.generate_fast = orig
+        steps["perf_report --e2e-pattern (6 files)"] = \
+            time.perf_counter() - t0
         got = port_launches()
         ubatches = 5 * len(QUALITY_FORMATS)     # bench_model: 1 + 4 a file
         if not (got["qmm"] == ubatches * (n_layers * 4 + 1)
@@ -2542,9 +2602,11 @@ def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
             if os.path.exists(path):
                 os.remove(path)
     secs = time.perf_counter() - t_phase
+    for step, dt in steps.items():
+        log(f"[quality] {step}: {dt:.1f} s")
     log(f"[quality] phase 8 took {secs:.1f} s")
     return {"rows": rows, "card_vs_cpu": cmp_rows, "e2e": e2e,
-            "quantize_s": quant_s, "seconds": secs}
+            "quantize_s": quant_s, "seconds": secs, "steps": steps}
 
 
 # what the decode paths were predicted to do on CUDA graphs, written before
@@ -4248,6 +4310,740 @@ def phase_harness_tools(device, lm: str, smi: str, n_ctx: int = 8192,
     return out
 
 
+# -- phase 13: training and LoRA (slice 18) -----------------------------------
+
+# TinyLlama/TinyLlama-1.1B's published config.json: hidden 2048,
+# intermediate 5632, 22 layers, 32 / 4 heads (head_dim 64), vocab 32000,
+# rope base 1e4; trained from scratch by cli.train at ctx 512, batch 4, 8
+# AdamW steps, on the repository's prose
+TINYLLAMA_TRAIN = dict(embd=2048, ff=5632, layer=22, head=32, head_kv=4)
+TRAIN_CTX, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 8
+TRAIN_SEED = SEED + 26
+# 13a' (card against CPU at 2 layers of the same width, from one init and
+# the same batches): the loss within 1e-5 relative and each gradient's
+# cosine >= 0.99999; 2 L-BFGS steps (lr 1.0: 1-2 line-search trials a
+# step) each loss within 1e-4 relative; one step with gradient
+# checkpointing (remat) its gradients against the same step without, the
+# same bound. 3 AdamW steps (lr 1e-3, 10 of warmup): the card's params
+# within 1e-5 of each tensor's max|p| of the CPU's AdamW fed the card's
+# gradients. Each side's own 3 steps are compared too, and printed, not
+# held: Adam divides each element's gradient by its own size, so where a
+# gradient sits near Adam's eps (1e-8) its rounding sets the step's sign
+# (on an H100: 7.2e-5 and 8.9e-5 of max|p| in tok_emb in two runs)
+TRAIN_CMP = dict(layers=2, batch=2, seq=64, lbfgs_lr=1.0, adamw_lr=1e-3)
+TOL_TRAIN_LOSS, MIN_GRAD_COS, TOL_ADAMW, TOL_LBFGS = 1e-5, 0.99999, 1e-5, 1e-4
+# 13b: LoRA (r 8 on wq, wv) on 2 layers of LLaMA-7B width, Q4_0; 13c: an
+# imatrix over 2 chunks of 512 on the same base. Card against CPU for 2
+# finetune steps (batch 1, ctx 128): the losses within 1e-5 relative; the
+# first step's adapter gradients cosine >= 0.99999 where a gradient is
+# resolved: its norm above 1e-4 of the largest, clear of f32 rounding
+# over 4096-long sums (on this random base layer 1's wq B gradient has a
+# norm of ~1e-8 against ~1e-2 on the card, 1.2e-6 of it, and a cosine of
+# 0.79 card against CPU: rounding noise on either side); the adapters
+# within 1e-5 of max|a| and max|b| of the CPU's AdamW fed the card's
+# gradients (each side's own adapters are printed: a noise-level gradient
+# takes a full Adam step of either sign).
+# The imatrix column means within 1e-5 of each tensor's largest
+LORA = dict(r=8, alpha=16, targets="wq,wv", ctx=128, batch=4, iters=8,
+            n_gen=32, prompt=64)
+TOL_LORA, TOL_IMATRIX, MIN_RESOLVED = 1e-5, 1e-5, 1e-4
+# what phase 13 was predicted to show, written before its first chip run
+# (PERF.md section 5)
+TRAIN_PREDICTIONS = {
+    "13a s a step": "0.30-0.60", "13a tokens/s": "3,400-6,800",
+    "13a TFLOP/s": "22-44 (33-66% of 67)",
+    "13a max_memory_allocated": "28-40 GB",
+    "13a launches": "89 qmm a ubatch, 89 qmm_int8 a step",
+    "13b launches": "9 qmm a ubatch, 9 qmm_int8 a step; the same tokens",
+    "phase 13 s": "70-110 (the training child besides, during the build)",
+}
+
+
+def train_flops(cfg, n_tokens: int, seq_len: int) -> float:
+    """Operations of one training step (forward + backward, 3x the
+    forward): 6 x parameters x tokens for the products with the weights
+    (the embedding gather excluded), plus the attention's two products,
+    6 x 2 x T x hd x n_heads a token (the whole T x T square, as the
+    masked einsum computes it)."""
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    per_layer = (2 * cfg.dim * cfg.n_heads * cfg.head_dim + 2 * cfg.dim * kvd
+                 + 3 * cfg.dim * cfg.ffn_dim)
+    n_mm = cfg.n_layers * per_layer + cfg.vocab_size * cfg.dim
+    attn = cfg.n_layers * 2 * seq_len * cfg.head_dim * cfg.n_heads
+    return 6.0 * n_tokens * (n_mm + attn)
+
+
+def train_cfg(n_layers: int):
+    """The ModelConfig cli.train builds for TINYLLAMA_TRAIN's flags."""
+    from tpulamm_torch.models.config import ModelConfig
+    from tpulamm_torch.ops.rope import RopeParams
+    t = TINYLLAMA_TRAIN
+    return ModelConfig(arch="llama", vocab_size=32000, dim=t["embd"],
+                       n_layers=n_layers, n_heads=t["head"],
+                       n_kv_heads=t["head_kv"], ffn_dim=t["ff"],
+                       n_ctx_train=TRAIN_CTX, norm_eps=1e-5,
+                       rope=RopeParams(n_rot=t["embd"] // t["head"]),
+                       compute_dtype="float32")
+
+
+def train_files() -> dict:
+    """The training inputs: a GGUF holding the synthetic SPM vocab (32000
+    tokens, the phase-4 model's) and the repository's prose as text."""
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    vocab = os.path.join(SMOKE_DIR, "train_vocab.gguf")
+    write_llama_gguf(vocab, 1, np.random.default_rng(SEED + 25), dim=256,
+                     ffn=256, n_head=2, vocab=32000)
+    text = os.path.join(SMOKE_DIR, "train_corpus.txt")
+    with open(text, "w") as f:
+        f.write(build_corpus().decode("utf-8", "replace"))
+    return {"vocab": vocab, "text": text}
+
+
+def corpus_tokens(files: dict) -> np.ndarray:
+    """The corpus as cli.train tokenizes it with the vocab GGUF."""
+    r = GGUFReader(files["vocab"])
+    tok = build_tokenizer(r.metadata)
+    r.close()
+    with open(files["text"]) as f:
+        return np.asarray(tok.encode(f.read(), add_bos=False), np.int32)
+
+
+def child(call: str, args: list[str], log_path: str,
+          env=None) -> subprocess.Popen:
+    """`python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.CALL())"
+    ARGS...` from this file's directory, its output to log_path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys, chip_smoke; sys.exit(chip_smoke.{call}())",
+             *args], cwd=here, env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def start_train(files: dict, device: str = "cuda") -> dict:
+    """13a's training, started before the build in a process of its own:
+    cli.train at TinyLlama-1.1B's shape on the card (its host-side draws
+    of 1.1e9 initial weights and its 4.4 GB file write overlap nvcc)."""
+    t = TINYLLAMA_TRAIN
+    out = os.path.join(SMOKE_DIR, "train_tl_f32.gguf")
+    argv = ["--train-data", files["text"], "--vocab-model", files["vocab"],
+            "-o", out, "--embd", str(t["embd"]), "--head", str(t["head"]),
+            "--head-kv", str(t["head_kv"]), "--layer", str(t["layer"]),
+            "--ff", str(t["ff"]), "--ctx", str(TRAIN_CTX), "-b",
+            str(TRAIN_BATCH), "--iters", str(TRAIN_STEPS), "--seed",
+            str(TRAIN_SEED), "--device", device]
+    stats = os.path.join(SMOKE_DIR, "train_tl.json")
+    logp = os.path.join(SMOKE_DIR, "train_tl.log")
+    return {"proc": child("train_main", [json.dumps(argv), stats], logp),
+            "out": out, "stats": stats, "log": logp,
+            "t0": time.perf_counter()}
+
+
+def train_main() -> int:
+    """The child of start_train: cli.train.main(ARGV_JSON) with every
+    step logged and timed; writes its step seconds, losses, the seconds of
+    the init, the steps and the file write, and max_memory_allocated as
+    JSON to STATS_PATH."""
+    from tpulamm_torch.cli import train as TCLI
+    from tpulamm_torch.train import model as TMOD
+    from tpulamm_torch.train import train as TTR
+    argv, path = json.loads(sys.argv[1]), sys.argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec: dict = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                rec[name] = time.perf_counter() - t0
+        return call
+    orig = TTR.train
+
+    def train(*a, **kw):
+        params, losses = orig(*a, **{**kw, "log_every": 1, "stats": rec})
+        rec["losses"] = losses
+        return params, losses
+    TTR.train = timed("train_s", train)
+    TMOD.init_params = timed("init_s", TMOD.init_params)
+    TMOD.save_params_gguf = timed("save_s", TMOD.save_params_gguf)
+    t0 = time.perf_counter()
+    rc = TCLI.main(argv)
+    rec.update(total_s=time.perf_counter() - t0, rc=rc,
+               max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                     if torch.cuda.is_available() else 0))
+    with open(path, "w") as f:
+        json.dump(rec, f)
+    return rc
+
+
+def finish_train(started: dict, timeout: float = 600.0) -> dict:
+    """Wait for 13a's training process; its JSON record, its log printed."""
+    rc = started["proc"].wait(timeout=timeout)
+    wall = time.perf_counter() - started["t0"]
+    with open(started["log"]) as f:
+        for line in f.read().splitlines():
+            log(f"[train13a] {line[:300]}")
+    if rc != 0 or not os.path.exists(started["stats"]):
+        raise AssertionError(f"cli.train at TinyLlama-1.1B shape: exit {rc}")
+    with open(started["stats"]) as f:
+        rec = json.load(f)
+    os.remove(started["stats"])
+    os.remove(started["log"])
+    rec["wall_s"] = wall
+    return rec
+
+
+def train_refs_main() -> int:
+    """`... chip_smoke.train_refs_main() CONFIG_JSON`: the CPU sides of
+    13a', 13b and 13c into CONFIG["dir"]: at 2 layers of TinyLlama width
+    the loss and gradients of one batch, the params after 3 AdamW steps
+    and 2 L-BFGS steps' losses and trials; 2 finetune steps' losses,
+    gradients and adapters; the imatrix of the LoRA base."""
+    from tpulamm_torch.tools import imatrix as IM
+    global TINYLLAMA_TRAIN, TRAIN_CTX, TRAIN_CMP, LORA
+    cfg = json.loads(sys.argv[1])
+    # the parent's sizes (the constants, unless a rehearsal changed them)
+    TINYLLAMA_TRAIN, TRAIN_CTX = cfg["tl"], cfg["ctx"]
+    TRAIN_CMP, LORA = cfg["cmp"], cfg["lora"]
+    d = cfg["dir"]
+    rec = {}
+    t0 = time.perf_counter()
+    res = train_cmp_side(torch.device("cpu"), cfg["files"])
+    torch.save({k: res[k] for k in ("grads", "adamw")},
+               os.path.join(d, "a_cpu.pt"))
+    rec["a"] = {k: res[k] for k in ("loss", "lbfgs", "trials")}
+    rec["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.save(lora_cmp_side(torch.device("cpu"), cfg["base"], cfg["files"]),
+               os.path.join(d, "b_cpu.pt"))
+    rec["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = IM.main(["-m", cfg["base"], "-f", cfg["files"]["text"], "-o",
+                  os.path.join(d, "c_cpu.npz"), "-c", "512", "--chunks", "2",
+                  "--device", "cpu"])
+    rec["c_s"] = time.perf_counter() - t0
+    with open(os.path.join(d, "refs.json"), "w") as f:
+        json.dump(rec, f)
+    return rc
+
+
+def adamw_steps(tree, loss_fn, tc, batches, device, keep: bool) -> tuple:
+    """n_steps of train.optim.AdamW on `tree` (updated in place), a batch
+    from `batches` each, as train.optimize runs them -> (losses, each
+    step's gradients as CPU tensors where keep)."""
+    from tpulamm_torch.train import optim as TO
+    from tpulamm_torch.train.train import value_and_grad
+    leaves = TO.tree_leaves(tree)
+    opt = TO.AdamW(tc)
+    state = opt.init(leaves)
+    losses, kept = [], []
+    for _ in range(tc.n_steps):
+        batch = torch.as_tensor(next(batches), device=device)
+        loss, grads = value_and_grad(lambda t: loss_fn(t, batch), tree,
+                                     leaves)
+        losses.append(float(loss))
+        if keep:
+            # copies: update() turns the gradients' buffers into updates
+            kept.append([g.to("cpu", copy=True) for g in grads])
+        updates, state = opt.update(grads, state, leaves)
+        TO.apply_updates(leaves, updates)
+    return losses, kept
+
+
+def replay_adamw(init: list, grads: list, tc) -> list:
+    """train.optim.AdamW on the CPU from `init` (CPU tensors, copied), fed
+    the gradients `grads` (a list a step) -> the final leaves."""
+    from tpulamm_torch.train import optim as TO
+    leaves = [x.clone() for x in init]
+    opt = TO.AdamW(tc)
+    state = opt.init(leaves)
+    for g in grads:
+        updates, state = opt.update([x.clone() for x in g], state, leaves)
+        TO.apply_updates(leaves, updates)
+    return leaves
+
+
+def train_cmp_side(device, files: dict, init=None,
+                   remat: bool = False) -> dict:
+    """One side of 13a': at TRAIN_CMP's size, from init_params(seed
+    TRAIN_SEED) (or `init`, CPU tensors of it) on `device` and
+    sample_batches over the corpus: the loss and gradients of the first
+    batch, the params after 3 AdamW steps (on the card with each step's
+    gradients), 2 L-BFGS steps' losses and line-search trials, and with
+    remat the first batch's gradients recomputed a layer at a time in the
+    backward pass."""
+    from tpulamm_torch.train import model as TMOD
+    from tpulamm_torch.train import optim as TO
+    from tpulamm_torch.train.train import (TrainConfig, optimize,
+                                           sample_batches, value_and_grad)
+    c = TRAIN_CMP
+    cfg = train_cfg(c["layers"])
+    if init is None:
+        init = TMOD.init_params(cfg, seed=TRAIN_SEED, device="cpu")
+
+    def fresh():
+        return TO.tree_unflatten(init, [x.to(device, copy=True)
+                                        for x in TO.tree_leaves(init)])
+    data = corpus_tokens(files)
+
+    def batches():
+        return sample_batches(data, TrainConfig(batch_size=c["batch"],
+                                                seq_len=c["seq"],
+                                                seed=TRAIN_SEED))
+
+    def loss_fn(t, b, remat=False):
+        return TMOD.causal_lm_loss(t, cfg, b, remat=remat)
+    first = torch.as_tensor(next(batches()), device=device)
+    p = fresh()
+    loss, grads = value_and_grad(lambda t: loss_fn(t, first), p,
+                                 TO.tree_leaves(p))
+    out = {"loss": float(loss), "grads": [g.cpu() for g in grads]}
+    if remat:
+        _, rg = value_and_grad(lambda t: loss_fn(t, first, True), p,
+                               TO.tree_leaves(p))
+        out["remat"] = [g.cpu() for g in rg]
+    del p, grads
+    q = fresh()
+    out["adamw_losses"], out["adamw_grads"] = adamw_steps(
+        q, loss_fn, TrainConfig(lr=c["adamw_lr"], n_steps=3), batches(),
+        device, keep=remat)
+    out["adamw"] = [x.cpu() for x in TO.tree_leaves(q)]
+    del q
+    st = {}
+    _, losses = optimize(fresh(), loss_fn, TrainConfig(
+        optimizer="lbfgs", lr=c["lbfgs_lr"], n_steps=2), batches(),
+        log_every=0, stats=st)
+    out.update(lbfgs=losses, trials=st["trials"])
+    return out
+
+
+def lora_cmp_side(device, base: str, files: dict) -> dict:
+    """One side of 13b's comparison: 2 finetune steps (batch 1, ctx 128,
+    the CLI's r, alpha and targets) of the adapters on the base densified
+    on `device`, as train.lora.finetune_lora runs them -> each step's loss
+    and adapter gradients, the initial and the final adapters (CPU)."""
+    from tpulamm_torch.models.loader import load_model
+    from tpulamm_torch.tools.imatrix import densify_params
+    from tpulamm_torch.train import optim as TO
+    from tpulamm_torch.train.lora import init_lora, merge_lora
+    from tpulamm_torch.train.model import causal_lm_loss
+    from tpulamm_torch.train.train import TrainConfig, sample_batches
+    cfg, params, _ = load_model(base, compute_dtype="float32", device=device)
+    dense = densify_params(params)
+    tc = TrainConfig(batch_size=1, seq_len=LORA["ctx"], n_steps=2, seed=0)
+    lora = init_lora(dense, r=LORA["r"], alpha=LORA["alpha"], seed=tc.seed,
+                     targets=tuple(LORA["targets"].split(",")))
+    init = [x.cpu().clone() for x in TO.tree_leaves(lora["layers"])]
+
+    def loss_fn(adapters, batch):
+        return causal_lm_loss(merge_lora(dense, {
+            "r": LORA["r"], "alpha": LORA["alpha"], "layers": adapters}),
+            cfg, batch)
+    losses, grads = adamw_steps(lora["layers"], loss_fn, tc, sample_batches(
+        corpus_tokens(files), tc), device, keep=True)
+    return {"losses": losses, "grads": grads, "init": init,
+            "final": [x.cpu() for x in TO.tree_leaves(lora["layers"])]}
+
+
+def phase_train(device, rng, smi: str, files: dict, trained: dict,
+                init2) -> dict:
+    """Phase 13: training and LoRA. 13a: the TinyLlama-1.1B-shape model
+    trained during the build (its step seconds, tokens/s, TFLOP/s, memory)
+    quantized to Q4_0 and run by generate_fast; 13a' the card against the
+    CPU at 2 layers; 13b LoRA finetune, export, --lora; 13c the imatrix;
+    13d quality_table --train, passkey_train and spec_bench."""
+    from tpulamm_torch.cli import export_lora as EXL
+    from tpulamm_torch.cli import finetune as FTC
+    from tpulamm_torch.tools import imatrix as IM
+    from tpulamm_torch.tools import passkey_train as PKT
+    from tpulamm_torch.tools import quality_table as QT
+    from tpulamm_torch.tools import spec_bench as SB
+    from tpulamm_torch.train import optim as TO
+    t_phase = time.perf_counter()
+    work = os.path.join(SMOKE_DIR, "train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    refs = None
+    marks = {}
+    t_step = [time.perf_counter()]
+
+    def step_done(name):
+        now = time.perf_counter()
+        marks[name] = now - t_step[0]
+        t_step[0] = now
+    try:
+        # 13b / 13c's base, then the CPU sides in a process of their own
+        base = os.path.join(work, "lora_base_q4_0.gguf")
+        write_llama_gguf(base, 2, rng, **LLAMA_7B)
+        env = {**os.environ, "OMP_NUM_THREADS": "4"}
+        refs = child("train_refs_main", [json.dumps(
+            {"dir": work, "base": base, "files": files,
+             "tl": TINYLLAMA_TRAIN, "ctx": TRAIN_CTX, "cmp": TRAIN_CMP,
+             "lora": LORA})], os.path.join(work, "refs.log"), env=env)
+
+        step_done("the LoRA base written, the CPU sides started")
+        # 13a: the trained model's numbers, then its Q4_0 file served
+        rec = trained
+        n_tok = TRAIN_BATCH * TRAIN_CTX
+        steps = rec["step_s"]
+        later = float(np.median(steps[1:]))
+        flops = train_flops(train_cfg(TINYLLAMA_TRAIN["layer"]), n_tok,
+                            TRAIN_CTX)
+        out["13a"] = {"first_step_s": steps[0], "step_s": later,
+                      "tok_s": n_tok / later, "tflops": flops / later / 1e12,
+                      "max_mem_gb": rec["max_memory_allocated"] / 1e9,
+                      "losses": rec["losses"]}
+        log(f"[train13a] cli.train, TinyLlama-1.1B shape (22 layers, 2048 / "
+            f"5632, 32 / 4 heads, vocab 32000), ctx {TRAIN_CTX}, batch "
+            f"{TRAIN_BATCH}, {TRAIN_STEPS} AdamW steps: first step "
+            f"{steps[0]:.3f} s, then {later:.4f} s a step (median of "
+            f"{len(steps) - 1}; {[round(s, 4) for s in steps[1:]]}); "
+            f"{n_tok / later:,.0f} tokens/s; {flops / 1e12:.3f} TFLOP a step "
+            f"-> {flops / later / 1e12:.2f} TFLOP/s, "
+            f"{100 * flops / later / PEAK_F32_OPS:.1f}% of "
+            f"{PEAK_F32_OPS / 1e12:.0f} (bound {flops / PEAK_F32_OPS:.4f} s a "
+            f"step); max_memory_allocated "
+            f"{rec['max_memory_allocated'] / 1e9:.2f} GB; losses "
+            f"{[round(x, 4) for x in rec['losses']]}; the process "
+            f"{rec['wall_s']:.1f} s (init {rec['init_s']:.1f}, steps "
+            f"{rec['train_s']:.1f}, file write {rec['save_s']:.1f})")
+        if not (np.isfinite(rec["losses"]).all()
+                and rec["losses"][-1] < rec["losses"][0]):
+            raise AssertionError(f"13a losses {rec['losses']}")
+        q4 = os.path.join(work, "tl_q4_0.gguf")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = quantize.main([trained["out"], q4, "q4_0"])
+        os.remove(trained["out"])
+        if rc != 0:
+            raise AssertionError(f"quantize of the trained model: {rc}")
+        q_s = time.perf_counter() - t0
+        eng = Engine(q4, n_ctx=1024, device=device)
+        _, ids = gen_prompt(q4, rng, PROMPT)
+        reset_port_launches()
+        n0 = eng.timings.n_step
+        toks, _ = eng.generate_fast(ids, n_predict=64, stop_on_eos=False)
+        per = 4 * TINYLLAMA_TRAIN["layer"] + 1
+        n_steps = eng.timings.n_step - n0
+        got = expect_launches("13a generate_fast",
+                              {"qmm": per, "qmm_int8": per * n_steps})
+        if len(toks) != 64:
+            raise AssertionError(f"13a: {len(toks)} tokens")
+        log(f"[train13a] cli.quantize to Q4_0 {q_s:.1f} s; generate_fast "
+            f"{PROMPT} in, 64 greedy out: launches {got} (exactly {per} qmm "
+            f"for the ubatch and {per} qmm_int8 for each of {n_steps} decode "
+            "steps)")
+        del eng
+        os.remove(q4)
+
+        step_done("13a: quantize, load, generate_fast")
+        # 13a': the card against the CPU at 2 layers of the same width
+        a = train_cmp_side(device, files, init=init2, remat=True)
+        step_done("13a': the card's side")
+        out["13b"] = lora_phase(device, rng, base, files, work, FTC, EXL)
+        step_done("13b")
+
+        # 13c: the imatrix on the card, then quantize --imatrix with it
+        card_npz = os.path.join(work, "c_card.npz")
+        rc, _, _, c_s = run_cli("imatrix13c", IM.main, [
+            "-m", base, "-f", files["text"], "-o", card_npz, "-c", "512",
+            "--chunks", "2", "--device", device.type])
+        if rc != 0:
+            raise AssertionError(f"tools.imatrix: {rc}")
+        qi = {}
+        for tag, extra in (("imatrix", ["--imatrix", card_npz]),
+                           ("plain", [])):
+            qi[tag] = os.path.join(work, f"iq_{tag}.gguf")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = quantize.main(extra + [base, qi[tag], "q5_0"])
+            if rc != 0:
+                raise AssertionError(f"quantize {tag}: {rc}")
+        if filecmp.cmp(qi["imatrix"], qi["plain"], shallow=False):
+            raise AssertionError("quantize --imatrix wrote the plain file")
+        log(f"[imatrix13c] tools.imatrix on the card {c_s:.1f} s (2 layers of "
+            "LLaMA-7B width, 2 chunks of 512); cli.quantize --imatrix with "
+            "its file (the Q4_0 base to Q5_0, the weighted search) differs "
+            "from the plain Q5_0 file")
+
+        step_done("13c")
+        # 13d: the tools
+        out["13d"] = tools_phase(device, work, QT, PKT, SB)
+
+        step_done("13d")
+        # the CPU sides
+        t0 = time.perf_counter()
+        rc = refs.wait(timeout=900)
+        waited = time.perf_counter() - t0
+        with open(os.path.join(work, "refs.log")) as f:
+            for line in f.read().splitlines()[-20:]:
+                log(f"[train-refs] {line[:300]}")
+        if rc != 0:
+            raise AssertionError(f"the CPU sides of phase 13: exit {rc}")
+        with open(os.path.join(work, "refs.json")) as f:
+            cpu = json.load(f)
+        log(f"[train-refs] CPU sides: 13a' {cpu['a_s']:.1f} s, 13b "
+            f"{cpu['b_s']:.1f} s, 13c {cpu['c_s']:.1f} s (waited "
+            f"{waited:.1f} s after 13d)")
+        step_done("waiting for the CPU sides")
+        # each comparison logs its numbers; any bound missed raises after
+        # all three are read
+        missed = []
+        for key, cmp_fn in (
+                ("13a'", lambda: compare_train(a, cpu["a"], torch.load(
+                    os.path.join(work, "a_cpu.pt")), TO.tree_leaves(init2))),
+                ("13b'", lambda: compare_lora(out["13b"]["cmp"], torch.load(
+                    os.path.join(work, "b_cpu.pt")))),
+                ("13c", lambda: compare_imatrix(
+                    card_npz, os.path.join(work, "c_cpu.npz")))):
+            try:
+                out[key] = cmp_fn()
+            except AssertionError as e:
+                missed.append(f"{key}: {e}")
+        step_done("the comparisons")
+        for name, dt in marks.items():
+            log(f"[train] {name}: {dt:.1f} s")
+        if missed:
+            raise AssertionError("; ".join(missed))
+    finally:
+        if refs is not None and refs.poll() is None:
+            refs.kill()
+            refs.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        for p in (files["vocab"], files["text"], trained["out"]):
+            if os.path.exists(p):
+                os.remove(p)
+    out["phase_s"] = time.perf_counter() - t_phase
+    for key, val in TRAIN_PREDICTIONS.items():
+        log(f"[train] predicted {key}: {val}")
+    log(f"[train] phase 13 {out['phase_s']:.1f} s; {smi}")
+    return out
+
+
+def lora_phase(device, rng, base: str, files: dict, work: str, FTC,
+               EXL) -> dict:
+    """13b: cli.finetune, cli.export_lora, cli.main --lora against cli.main
+    on the exported file (tokens, launches, planes); the card's side of
+    the 2-step finetune comparison."""
+    ad = os.path.join(work, "adapter.gguf")
+    argv = ["-m", base, "--train-data", files["text"], "-o", ad,
+            "--lora-r", str(LORA["r"]), "--lora-alpha", str(LORA["alpha"]),
+            "--targets", LORA["targets"], "--ctx", str(LORA["ctx"]), "-b",
+            str(LORA["batch"]), "--iters", str(LORA["iters"]), "--device",
+            device.type]
+    reset_port_launches()
+    rc, _, _, ft_s = run_cli("finetune13b", FTC.main, argv)
+    if rc != 0:
+        raise AssertionError(f"cli.finetune: {rc}")
+    expect_launches("cli.finetune", {})
+    baked = os.path.join(work, "baked.gguf")
+    rc, _, _, ex_s = run_cli("export13b", EXL.main,
+                             ["-m", base, "-o", baked, "-l", ad])
+    if rc != 0:
+        raise AssertionError(f"cli.export_lora: {rc}")
+    text, ptoks = gen_prompt(base, rng, LORA["prompt"])
+    per = 4 * 2 + 1
+    runs = {}
+    for tag, path, extra in (("lora", base, ["--lora", ad]),
+                             ("baked", baked, [])):
+        cache = os.path.join(work, f"{tag}.cache")
+        o, _, dt, launches, tm = main_run(
+            f"main13b-{tag}", path,
+            ["-p", text, "-n", str(LORA["n_gen"]), "--temp", "0", "-c", "512",
+             "--repeat-penalty", "1.0", "--no-display-prompt", "--device",
+             device.type, "--prompt-cache", cache, *extra], work)
+        ids = session_tokens(cache)[LORA["prompt"]:]
+        if int(tm["n_eval"]) != len(ids):
+            raise AssertionError(f"{tag}: {len(ids)} tokens, {tm['n_eval']} "
+                                 "steps")
+        expect_launches(f"main13b-{tag}", {"qmm": per,
+                                           "qmm_int8": per * len(ids)})
+        runs[tag] = (ids, dt)
+    ea = Engine(base, n_ctx=512, lora_path=ad, device=device)
+    eb = Engine(baked, n_ctx=512, device=device)
+    diff = []
+    for i, (la, lb) in enumerate(zip(ea.params["layers"],
+                                     eb.params["layers"])):
+        for key in ("wqkv_fused", "wo", "wgateup_fused", "w_down"):
+            if not all(torch.equal(p, lb[key].planes[n])
+                       for n, p in la[key].planes.items()):
+                d = (dequant_mm(la[key]) - dequant_mm(lb[key])).abs().max()
+                diff.append((i, key, float(d)))
+    same = greedy_parting(ea, ptoks, runs["baked"][0], runs["lora"][0],
+                          "13b --lora vs the exported file")
+    if diff:
+        log(f"[lora13b] planes differ: {diff} (largest dequantized "
+            "difference each)")
+    log(f"[lora13b] cli.finetune (r {LORA['r']}, {LORA['targets']}, ctx "
+        f"{LORA['ctx']}, -b {LORA['batch']}, {LORA['iters']} steps) "
+        f"{ft_s:.1f} s; cli.export_lora {ex_s:.1f} s; cli.main --lora "
+        f"{runs['lora'][1]:.1f} s and on the exported file "
+        f"{runs['baked'][1]:.1f} s, {LORA['n_gen']} greedy tokens: {same}; "
+        f"launches exactly {per} qmm for the ubatch and {per} qmm_int8 a "
+        f"step in both; patched planes "
+        f"{'equal, byte for byte' if not diff else 'DIFFER'}")
+    del ea, eb
+    return {"same": same, "plane_diff": diff, "finetune_s": ft_s,
+            "cmp": lora_cmp_side(device, base, files)}
+
+
+def tools_phase(device, work: str, QT, PKT, SB) -> dict:
+    """13d: quality_table --train, passkey_train (train and evaluate) and
+    spec_bench on the card, at few steps and trials."""
+    out = {}
+    t0 = time.perf_counter()
+    qpath = os.path.join(work, "quality", "q_f32.gguf")
+    reset_port_launches()
+    run_tool("quality13d", QT.main, ["--train", "-m", qpath, "--steps",
+                                     "10", "--n-chunks", "1", "--device",
+                                     device.type])
+    got = port_launches()
+    if not (got["qmm"] > 0 and all(v == 0 for k, v in got.items()
+                                   if k != "qmm")):
+        raise AssertionError(f"quality_table --train launches {got}")
+    out["quality_s"] = time.perf_counter() - t0
+    log(f"[tools13d] quality_table --train (10 steps of the dim-512, "
+        f"8-layer byte model; 1 chunk): {out['quality_s']:.1f} s, launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    t0 = time.perf_counter()
+    pk = os.path.join(work, "passkey.gguf")
+    reset_port_launches()
+    PKT.train_passkey(pk, n_steps=2, batch_size=1, n_docs=8, device=device,
+                      log=lambda s: log(f"[tools13d passkey] {s}"))
+    res = PKT.evaluate(pk, n_ctx=8192, ga_n=4, ga_w=1024, trials=1,
+                       n_junk=50, device=device,
+                       log=lambda s: log(f"[tools13d passkey] {s}"))
+    out["passkey"] = res
+    out["passkey_s"] = time.perf_counter() - t0
+    log(f"[tools13d] passkey_train (2 steps, batch 1, 8 documents at seq "
+        f"3072, remat) and evaluate (n_ctx 8192, --grp-attn-n 4, 1 trial): "
+        f"{out['passkey_s']:.1f} s, {res['hits']}/{res['trials']} retrieved "
+        f"(2 steps teach nothing: a MISS is expected); launches "
+        f"{ {k: v for k, v in port_launches().items() if v} }")
+    t0 = time.perf_counter()
+    reset_port_launches()
+    tgt, drf, tgt_q4, corpus = SB.ensure_models(
+        20, out_dir=os.path.join(work, "spec"), device=device,
+        log=lambda s: log(f"[tools13d spec] {s}"))
+    rows = SB.bench_pair(tgt_q4, drf, corpus, n_predict=32, drafts=(0, 4),
+                         device=device,
+                         log=lambda s: log(f"[tools13d spec] {s}"))
+    out["spec"] = rows
+    out["spec_s"] = time.perf_counter() - t0
+    got = port_launches()
+    if not (got["qmm"] > 0 and got["qmm_int8"] > 0):
+        raise AssertionError(f"spec_bench launches {got}")
+    acc = {r["mode"]: r["accept"] for r in rows if r["accept"] is not None}
+    log(f"[tools13d] spec_bench (target dim 512 x 8 layers Q4_0, draft dim "
+        f"256 x 2 layers, 20 steps each on the repository's prose; 32 "
+        f"tokens, k 4): {out['spec_s']:.1f} s; accept rates {acc}: a pair "
+        f"trained 20 steps, near its initial weights; launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    return out
+
+
+def compare_train(card: dict, cpu: dict, cpu_t: dict, init: list) -> dict:
+    """13a' bounds: the loss, each gradient's cosine, the card's AdamW
+    params against the CPU's AdamW fed the card's gradients, the L-BFGS
+    losses, the remat gradients; each side's own AdamW params printed."""
+    from tpulamm_torch.train.train import TrainConfig
+    rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    cos = min(cosine(a.numpy().ravel(), b.numpy().ravel())
+              for a, b in zip(cpu_t["grads"], card["grads"]))
+    replay = replay_adamw(init, card["adamw_grads"], TrainConfig(
+        lr=TRAIN_CMP["adamw_lr"], n_steps=3))
+    ad = max(rel_err(b, a)[0] for a, b in zip(replay, card["adamw"]))
+    own = [rel_err(b, a)[0]
+           for a, b in zip(cpu_t["adamw"], card["adamw"])]
+    past = [(tuple(x.shape), round(g, 9)) for x, g in
+            zip(cpu_t["adamw"], own) if g > TOL_ADAMW]
+    lb = max(abs(a - b) / abs(a) for a, b in zip(cpu["lbfgs"],
+                                                  card["lbfgs"]))
+    rc = min(cosine(a.numpy().ravel(), b.numpy().ravel())
+             for a, b in zip(card["grads"], card["remat"]))
+    rr = max(rel_err(b, a)[0] for a, b in zip(card["grads"], card["remat"]))
+    log(f"[train13a'] card vs CPU, 2 layers of TinyLlama width, batch "
+        f"{TRAIN_CMP['batch']} x {TRAIN_CMP['seq']}: loss {card['loss']!r} "
+        f"vs {cpu['loss']!r} (rel {rel:.3e}, <= {TOL_TRAIN_LOSS}); min "
+        f"gradient cosine {cos!r} (>= {MIN_GRAD_COS}); 3 AdamW steps: the "
+        f"card's params within {ad:.3e} of max|p| of the CPU's AdamW on the "
+        f"card's gradients (<= {TOL_ADAMW}), each side on its own "
+        f"gradients within {max(own):.3e} (not held; tensors past "
+        f"{TOL_ADAMW}: {past}); 2 L-BFGS steps (lr "
+        f"{TRAIN_CMP['lbfgs_lr']}): losses {card['lbfgs']} vs {cpu['lbfgs']} "
+        f"(rel {lb:.3e}, <= {TOL_LBFGS}), line-search trials {card['trials']}"
+        f" on the card, {cpu['trials']} on the CPU; remat step: gradients "
+        f"cosine {rc!r}, within {rr:.3e} of max|g| of the step without")
+    if not (rel <= TOL_TRAIN_LOSS and cos >= MIN_GRAD_COS
+            and ad <= TOL_ADAMW and lb <= TOL_LBFGS and rc >= MIN_GRAD_COS):
+        raise AssertionError("13a': a card-against-CPU bound missed")
+    return {"loss_rel": rel, "grad_cos": cos, "adamw": ad, "own": max(own),
+            "lbfgs": lb, "trials": (card["trials"], cpu["trials"]),
+            "remat_cos": rc}
+
+
+def compare_lora(card: dict, cpu: dict) -> dict:
+    """13b's bounds over 2 finetune steps: the losses, the first step's
+    resolved adapter gradients, the card's adapters against the CPU's
+    AdamW fed the card's gradients; each side's own adapters printed."""
+    from tpulamm_torch.train.train import TrainConfig
+    rel = max(abs(a - b) / abs(a) for a, b in zip(cpu["losses"],
+                                                  card["losses"]))
+    g0c, g0p = card["grads"][0], cpu["grads"][0]
+    norms = [float(g.norm()) for g in g0p]
+    resolved = [i for i, n in enumerate(norms)
+                if n > MIN_RESOLVED * max(norms)]
+    coss = {i: cosine(g0p[i].numpy().ravel(), g0c[i].numpy().ravel())
+            for i in range(len(norms)) if norms[i] > 0}
+    cos = min(coss[i] for i in resolved)
+    replay = replay_adamw(card["init"], card["grads"], TrainConfig(
+        batch_size=1, seq_len=LORA["ctx"], n_steps=2, seed=0))
+    gap = max(rel_err(b, a)[0] for a, b in zip(replay, card["final"]))
+    own = max(rel_err(b, a)[0]
+              for a, b in zip(cpu["final"], card["final"]))
+    log(f"[lora13b] 2 finetune steps, card vs CPU: losses {card['losses']} "
+        f"vs {cpu['losses']} (rel {rel:.3e}, <= {TOL_TRAIN_LOSS}); first "
+        f"step's adapter gradients cosine {cos!r} over {len(resolved)} of "
+        f"{len(norms)} resolved (>= {MIN_GRAD_COS}; norms "
+        f"{[f'{n:.2e}' for n in norms]}, cosines of the nonzero "
+        f"{ {i: round(c, 9) for i, c in coss.items()} }); the card's "
+        f"adapters within "
+        f"{gap:.3e} of max|a|, max|b| of the CPU's AdamW on the card's "
+        f"gradients (<= {TOL_LORA}), each side on its own gradients within "
+        f"{own:.3e} (not held)")
+    if not (rel <= TOL_TRAIN_LOSS and cos >= MIN_GRAD_COS
+            and gap <= TOL_LORA):
+        raise AssertionError(f"13b card vs CPU: losses {rel}, cosine {cos},"
+                             f" adapters {gap}")
+    return {"loss_rel": rel, "grad_cos": cos, "adapters": gap, "own": own}
+
+
+def compare_imatrix(card_npz: str, cpu_npz: str) -> dict:
+    zc, zp = np.load(card_npz), np.load(cpu_npz)
+    if sorted(zc.files) != sorted(zp.files):
+        raise AssertionError("13c: the imatrix files' tensors differ")
+    worst, elem = 0.0, 0.0
+    for k in zc.files:
+        if k.startswith("count::"):
+            if int(zc[k]) != int(zp[k]):
+                raise AssertionError(f"13c {k}: {zc[k]} != {zp[k]}")
+            continue
+        name = k[5:]
+        mc = zc[k] / int(zc["count::" + name])
+        mp = zp[k] / int(zp["count::" + name])
+        worst = max(worst, float(np.abs(mc - mp).max() / np.abs(mp).max()))
+        elem = max(elem, float((np.abs(mc - mp) / np.abs(mp)).max()))
+    log(f"[imatrix13c] card vs CPU: {len(zc.files) // 2} tensors, counts "
+        f"equal ({int(zc['count::output.weight'])} tokens); column means "
+        f"within {worst:.3e} of each tensor's largest (<= {TOL_IMATRIX}), "
+        f"{elem:.3e} relative at the worst column")
+    if worst > TOL_IMATRIX:
+        raise AssertionError(f"13c column means {worst}")
+    return {"rel": worst, "elem_rel": elem}
+
+
 def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
     """One line for each decode path: tok/s (or ms a step), the profiled
     wall and device ms a step of its graph replays, beside the prediction."""
@@ -4323,8 +5119,46 @@ def main() -> int:
 
     def done(tag):
         log(f"[{tag}] done ({time.perf_counter() - t_start:.0f} s elapsed)")
-    phase_build()
-    done("build")
+    # while nvcc builds the kernels: phase 13a's training in a process of
+    # its own (it launches no kernel of the port), phase 8's F32 source and
+    # 13a''s initial weights in threads (numpy's draws release the GIL)
+    files = train_files()
+    trained = start_train(files)
+    q_src = None
+    try:
+        with ThreadPoolExecutor(2) as pre:
+            q_job = pre.submit(quality_source,
+                               np.random.default_rng(SEED + 13), LLAMA_7B, 1)
+            init_job = pre.submit(cmp_init)
+            phase_build()
+            done("build")
+            q_src, init2 = q_job.result(), init_job.result()
+        # no kernel is timed while the training runs
+        trained = {**finish_train(trained), "out": trained["out"]}
+        done("training 13a")
+        return run_phases(device, rng, smi, kind, files, trained, q_src,
+                          init2, done)
+    finally:
+        proc = trained.get("proc")
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for path in ((q_src[0] if q_src else None), files["vocab"],
+                     files["text"], trained["out"]):
+            if path is not None and os.path.exists(path):
+                os.remove(path)
+
+
+def cmp_init() -> dict:
+    """13a''s initial weights (init_params at TRAIN_CMP's depth), CPU."""
+    from tpulamm_torch.train.model import init_params
+    return init_params(train_cfg(TRAIN_CMP["layers"]), seed=TRAIN_SEED,
+                       device="cpu")
+
+
+def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
+               q_src: tuple, init2: dict, done) -> int:
+    """Phases 3-13, the kernels line and the last line."""
     stats = phase_kernels(device, rng)
     done("kernels")
     stats.update(phase_flash(device, rng))
@@ -4374,7 +5208,8 @@ def main() -> int:
     done("speculation, 2 layers")
     # a generator of its own, as phase 7 has
     # 1 layer, cut from 2 to make room for phase 11 in the time limit
-    phase_quality(device, np.random.default_rng(SEED + 13), smi, n_layers=1)
+    phase_quality(device, np.random.default_rng(SEED + 13), smi, n_layers=1,
+                  source=q_src)
     done("quality")
     # generators of their own, as phase 7 has
     phase_moe(device, np.random.default_rng(SEED + 16), smi)
@@ -4393,6 +5228,10 @@ def main() -> int:
         done("harness tools")
     finally:
         os.remove(lv["lm"])
+    # phase 13 (slice 18), a generator of its own
+    phase_train(device, np.random.default_rng(SEED + 27), smi, files,
+                trained, init2)
+    done("train")
     decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "

@@ -159,14 +159,36 @@ def test_main_interactive(path, monkeypatch):
     assert got[1].count("Q: ") == 2 and "never" not in got[1]
 
 
-@pytest.mark.parametrize("flag", [["--lora", "a.gguf"], ["--tp", "2"],
+@pytest.mark.parametrize("flag", [["--tp", "2"],
                                   ["--dp", "2"], ["--coordinator", "h:1"],
                                   ["--num-processes", "2"],
                                   ["--process-id", "0"]])
 def test_main_refuses_unported(flag):
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 1[34]"):
+                       match="ROADMAP queue 1, item 14"):
         main.main(["-m", "no-such-model.gguf", *flag])
+
+
+def test_main_lora(path, tmp_path, monkeypatch):
+    """--lora: the JAX CLI's output with an adapter on wq, wv and w_down
+    (the JAX side on its numpy quantizers, which the port's codec equals),
+    and not the output without it."""
+    from tpulamm.quant import native as j_native
+    from tpulamm.train.lora import save_lora_gguf
+    monkeypatch.setattr(j_native, "get_lib", lambda: None)
+    rng = np.random.default_rng(9)
+    shapes = {"wq": (256, 256), "wv": (128, 256), "w_down": (256, 512)}
+    save_lora_gguf({"r": 4, "alpha": 8, "layers": [
+        {k: {"a": rng.normal(0, 0.25, (4, kk)).astype(np.float32),
+             "b": rng.normal(0, 0.05, (n, 4)).astype(np.float32)}
+         for k, (n, kk) in shapes.items()} for _ in range(2)]},
+        str(tmp_path / "ad.gguf"))
+    argv = main_argv(path, "--lora", str(tmp_path / "ad.gguf"))
+    want = run(jmain, argv)
+    got = run(main, argv + CPU)
+    assert got[0] == want[0] == 0
+    assert got[1] == want[1]
+    assert got[1] != run(main, main_argv(path) + CPU)[1]
 
 
 def test_infill(fim_path):

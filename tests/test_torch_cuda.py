@@ -937,3 +937,65 @@ def test_perplexity_card_vs_cpu_all_formats(dev, tmp_path):
             want = {k: 0 for k in got}
             want["qmm"] = 0 if fmt == "f32" else 9
             assert got == want, (fmt, key, got)
+
+
+# -- training and LoRA on the card -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "lbfgs"])
+def test_train_steps_card_vs_cpu(dev, optimizer):
+    """Three steps of train.train at a tiny size (dim 64, 2 layers) on the
+    card and on the CPU from the same draws: each step's loss within 1e-5
+    relative (AdamW; 1e-4 for L-BFGS, whose line search may take another
+    trial near a threshold) and the params within 1e-5 of max|p| (1e-4)."""
+    from tpulamm_torch.models.config import ModelConfig
+    from tpulamm_torch.ops.rope import RopeParams
+    from tpulamm_torch.train import model as TM
+    from tpulamm_torch.train import optim as TO
+    from tpulamm_torch.train.train import TrainConfig, train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(vocab_size=64, dim=64, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_dim=128, n_ctx_train=64,
+                      rope=RopeParams(n_rot=16), compute_dtype="float32")
+    data = np.tile(np.arange(10, dtype=np.int32), 60)
+    tc = TrainConfig(optimizer=optimizer, lr=3e-3 if optimizer == "adamw"
+                     else 0.5, batch_size=4, seq_len=16, n_steps=3,
+                     warmup_steps=1)
+    out = {}
+    for d in ("cpu", dev):
+        out[str(d)] = train(TM.init_params(cfg, seed=0, device=d), cfg,
+                            data, tc, log_every=0)
+    (pc, lc), (pg, lg) = out["cpu"], out[str(dev)]
+    tol = 1e-5 if optimizer == "adamw" else 1e-4
+    np.testing.assert_allclose(lg, lc, rtol=tol)
+    for a, b in zip(TO.tree_leaves(pc), TO.tree_leaves(pg)):
+        assert float((b.cpu() - a).abs().max()) <= tol * float(a.abs().max())
+
+
+@pytest.mark.cuda
+def test_engine_lora_planes_equal_exported_file(dev, tiny_gguf, tmp_path):
+    """Engine(lora_path=) on the card patches the planes export_lora
+    writes: the fused and unfused patched weights equal, bit for bit, those
+    of an engine on the exported file, and its logits those of that
+    engine."""
+    from tpulamm_torch.cli.export_lora import export_lora
+    from tpulamm_torch.runtime.engine import Engine
+    from tpulamm_torch.train.lora import save_lora_gguf
+    rng = np.random.default_rng(21)
+    ad = str(tmp_path / "ad.gguf")
+    save_lora_gguf({"r": 8, "alpha": 16, "layers": [
+        {k: {"a": torch.from_numpy(rng.normal(0, 0.125, (8, 1024)).astype(
+                 np.float32)),
+             "b": torch.from_numpy(rng.normal(0, 0.02, (1024, 8)).astype(
+                 np.float32))} for k in ("wq", "wv", "w_down")}
+        for _ in range(2)]}, ad)
+    baked = str(tmp_path / "baked.gguf")
+    export_lora(tiny_gguf, baked, [(ad, 1.0)], verbose=False)
+    a = Engine(tiny_gguf, n_ctx=64, lora_path=ad, device=dev)
+    b = Engine(baked, n_ctx=64, device=dev)
+    for la, lb in zip(a.params["layers"], b.params["layers"]):
+        for key in ("wqkv_fused", "wgateup_fused", "wo", "w_down"):
+            for name, plane in la[key].planes.items():
+                assert torch.equal(plane, lb[key].planes[name]), (key, name)
+    toks = [1, 5, 9, 77, 300, 12]
+    assert np.array_equal(a.prefill(0, toks), b.prefill(0, toks))

@@ -1,6 +1,6 @@
 """The port stands alone: importing every tpulamm_torch module and
-chip_smoke.py loads no jax, nothing of the tpulamm package and no
-`regex` (the JAX BPE tokenizer's dependency, absent on the GPU machine),
+chip_smoke.py loads no jax, no optax, nothing of the tpulamm package and
+no `regex` (the JAX BPE tokenizer's dependency, absent on the GPU machine),
 and no source file of theirs imports any of them; nor do they load
 `transformers` or `PIL`, which the GPU machine lacks too: no source
 imports either at module level (a function may, where it skips without
@@ -30,7 +30,7 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "regex") or top == "tpulamm"
+    return top in ("jax", "jaxlib", "optax", "regex") or top == "tpulamm"
 
 
 def _absent_on_card(name: str) -> bool:

@@ -208,5 +208,12 @@ def test_build_corpus_and_vocab(tmp_path):
     repo = PQ.build_corpus()
     assert len(repo) > 40_000            # the repository's prose
     assert PQ.byte_vocab() == JQ.byte_vocab()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PQ.train_model(str(tmp_path / "x.gguf"))
+    # train_model at a tiny size, one step (lr 0 at the schedule's first
+    # count): the JAX tool's file byte for byte
+    kw = dict(dim=64, n_layers=2, n_heads=4, n_kv_heads=2, ffn=128,
+              seq_len=32, n_steps=1, batch_size=2, corpus=repo[:20_000],
+              log=lambda s: None)
+    JQ.train_model(str(tmp_path / "j.gguf"), **kw)
+    PQ.train_model(str(tmp_path / "p.gguf"), device="cpu", **kw)
+    assert (tmp_path / "j.gguf").read_bytes() == \
+        (tmp_path / "p.gguf").read_bytes()

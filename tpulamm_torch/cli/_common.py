@@ -4,7 +4,6 @@ from __future__ import annotations
 
 import os
 
-TRAIN_ITEM = "ROADMAP queue 1, item 13 (training and LoRA)"
 MESH_ITEM = "ROADMAP queue 1, item 14 (parallelism)"
 DISTRIBUTED_FLAGS = ("coordinator", "num_processes", "process_id")
 
@@ -31,13 +30,11 @@ def add_unported_args(p) -> None:
                        help=f"multi-host runs: not ported ({MESH_ITEM})")
 
 
-def refuse_unported(tp: int = 1, dp: int = 1, multihost: bool = False,
-                    lora: str | None = None) -> None:
-    """Raise for an option of the JAX CLIs and server the port does not
-    run yet, naming the ROADMAP item that brings it."""
-    if lora:
-        raise NotImplementedError(
-            f"--lora: LoRA adapters are not ported yet ({TRAIN_ITEM})")
+def refuse_unported(tp: int = 1, dp: int = 1,
+                    multihost: bool = False) -> None:
+    """Raise for the mesh and multi-host options of the JAX CLIs and
+    server, which the port does not run yet, naming the ROADMAP item that
+    brings them."""
     if tp > 1 or dp > 1 or multihost:
         what = (f"--tp {tp} / --dp {dp}" if tp > 1 or dp > 1
                 else "multi-host runs")

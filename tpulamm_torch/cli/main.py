@@ -12,7 +12,8 @@ of the reference can switch directly:
   --mirostat, --mirostat-lr, --mirostat-ent, --ignore-eos, --grp-attn-n,
   --grp-attn-w, -i/--interactive, --color, --samplers
 
---lora, --tp / --dp and the multi-host flags are accepted and refused with
+--lora applies a LoRA adapter GGUF at load (Engine(lora_path=)). --tp /
+--dp and the multi-host flags are accepted and refused with
 NotImplementedError naming the ROADMAP item that brings them.
 """
 
@@ -82,8 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="negative prompt for classifier-free guidance")
     p.add_argument("--cfg-scale", type=float, default=1.0)
     p.add_argument("--lora", default=None,
-                   help="a LoRA adapter GGUF: not ported (ROADMAP queue 1, "
-                        "item 13)")
+                   help="apply a LoRA adapter GGUF at load time")
     p.add_argument("--grammar", default=None,
                    help="GBNF grammar constraining the output")
     p.add_argument("--grammar-file", default=None,
@@ -144,7 +144,7 @@ def _process_escapes(s: str) -> str:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args.tp, args.dp, lora=args.lora, multihost=any(
+    refuse_unported(args.tp, args.dp, multihost=any(
         getattr(args, a) is not None for a in DISTRIBUTED_FLAGS))
     require_file(build_parser(), args.model)
     logm.setup(args, "main")
@@ -168,7 +168,8 @@ def main(argv=None):
                     kv_dtype=args.cache_type_k,
                     kv_dtype_v=args.cache_type_v,
                     grp_attn_n=args.grp_attn_n, grp_attn_w=args.grp_attn_w,
-                    kv_overrides=overrides, device=args.device)
+                    lora_path=args.lora, kv_overrides=overrides,
+                    device=args.device)
 
     sampling = SamplingParams(
         seed=args.seed if args.seed >= 0 else 0xFFFFFFFF,

@@ -2,9 +2,9 @@
 (counterpart of tpulamm.models.loader) for every architecture of
 models.config.
 
-Quantized tensors are repacked once (quant/repack.py, numpy; the token
-embedding, the lm head and the layers in parallel threads) into the mm or
-rows planes and copied to the device;
+Quantized tensors are copied to the device as GGUF blocks and repacked
+there once (quant/repack.py, torch ops; the token embedding, the lm head
+and the layers in parallel threads) into the mm or rows planes;
 weights that do not tile (K % 256 or N % 128) are stored dense. A fused
 attn_qkv weight is split into wq/wk/wv rows at load time (every row of a
 block-quant tensor is coded on its own, so the split is exact;
@@ -260,10 +260,10 @@ def load_model(path: str, *, compute_dtype: str | None = None,
         # bert is an embedding model with no lm head
         cfg.tie_embeddings = True
 
-    # the token embedding, the head and the layers repack in parallel
-    # threads: numpy releases the GIL in the copies and bit operations
-    # that take the time (about 4x faster on 8 cores at LLaMA-7B shape;
-    # the embedding and the head are most of a model of a layer or two)
+    # the token embedding, the head and the layers load in parallel
+    # threads: the reads of the mapped file and the copies to the device
+    # release the GIL (the embedding and the head are most of a model of a
+    # layer or two)
     def layer(i):
         if abort is not None and abort():
             raise AbortError(f"model load cancelled at layer {i}")

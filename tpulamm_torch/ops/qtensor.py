@@ -71,12 +71,13 @@ class QTensor:
     def from_gguf_raw(cls, raw: np.ndarray, qtype: GGMLType,
                       shape: tuple[int, int], layout: str = "mm",
                       device="cpu") -> "QTensor":
+        """GGUF block bytes -> planes on `device`: the raw bytes are copied
+        there and repacked there (quant.repack)."""
         n, k = shape
         fn = repack_mm if layout == "mm" else repack_rows
-        planes = fn(raw.reshape(n, -1), qtype, k)
+        raw = plane_from_numpy(np.asarray(raw).reshape(n, -1), device)
         return cls(qtype=qtype, shape=(n, k), layout=layout,
-                   planes={name: plane_from_numpy(p, device)
-                           for name, p in planes.items()})
+                   planes=fn(raw, qtype, k))
 
     @staticmethod
     def concat_n(qts: list["QTensor"]) -> "QTensor":

@@ -6,11 +6,15 @@ Parity with ggml's quantize_row_q4_0_impl / quantize_row_q5_0_impl
 candidates -(nmax + 0.1*is)/max and keep the one maximizing
 (Σ w·x·L)² / Σ w·L², with per-element weights
 w = qw * sqrt(sigma2 + x²), sigma2 = mean(x²) per row and qw the
-per-column importance collected by the imatrix tool. Vectorized over all
-blocks at once (numpy), instead of the reference's per-row C loop.
+per-column importance collected by the imatrix tool. Vectorized over the
+blocks of 64 rows at a time (numpy), the row groups in threads, instead of
+the reference's per-row C loop.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -90,10 +94,23 @@ _WEIGHTED = {
 }
 
 
+# rows a task of the weighted search: its (rows, K/32, 19, 32) candidates
+# stay a few tens of MB, and the tasks run in threads (numpy releases the
+# GIL in them); every block is searched on its own, so the bytes do not
+# depend on the split
+ROWS_A_TASK = 64
+
+
 def quantize_weighted(x: np.ndarray, qtype: GGMLType,
                       qw: np.ndarray | None) -> np.ndarray:
     """Weighted when supported and qw given; plain reference RTN otherwise
     (the reference's quantize_row_*_impl do the same fallback)."""
-    if qw is not None and qtype in _WEIGHTED:
-        return _WEIGHTED[qtype](x, qw)
-    return quantize(x, qtype)
+    if qw is None or qtype not in _WEIGHTED:
+        return quantize(x, qtype)
+    fn = _WEIGHTED[qtype]
+    rows = np.asarray(x).reshape(-1, x.shape[-1])
+    starts = range(0, rows.shape[0], ROWS_A_TASK)
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        parts = list(ex.map(
+            lambda i: fn(rows[i:i + ROWS_A_TASK], qw), starts))
+    return np.concatenate(parts).reshape(*x.shape[:-1], -1)

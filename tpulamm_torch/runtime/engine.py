@@ -144,7 +144,8 @@ class Engine:
                  flash_attn: bool | None = None, grp_attn_n: int = 1,
                  grp_attn_w: int = 512, megakernel: bool = False,
                  fused_ffn: bool = False, int8_inkq: bool = False,
-                 kv_overrides=None, load_abort=None, device=None):
+                 lora_path: str | None = None, kv_overrides=None,
+                 load_abort=None, device=None):
         """kv_dtype / kv_dtype_v: the K and V storage (-ctk / -ctv), a
         torch float dtype, its name, or "q8_0"; V defaults to K's.
         flash_attn: None picks the flash kernels by span as the JAX
@@ -157,6 +158,10 @@ class Engine:
         int8_inkq: the int8 gemv quantizes its activations inside its
         launch. fused_ffn and int8_inkq act on CUDA only, as their JAX
         switches act on the TPU only.
+        lora_path: a LoRA adapter GGUF applied to the loaded weights
+        (dequantize, add, requantize: train.lora.apply_lora_to_qparams)
+        before the projections are fused, so the fused QKV and gate|up
+        carry the delta (llama_model_apply_lora_from_file, --lora).
         kv_overrides: GGUF metadata values applied before the model's
         hyperparameters are read (--override-kv, models.loader).
         load_abort: () -> bool, checked before each layer loads; True
@@ -169,6 +174,12 @@ class Engine:
         self.cfg.flash_attn = flash_attn
         self.cfg.fused_ffn = fused_ffn
         self.cfg.int8_inkq = int8_inkq
+        if lora_path:
+            # llama_model_apply_lora_from_file parity (llama.h:436)
+            from tpulamm_torch.train.lora import (apply_lora_to_qparams,
+                                                  load_lora_gguf)
+            self.params = apply_lora_to_qparams(
+                self.params, load_lora_gguf(lora_path), self.cfg)
         self._fuse_projections()
         self.tokenizer = (build_tokenizer(self.metadata)
                           if "tokenizer.ggml.tokens" in self.metadata else None)

@@ -8,10 +8,11 @@ held-out text. The text is the repository's own prose (its markdown
 files), the same bytes on every host, tokenized as bytes (id = byte + 3,
 the mapping the JAX package trains its quality model on).
 
+    python -m tpulamm_torch.tools.quality_table --train -m F32.gguf
     python -m tpulamm_torch.tools.quality_table -m F32.gguf [--device cpu]
 
-Training the model (`--train`, `train_model`) needs the training path,
-which the port does not have yet (ROADMAP queue 1 item 13).
+--train (train_model) first trains a small byte-level llama on 95% of the
+corpus (train.train, AdamW) and writes it as the F32 model.
 """
 
 from __future__ import annotations
@@ -67,12 +68,34 @@ def byte_vocab() -> dict:
             "model": "llama", "bos": 1, "eos": 2}
 
 
-def train_model(out_path: str, **kw):
-    """The JAX tool trains a small llama on the corpus here."""
-    raise NotImplementedError(
-        "training the quality model needs the training path (train/, "
-        "ROADMAP queue 1 item 13), which the port does not have yet; pass "
-        "an F32 GGUF with -m instead")
+def train_model(out_path: str, *, dim=512, n_layers=8, n_heads=8,
+                n_kv_heads=4, ffn=1408, seq_len=512, n_steps=1500,
+                batch_size=16, lr=3e-4, remat=False,
+                corpus: bytes | None = None, log=print, device=None):
+    """Train a byte-level llama (ids = byte + 3) on the first 95% of the
+    corpus and write it as an F32 GGUF with the byte vocab; the JAX tool's
+    model, config and draws. device: the training's (default "cuda")."""
+    from tpulamm_torch.models.config import ModelConfig
+    from tpulamm_torch.ops.rope import RopeParams
+    from tpulamm_torch.train.model import init_params, save_params_gguf
+    from tpulamm_torch.train.train import TrainConfig, train
+
+    corpus = corpus if corpus is not None else build_corpus()
+    log(f"corpus: {len(corpus) / 1e6:.1f} MB")
+    data = np.frombuffer(corpus, np.uint8).astype(np.int32) + 3  # byte toks
+    cfg = ModelConfig(vocab_size=259, dim=dim, n_layers=n_layers,
+                      n_heads=n_heads, n_kv_heads=n_kv_heads, ffn_dim=ffn,
+                      n_ctx_train=seq_len,
+                      rope=RopeParams(n_rot=dim // n_heads))
+    params = init_params(cfg, seed=0, device=device)
+    tc = TrainConfig(lr=lr, batch_size=batch_size, seq_len=seq_len,
+                     n_steps=n_steps, warmup_steps=50, seed=0, remat=remat)
+    params, losses = train(params, cfg, data[: int(len(data) * 0.95)], tc,
+                           log_every=100, log=log)
+    save_params_gguf(params, cfg, out_path, vocab=byte_vocab())
+    log(f"saved {out_path} (final loss {losses[-1]:.3f} = "
+        f"ppl {np.exp(losses[-1]):.2f})")
+    return out_path
 
 
 def quality_table(f32_path: str, *, corpus: bytes | None = None,
@@ -127,9 +150,10 @@ def quality_table(f32_path: str, *, corpus: bytes | None = None,
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpulamm-torch-quality-table")
-    p.add_argument("-m", "--model", required=True, help="F32 GGUF")
-    p.add_argument("--train", action="store_true",
-                   help="train the model first (needs ROADMAP item 13)")
+    p.add_argument("-m", "--model", default="tmp_bench/quality_f32.gguf",
+                   help="F32 GGUF (trained if --train)")
+    p.add_argument("--train", action="store_true")
+    p.add_argument("--steps", type=int, default=1500)
     p.add_argument("--n-chunks", type=int, default=8)
     p.add_argument("-o", "--output", default=None,
                    help="write the table as JSON here")
@@ -138,10 +162,10 @@ def main(argv=None):
                         "path)")
     args = p.parse_args(argv)
     corpus = build_corpus()
-    if args.train:
-        train_model(args.model)
-    from tpulamm_torch.cli._common import require_file
-    require_file(p, args.model)
+    if args.train or not os.path.exists(args.model):
+        os.makedirs(os.path.dirname(args.model) or ".", exist_ok=True)
+        train_model(args.model, n_steps=args.steps, corpus=corpus,
+                    device=args.device)
     rows = quality_table(args.model, corpus=corpus, n_chunks=args.n_chunks,
                          device=args.device)
     print(json.dumps(rows, indent=1))
