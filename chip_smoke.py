@@ -42,6 +42,12 @@ Phases (any failure raises, so the exit code is not 0):
      streaming probe's entry point (tools/stream_ceiling.py) on a 2 GiB
      buffer, and the kernel timed there beside its plain version,
      torch.sum(x, 0) and the bound: the card's measured streaming ceiling
+  3e. the kernels at the mesh's shard shapes: qmm at M = 512 and qmm_int8
+     at M = 1 and 16 on a LLaMA-7B tp = 2 rank's five products (QKV
+     6144 x 4096, gate|up 11008 x 4096, wo 4096 x 2048, the replicated
+     w_down 4096 x 11008, the head 16384 x 4096; N x K), and ffn_fused at
+     M = 1 on a Mistral-7B tp = 2 rank's gate|up and down shards, each
+     against its plain version at the tolerances above, timed beside it
   Every decode step below runs as a replay of a captured CUDA graph
   (runtime/decode_graph.py): each decode path holds its block's tokens
   against the same step called eagerly from the same cache (16-32 steps),
@@ -317,6 +323,24 @@ Phases (any failure raises, so the exit code is not 0):
      and spec_bench (a target and a draft of 20 steps each, 32 tokens,
      k 4: the trained pair's accept rates). The CPU sides run in a process
      of their own (4 threads) while the card's run
+  14. the mesh (slice 19). 14a, on phase 4's model: Engine(tp=2) against
+     Engine(tp=1) on the card: the 512-token prefill's logits (cosine >=
+     MESH_COS) and a second ubatch's at span 1,024, 64 greedy tokens of
+     generate_fast (equal, or parted only at a near tie), exactly 258 qmm a
+     ubatch, 258 qmm_int8 a decode step and 64 flash_attention at span
+     1,024, prefill / decode tok/s and event ms a step beside tp = 1's.
+     14b: the server at tp 2 x dp 2 with 4 slots over loopback HTTP: four
+     concurrent greedy requests, each text equal to the request served
+     alone, exactly 516 qmm a prefill ubatch and 516 qmm_int8 a step, the
+     /metrics tier counters. 14c, at 2 layers of the same width: the
+     server CLI in two processes on the one card (--coordinator,
+     --num-processes 2, tp 2 across them, gloo, the broadcast channel): a
+     completion equal to the one-process tp 2 server's, then the worker
+     killed and the next request answered 503 within --mh-heartbeat. 14d:
+     cli.main and cli.bench with --tp 2 (main's text that of --tp 1; both
+     exactly twice --tp 1's launches), and 2 layers of Mistral-7B width
+     with fused_ffn at tp 2 against tp 1 (ffn_fused on each rank's shards:
+     exact launches, the same greedy tokens or a near-tie parting)
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -336,6 +360,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -5044,6 +5069,418 @@ def compare_imatrix(card_npz: str, cpu_npz: str) -> dict:
     return {"rel": worst, "elem_rel": elem}
 
 
+# -- slice 19: the mesh for serving -------------------------------------------
+# LLaMA-7B's projections as a tp = 2 rank runs them (N, K): its N-slice of
+# the fused QKV and gate|up, its K-slice of wo, the replicated w_down (K =
+# 11,008 is not a multiple of 2 x 256) and its half of the padded head
+TP2_SHAPES = {"tp2 wqkv": (6144, 4096), "tp2 gate_up": (11008, 4096),
+              "tp2 wo": (4096, 2048), "tp2 down (replicated)": (4096, 11008),
+              "tp2 lm_head": (16384, 4096)}
+# the fused FFN on a rank's shards needs a K-sharded w_down: Mistral-7B's
+# ffn 14,336 splits (7,168 a rank); LLaMA-7B's FFN takes the gathered
+# (unfused) path at tp 2
+MISTRAL_7B = dict(dim=4096, ffn=14336, n_head=32, n_kv=8, vocab=32000)
+TP2_FFN = (4096, 7168)                 # (dim, a rank's ffn)
+MESH_COS = 0.999                       # phase 4's prefill limit (card_vs_cpu)
+MESH_PROMPTS = (40, 120, 200, 300)     # 14b's four requests
+# written before the first chip run (PERF.md section 5)
+MESH_PREDICTIONS = {"tp2_prefill_tok_s": (5000.0, 6800.0),
+                    "tp2_decode_tok_s": (60.0, 100.0)}
+
+
+def phase_shards(device, reps: int = 20) -> dict:
+    """Phase 3e: qmm at M = 512 and qmm_int8 at M = 1 and 16 on LLaMA-7B's
+    tp = 2 shard shapes (TP2_SHAPES, Q4_0), and ffn_fused at M = 1 on a
+    Mistral-7B tp = 2 rank's gate|up and down shards, each against its
+    plain version at the phase-3 tolerances and timed beside it (no
+    limit on the times), from a generator of its own (seed SEED + 28)."""
+    rng = np.random.default_rng(SEED + 28)
+    gen = torch.Generator(device).manual_seed(SEED + 28)
+    out = {}
+
+    def q(n, k):
+        return QTensor.from_gguf_raw(random_blocks(GGMLType.Q4_0, n, k, rng),
+                                     GGMLType.Q4_0, (n, k), device=device)
+    for label, (n, k) in TP2_SHAPES.items():
+        qt = q(n, k)
+        w_bf16 = dequant_mm(qt, torch.bfloat16)
+        for name, m, kern, plain, tol, peak in (
+                ("qmm", PREFILL_M, Q.qmm_cuda, Q.qmm_ref, TOL_QMM,
+                 PEAK_BF16_OPS),
+                ("qmm_int8", 1, Q.qmm_int8_cuda, Q.qmm_int8_ref, TOL_INT8,
+                 PEAK_INT8_OPS),
+                ("qmm_int8", 16, Q.qmm_int8_cuda, Q.qmm_int8_ref, TOL_INT8,
+                 PEAK_INT8_OPS)):
+            x = torch.randn((m, k), device=device, generator=gen)
+            rel, _ = rel_err(kern(x, qt), plain(x, qt))
+            if not rel <= tol:
+                raise AssertionError(f"{label} {name} M={m}: relative error "
+                                     f"{rel} > {tol}")
+            t = time_case(kern, plain, x, qt, w_bf16, peak, device, reps)
+            out[label, name, m] = t[0]
+            log(case_line(f"Q4_0 {label} M={m} N={n} K={k}", name, rel, *t))
+        del qt, w_bf16
+    dim, ffn = TP2_FFN
+    gu, dn = q(2 * ffn, dim), q(dim, ffn)
+    if not FF.ffn_fused_eligible(gu, dn, 1):
+        raise AssertionError("ffn_fused: the Mistral-7B tp2 shards are not "
+                             "eligible")
+    x = torch.randn((1, dim), device=device, generator=gen)
+    got = FF.ffn_fused(x, gu, dn)
+    rel, _ = rel_err(got, FF.ffn_fused_ref(x, gu, dn))
+    if not (rel <= TOL_FFN and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"ffn_fused tp2 shard: relative error {rel} > "
+                             f"{TOL_FFN}")
+    t = (time_ms(lambda: FF.ffn_fused(x, gu, dn), device, reps),
+         time_ms(lambda: FF.ffn_fused_ref(x, gu, dn), device, reps),
+         time_ms(FAB.library(x, gu, dn), device, reps)
+         ) + FAB.bound_ms(1, gu, dn)
+    out["ffn_fused"] = t[0]
+    log(case_line(f"Q4_0 Mistral-7B tp2 shard M=1 dim={dim} ffn={ffn}",
+                  "ffn_fused", rel, *t, library="2 bf16 matmul + silu"))
+    for name, m in (("qmm", PREFILL_M), ("qmm_int8", 1), ("qmm_int8", 16)):
+        s = sum(v for key, v in out.items() if key[1:] == (name, m))
+        log(f"[kernels] {name} M={m} over a tp = 2 rank's five 7B shards: "
+            f"{s:.4f} ms (x 2 ranks: {2 * s:.4f} ms)")
+    return out
+
+
+def event_ms(call, device, n: int = 3) -> float:
+    """Device ms of one call by CUDA events (after one more), no
+    profiler."""
+    call()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    a.record()
+    for _ in range(n):
+        call()
+    b.record()
+    torch.cuda.synchronize(device)
+    return a.elapsed_time(b) / n
+
+
+def mesh_run(eng, prompt: list, prompt2: list, n_predict: int, device,
+             n_layers: int, ranks: int) -> dict:
+    """14a's drive of one engine: the 512-token prefill (its launches
+    exactly `ranks` x (4 x n_layers + 1) qmm), a second ubatch at span
+    1,024 (flash_attention once a layer and rank), generate_fast (a qmm
+    pass, then the same qmm_int8 count a step) and a 16-step block timed
+    by CUDA events."""
+    per = ranks * (4 * n_layers + 1)
+    eng.reset_slot(0)
+    reset_port_launches()
+    lg = eng.prefill(0, prompt)
+    expect_launches("mesh prefill", {"qmm": per})
+    reset_port_launches()
+    lg2 = eng.prefill(0, prompt2)
+    expect_launches("mesh span-1024 ubatch",
+                    {"qmm": per, "flash_attention": ranks * n_layers})
+    eng.generate_fast(prompt, n_predict=n_predict, stop_on_eos=False)
+    eng.timings = Timings()
+    reset_port_launches()
+    n_graphs = len(eng.graphs.graphs)
+    t0 = time.perf_counter()
+    ids, _ = eng.generate_fast(prompt, n_predict=n_predict,
+                               stop_on_eos=False)
+    wall = time.perf_counter() - t0
+    tm = eng.timings
+    out = {"logits": lg, "logits2": lg2, "ids": ids, "steps": tm.n_step,
+           "prefill_tok_s": tm.n_prefill / tm.t_prefill,
+           "decode_tok_s": (len(ids) - 1) / tm.t_eval, "wall_s": wall,
+           "t_eval_s": tm.t_eval,
+           "new_graphs": len(eng.graphs.graphs) - n_graphs}
+    expect_launches("mesh generate_fast",
+                    {"qmm": per, "qmm_int8": per * tm.n_step})
+    base = int(eng.n_past[0])
+    out["step_ms"] = event_ms(lambda: (eng.rollback(0, base),
+                                       eng.decode_batch_fast({0: 5}, 16)),
+                              device) / 16
+    eng.rollback(0, base)
+    return out
+
+
+def phase_mesh(device, rng, path: str, n_layers: int, smi: str,
+               prompt_len: int = PROMPT, n_predict: int = 64) -> dict:
+    """Phase 14a-b on the phase-4 model. 14a: Engine(tp=2) at n_slots 1
+    against Engine(tp=1) on the same card: the 512-token prefill's logits
+    by cosine (>= MESH_COS), 64 greedy tokens of generate_fast (equal, or
+    parted at a near tie of the tp = 1 logits), exact launches (258 qmm a
+    ubatch, 258 qmm_int8 a step, 64 flash_attention for a ubatch at span
+    1,024), prefill and decode tok/s and event ms a step beside tp = 1's.
+    14b: the server with tp 2, dp 2 and 4 slots over loopback HTTP: four
+    concurrent greedy requests, each text equal to the request served
+    alone, 516 qmm a prefill ubatch and 516 qmm_int8 a step (4 ranks x
+    129), the /metrics tier counters."""
+    t_phase = time.perf_counter()
+    prompt = rng.integers(3, LLAMA_7B["vocab"], size=prompt_len).tolist()
+    prompt2 = rng.integers(3, LLAMA_7B["vocab"], size=prompt_len).tolist()
+    res = {}
+    for tp in (1, 2):
+        t0 = time.perf_counter()
+        eng = Engine(path, n_ctx=2048, tp=tp, device=device)
+        load = time.perf_counter() - t0
+        if tp == 2:
+            c = eng.cfg_step
+            if (c.row_attn, c.row_ffn, c.head_sharded) != ("psum", "gather",
+                                                           True):
+                raise AssertionError(f"tp 2 modes {c.row_attn}, {c.row_ffn},"
+                                     f" head sharded {c.head_sharded}")
+            if eng.mesh.describe() != ("mesh (dp 1, tp 2): 2 ranks on "
+                                       f"{device}, 1 process"):
+                raise AssertionError(eng.mesh.describe())
+        r = res[tp] = mesh_run(eng, prompt, prompt2, n_predict, device,
+                               n_layers, tp)
+        r["load_s"] = load
+        log(f"[mesh] tp {tp}: load {load:.2f} s, prefill {prompt_len} tokens "
+            f"{r['prefill_tok_s']:.1f} tok/s, decode {len(r['ids']) - 1} "
+            f"tokens {r['decode_tok_s']:.2f} tok/s ({r['steps']} steps; "
+            f"generate_fast {r['wall_s']:.3f} s wall, {r['t_eval_s']:.3f} s "
+            f"of decode, {r['new_graphs']} graphs captured in it), "
+            f"{r['step_ms']:.3f} event ms a step of a 16-step block; launches "
+            f"exact: {tp * (4 * n_layers + 1)} qmm a ubatch, as many "
+            f"qmm_int8 a step, {tp * n_layers} flash_attention at span 1024")
+        if tp == 1:
+            ref = eng
+        else:
+            del eng
+    cos = cosine(res[2]["logits"], res[1]["logits"])
+    cos2 = cosine(res[2]["logits2"], res[1]["logits2"])
+    if not (cos >= MESH_COS and cos2 >= MESH_COS):
+        raise AssertionError(f"tp 2 vs tp 1 prefill cosine {cos}, {cos2} < "
+                             f"{MESH_COS}")
+    same = greedy_parting(ref, prompt, res[1]["ids"], res[2]["ids"],
+                          "mesh tp2")
+    log(f"[mesh] tp 2 vs tp 1: prefill logit cosine {cos!r} ({prompt_len} tokens), "
+        f"{cos2!r} (the span-1024 ubatch) (>= {MESH_COS}); generate_fast "
+        f"{same}; decode {res[2]['decode_tok_s'] / res[1]['decode_tok_s']:.3f}"
+        f"x, prefill {res[2]['prefill_tok_s'] / res[1]['prefill_tok_s']:.3f}"
+        f"x of tp 1; {smi}")
+    del ref
+    torch.cuda.empty_cache()
+    # 14b: the dp 2 x tp 2 server, 4 slots
+    t0 = time.perf_counter()
+    started, base = boot_server(path, device, n_slots=4, n_ctx=2048, tp=2,
+                                dp=2)
+    eng = started.sched.engine
+    per = 4 * (4 * n_layers + 1)
+    try:
+        reqs = [{"prompt": gen_prompt(path, rng, n)[0], "n_predict": 32,
+                 "temperature": 0.0, "repeat_penalty": 1.0}
+                for n in MESH_PROMPTS]
+        http(base, "/completion", {**reqs[0], "n_predict": 4})   # warm
+        eng.timings = Timings()
+        reset_port_launches()
+        with ThreadPoolExecutor(4) as ex:
+            conc = list(ex.map(lambda r: http(base, "/completion", r), reqs))
+        got = port_launches()
+        steps = eng.timings.n_step
+        want = {"qmm": per * len(reqs), "qmm_int8": per * steps}
+        if {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"dp2 x tp2 server launches {got} != {want}")
+        alone = [http(base, "/completion", r) for r in reqs]
+        for i, (a, b) in enumerate(zip(conc, alone)):
+            if a["content"] != b["content"]:
+                raise AssertionError(f"request {i}: concurrent text differs "
+                                     "from the request served alone")
+        m = metrics_of(base)
+    finally:
+        stop_server(started)
+    del eng
+    torch.cuda.empty_cache()
+    tiers = {k: m[k] for k in ("decode_fast_blocks_total",
+                               "decode_sampled_blocks_total",
+                               "decode_slow_steps_total",
+                               "mh_workers_lost")}
+    log(f"[mesh] server tp 2 x dp 2, 4 slots: four concurrent greedy requests"
+        f" ({', '.join(map(str, MESH_PROMPTS))} tokens in, 32 out) equal to "
+        f"each served alone; launches exact: {per} qmm a prefill ubatch x "
+        f"{len(reqs)}, {per} qmm_int8 a step x {steps}; tiers {tiers}; "
+        f"{time.perf_counter() - t0:.1f} s with its load")
+    secs = time.perf_counter() - t_phase
+    pl, ph = MESH_PREDICTIONS["tp2_prefill_tok_s"]
+    dl, dh = MESH_PREDICTIONS["tp2_decode_tok_s"]
+    log(f"[mesh] phase 14a-b {secs:.1f} s; tp 2 prefill "
+        f"{res[2]['prefill_tok_s']:.1f} tok/s (predicted {pl:g}-{ph:g}), "
+        f"decode {res[2]['decode_tok_s']:.2f} tok/s (predicted {dl:g}-"
+        f"{dh:g}); {smi}")
+    return {"tp1": {k: v for k, v in res[1].items() if "logits" not in k},
+            "tp2": {k: v for k, v in res[2].items() if "logits" not in k},
+            "seconds": secs}
+
+
+def mh_server(path: str, pid: int, coord: int, http_port: int, bport: int,
+              heartbeat: float, log_path: str, device):
+    """One process of 14c's two-process server (the port's server CLI)."""
+    argv = [sys.executable, "-m", "tpulamm_torch.server.server", "-m", path,
+            "--device", device.type,
+            "--tp", "2", "-np", "1", "-c", "512", "--coordinator",
+            f"127.0.0.1:{coord}", "--num-processes", "2", "--process-id",
+            str(pid), "--port", str(http_port), "--broadcast-port",
+            str(bport), "--mh-heartbeat", str(heartbeat)]
+    return subprocess.Popen(argv, stdout=open(log_path, "w"),
+                            stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh_small(device, rng, smi: str, n_layers: int = 2,
+                     heartbeat: float = 5.0) -> dict:
+    """Phase 14c-d at 2 layers of LLaMA-7B width. 14c: the two-process
+    server on the one card (--coordinator, --num-processes 2, tp 2 across
+    the processes, the broadcast channel): a completion equal to the
+    one-process tp 2 server's, then the worker killed and the next request
+    answered 503 within --mh-heartbeat. 14d: cli.main with --tp 2 (the
+    tokens of --tp 1, exactly twice its launches), cli.bench with --tp 2
+    (twice --tp 1's launches), and 2 layers of Mistral-7B width with
+    fused_ffn at tp 2 (ffn_fused on each rank's shards, its partial sums
+    added: 2 launches a layer and step) against tp 1."""
+    from tpulamm_torch.cli import bench as BENCH_CLI
+    t_phase = time.perf_counter()
+    work = os.path.join(SMOKE_DIR, "mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "llama7b_2l.gguf")
+    write_llama_gguf(path, n_layers, rng, **LLAMA_7B)
+    text, _ = gen_prompt(path, rng, 48)
+    req = {"prompt": text, "n_predict": 24, "temperature": 0.0}
+    out = {}
+    procs = []
+    try:
+        # 14c: the two processes load while the one-process server answers
+        coord, http0, bport = free_port(), free_port(), free_port()
+        procs = [mh_server(path, i, coord, http0, bport, heartbeat,
+                           os.path.join(work, f"mh{i}.log"), device)
+                 for i in (0, 1)]
+        started, base = boot_server(path, device, n_slots=1, n_ctx=512, tp=2)
+        try:
+            one = http(base, "/completion", req)
+        finally:
+            stop_server(started)
+        mh = f"http://127.0.0.1:{http0}"
+        t0 = time.perf_counter()
+        while True:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("a multi-host server process exited")
+            try:
+                http(mh, "/health", timeout=5)
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 240:
+                    raise AssertionError("the two-process server is not up")
+                time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        two = http(mh, "/completion", req)
+        if two["content"] != one["content"]:
+            raise AssertionError("two-process completion differs from the "
+                                 "one-process tp 2 server's")
+        procs[1].kill()
+        procs[1].wait()
+        t_kill, code = time.perf_counter(), None
+        while code is None and time.perf_counter() - t_kill < 60:
+            try:
+                http(mh, "/completion", req, timeout=30)
+            except urllib.error.HTTPError as e:
+                code = e.code
+        t_503 = time.perf_counter() - t_kill
+        if code != 503 or t_503 > heartbeat:
+            raise AssertionError(f"after the worker died: HTTP {code} in "
+                                 f"{t_503:.2f} s (heartbeat {heartbeat} s)")
+        lost = metrics_of(mh)["mh_workers_lost"]
+        log(f"[mesh] two-process server (tp 2 across 2 processes on "
+            f"{device}, gloo): up {t_up:.1f} s after the one-process "
+            f"server's answer; {two['tokens_predicted']} tokens equal to "
+            f"the one-process tp 2 server's; worker killed: HTTP 503 after "
+            f"{t_503:.2f} s (heartbeat {heartbeat} s), mh_workers_lost "
+            f"{lost:g}")
+        out["t_503"] = t_503
+        for p in procs:
+            p.kill()
+            p.wait()
+        # 14d: cli.main and cli.bench at tp 1 and 2
+        argv = ["-m", path, "-p", text, "-n", "16", "--temp", "0", "-c",
+                "512", "--repeat-penalty", "1.0", "--no-display-prompt",
+                "--device", device.type]
+        runs = {}
+        for tp in (1, 2):
+            reset_port_launches()
+            rc, o, _, dt = run_cli(f"mesh-main-tp{tp}", gen_main.main,
+                                   argv + ["--tp", str(tp)])
+            runs[tp] = (rc, o, {k: v for k, v in port_launches().items()
+                                if v})
+        if runs[1][1] != runs[2][1] or runs[1][0] or runs[2][0]:
+            raise AssertionError("cli.main --tp 2 text differs from --tp 1")
+        if runs[2][2] != {k: 2 * v for k, v in runs[1][2].items()}:
+            raise AssertionError(f"cli.main launches tp 2 {runs[2][2]} != "
+                                 f"2 x tp 1 {runs[1][2]}")
+        log(f"[mesh] cli.main --tp 2: the text of --tp 1, launches "
+            f"{runs[2][2]} = 2 x {runs[1][2]}")
+        bl = {}
+        for tp in (1, 2):
+            reset_port_launches()
+            rc, o, _, _ = run_cli(f"mesh-bench-tp{tp}", BENCH_CLI.main, [
+                "-m", path, "-p", "128", "-n", "32", "-r", "1", "-c", "512",
+                "-o", "json", "--tp", str(tp), "--device", device.type])
+            bl[tp] = {k: v for k, v in port_launches().items() if v}
+            if rc:
+                raise AssertionError(f"cli.bench --tp {tp} returned {rc}")
+            out[f"bench_tp{tp}"] = json.loads(o.strip().splitlines()[-1])
+        if bl[2] != {k: 2 * v for k, v in bl[1].items()}:
+            raise AssertionError(f"cli.bench launches tp 2 {bl[2]} != 2 x "
+                                 f"tp 1 {bl[1]}")
+        log(f"[mesh] cli.bench --tp 2: {out['bench_tp2']} against --tp 1 "
+            f"{out['bench_tp1']}; launches {bl[2]} = 2 x {bl[1]}")
+        os.remove(path)
+        # 14d: the fused FFN on the ranks' shards (Mistral-7B width)
+        mpath = os.path.join(work, "mistral7b_2l.gguf")
+        write_llama_gguf(mpath, n_layers, rng, **MISTRAL_7B)
+        prompt = rng.integers(3, MISTRAL_7B["vocab"], size=64).tolist()
+        ids = {}
+        for tp in (1, 2):
+            eng = Engine(mpath, n_ctx=512, tp=tp, fused_ffn=True,
+                         device=device)
+            if tp == 2 and eng.cfg_step.row_ffn != "psum":
+                raise AssertionError(f"Mistral tp 2 row_ffn "
+                                     f"{eng.cfg_step.row_ffn}")
+            eng.generate_fast(prompt, n_predict=16, stop_on_eos=False)
+            eng.timings = Timings()
+            reset_port_launches()
+            ids[tp], _ = eng.generate_fast(prompt, n_predict=16,
+                                           stop_on_eos=False)
+            steps = eng.timings.n_step
+            expect_launches(f"mistral fused tp{tp}", {
+                "qmm": tp * (4 * n_layers + 1),
+                "qmm_int8": tp * (2 * n_layers + 1) * steps,
+                "ffn_fused": tp * n_layers * steps})
+            if tp == 1:
+                ref = eng
+        same = greedy_parting(ref, prompt, ids[1], ids[2], "mistral tp2")
+        log(f"[mesh] Mistral-7B width, 2 layers, fused_ffn: tp 2 {same} of "
+            f"tp 1; ffn_fused {2 * n_layers} launches a step on the ranks' "
+            f"shards (exact)")
+        del ref, eng
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for i in (0, 1):
+            lp = os.path.join(work, f"mh{i}.log")
+            if os.path.exists(lp):
+                for line in open(lp).read().splitlines()[-12:]:
+                    log(f"[mesh mh{i}] {line[:300]}")
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 14c-d {out['seconds']:.1f} s; {smi}")
+    return out
+
+
 def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
     """One line for each decode path: tok/s (or ms a step), the profiled
     wall and device ms a step of its graph replays, beside the prediction."""
@@ -5161,6 +5598,9 @@ def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
     """Phases 3-13, the kernels line and the last line."""
     stats = phase_kernels(device, rng)
     done("kernels")
+    # phase 3e (slice 19), a generator of its own
+    phase_shards(device)
+    done("shard kernels")
     stats.update(phase_flash(device, rng))
     done("flash")
     stats.update(phase_decode_kernels(device, rng))
@@ -5188,6 +5628,10 @@ def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
         phase_speculation(device, np.random.default_rng(SEED + 19),
                           sl["path"], sl["layers"], smi)
         done("speculation")
+        # phase 14a-b (slice 19), a generator of its own
+        phase_mesh(device, np.random.default_rng(SEED + 29), sl["path"],
+                   sl["layers"], smi)
+        done("mesh")
     finally:
         os.remove(sl["path"])
     # 16 layers, cut from 32 to make room for phase 11 in the time limit
@@ -5232,6 +5676,9 @@ def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
     phase_train(device, np.random.default_rng(SEED + 27), smi, files,
                 trained, init2)
     done("train")
+    # phase 14c-d (slice 19), a generator of its own
+    phase_mesh_small(device, np.random.default_rng(SEED + 30), smi)
+    done("mesh, 2 layers")
     decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "

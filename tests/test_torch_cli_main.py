@@ -163,10 +163,12 @@ def test_main_interactive(path, monkeypatch):
                                   ["--dp", "2"], ["--coordinator", "h:1"],
                                   ["--num-processes", "2"],
                                   ["--process-id", "0"]])
-def test_main_refuses_unported(flag):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 14"):
+def test_main_refuses_unported(flag, capsys):
+    """The mesh and multi-process flags parse; the model file is checked
+    before the process joins a process group or loads anything."""
+    with pytest.raises(SystemExit):
         main.main(["-m", "no-such-model.gguf", *flag])
+    assert "model not found" in capsys.readouterr().err
 
 
 def test_main_lora(path, tmp_path, monkeypatch):

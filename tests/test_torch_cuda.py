@@ -999,3 +999,29 @@ def test_engine_lora_planes_equal_exported_file(dev, tiny_gguf, tmp_path):
                 assert torch.equal(plane, lb[key].planes[name]), (key, name)
     toks = [1, 5, 9, 77, 300, 12]
     assert np.array_equal(a.prefill(0, toks), b.prefill(0, toks))
+
+
+# -- the mesh (parallel/mesh.py): every rank on the one card -------------------
+
+@pytest.mark.cuda
+def test_mesh_step_graph_tokens_equal_eager_steps(dev, tiny_gguf):
+    """A dp 2 x tp 2 engine's decode block: one captured graph a step over
+    the four ranks' launches and the collectives' sums and concatenations,
+    its tokens those of the same step run eagerly; every rank launches its
+    own products (the 512-row head shard takes qmm, the rest the int8
+    gemv)."""
+    from chip_smoke import eager_block
+    eng, toks = _slots_engine(tiny_gguf, dev, 4, tp=2, dp=2)
+    assert (eng.cfg_step.row_attn, eng.cfg_step.row_ffn) == ("psum", "psum")
+    start = {s: int(eng.n_past[s]) for s in toks}
+    Q.reset_launches()
+    got = eng.decode_batch_fast(toks, 12)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES == {"qmm": 4 * 12, "qmm_int8": 4 * 8 * 12,
+                          "qmm_int8_inkq": 0}
+    assert len(eng.graphs.graphs) == 1
+    for s in toks:
+        eng.rollback(s, start[s])
+    b, tok, pos, act = eng._block_inputs(toks, 12, "reference")
+    ref = eager_block(eng, "step", None, tok, pos, act, 12)
+    assert got == {s: [int(t) for t in ref[:, s]] for s in toks}

@@ -127,3 +127,12 @@ def test_entry_points_default_to_cuda(model, tmp_path):
         llava.main(["-m", model, "--mmproj", str(mm), "--image", str(img)])
     with pytest.raises(RuntimeError, match="CUDA"):
         LB.main(["-m", model, "--ctxs", "256", "--n-gen", "16"])
+    # the mesh runs on the card too: --tp 2 without CUDA raises before any
+    # rank is placed or a port is bound
+    from tpulamm_torch.cli import bench as tbench
+    from tpulamm_torch.server import server as tserver
+    for fn, argv in ((gen_main.main, ["-p", "hi", "-n", "2"]),
+                     (tbench.main, ["-p", "8", "-n", "2"]),
+                     (tserver.main, ["--port", "0"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(["-m", model, "--tp", "2", *argv])

@@ -4,7 +4,9 @@ no `regex` (the JAX BPE tokenizer's dependency, absent on the GPU machine),
 and no source file of theirs imports any of them; nor do they load
 `transformers` or `PIL`, which the GPU machine lacks too: no source
 imports either at module level (a function may, where it skips without
-them: make_bench_model's mmproj target, clip.load_image)."""
+them: make_bench_model's mmproj target, clip.load_image). The worker
+script the port's multi-process tests start (tests/_torch_mesh_worker.py)
+imports none of them either."""
 
 import ast
 import pathlib
@@ -15,6 +17,8 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "tpulamm_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# the worker scripts the port's multi-process tests start: port code too
+SCRIPTS = [ROOT / "tests" / "_torch_mesh_worker.py"]
 
 
 def _modules():
@@ -69,13 +73,16 @@ def test_imports_load_no_jax_or_tpulamm():
     import json
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "tpulamm_torch.runtime.engine" in loaded
+    assert "tpulamm_torch.parallel.distributed" in loaded
+    assert "tpulamm_torch.server.multihost" in loaded
     bad = [m for m in loaded if _forbidden(m) or _absent_on_card(m)]
     assert not bad, bad
 
 
 def test_sources_import_no_jax_or_tpulamm():
     bad = []
-    for p in SOURCES:
+    assert ROOT / "tpulamm_torch" / "parallel" / "mesh.py" in SOURCES
+    for p in SOURCES + SCRIPTS:
         tree = ast.parse(p.read_text(), str(p))
         for node in ast.walk(tree):
             bad += [f"{p.relative_to(ROOT)}: {n}" for n in _import_names(node)

@@ -429,22 +429,30 @@ def test_metrics_tiers(servers):
     assert set(t) <= set(j)
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(dp=2),
+@pytest.mark.parametrize("kw", [dict(tp=4), dict(dp=3),
                                 dict(broadcast=("127.0.0.1", 9000))])
-def test_serve_refuses_unported_tiers(kw):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 14"):
-        tserver.serve("no-such-model.gguf", **kw)
+def test_serve_refuses_unported_tiers(kw, tmp_path):
+    """serve runs the mesh and the broadcast channel now; what it refuses,
+    before any socket is bound, is a mesh the model cannot take (2 KV
+    heads at tp 4, 4 slots at dp 3) and a broadcast channel without a
+    multi-process world to broadcast to."""
+    path = write_tiny_llama(str(tmp_path / "m.gguf"), GGMLType.Q4_0, seed=5)
+    match = {"tp": "n_kv_heads", "dp": "n_slots",
+             "broadcast": "multi-process"}[next(iter(kw))]
+    with pytest.raises(ValueError, match=match):
+        tserver.serve(path, n_slots=4, n_ctx=64, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("argv", [
     ["--tp", "2"], ["--coordinator", "h:1"], ["--num-processes", "2"],
     ["--broadcast-port", "9"],
 ])
-def test_main_refuses_unported_flags(argv):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 14"):
+def test_main_refuses_unported_flags(argv, capsys):
+    """The mesh and multi-host flags parse; the model file is checked
+    before the process joins a process group or loads anything."""
+    with pytest.raises(SystemExit):
         tserver.main(["-m", "no-such-model.gguf", *argv])
+    assert "model not found" in capsys.readouterr().err
 
 
 # -- the speculative tiers (--lookup-decoding, --model-draft) ------------------

@@ -13,7 +13,10 @@ decode together through Engine.decode_batch_fast.
 
 --megakernel, --fused-ffn and --int8-inkq are the Engine options that the
 JAX package spells TPULAMM_MEGAKERNEL, TPULAMM_FUSED_FFN and
-TPULAMM_INT8_INKQ. --profile DIR writes a torch.profiler Chrome trace.
+TPULAMM_INT8_INKQ. --tp / --dp run the engine on a mesh (every rank on
+--device), and --coordinator / --num-processes / --process-id over several
+processes, each starting the same command (parallel.distributed).
+--profile DIR writes a torch.profiler Chrome trace.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import time
 
 import numpy as np
 
+from tpulamm_torch.parallel.distributed import (add_distributed_args,
+                                                init_from_args)
 from tpulamm_torch.runtime.kvcache import KV_CACHE_TYPES
 
 
@@ -176,11 +181,17 @@ def main(argv=None):
                    help="the int8 gemv quantizes inside its launch")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain path)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks of the mesh (all on --device)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel (slot-sharding) mesh dimension")
+    add_distributed_args(p)
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler Chrome trace into DIR")
     args = p.parse_args(argv)
     from tpulamm_torch.cli._common import require_file
     require_file(p, args.model)
+    init_from_args(args)
 
     from tpulamm_torch.runtime.engine import Engine
     pps = args.n_prompt or [512]
@@ -189,7 +200,8 @@ def main(argv=None):
     kw = dict(n_ctx=args.ctx_size, compute_dtype=args.compute_dtype,
               kv_dtype=args.cache_type_k, kv_dtype_v=args.cache_type_v,
               megakernel=args.megakernel, fused_ffn=args.fused_ffn,
-              int8_inkq=args.int8_inkq, device=args.device)
+              int8_inkq=args.int8_inkq, tp=args.tp, dp=args.dp,
+              device=args.device)
     prof = None
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

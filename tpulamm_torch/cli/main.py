@@ -13,8 +13,9 @@ of the reference can switch directly:
   --grp-attn-w, -i/--interactive, --color, --samplers
 
 --lora applies a LoRA adapter GGUF at load (Engine(lora_path=)). --tp /
---dp and the multi-host flags are accepted and refused with
-NotImplementedError naming the ROADMAP item that brings them.
+--dp build the engine on a mesh (every rank on --device); --coordinator /
+--num-processes / --process-id run it over several processes, each
+starting the same command (parallel.distributed).
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import argparse
 import os
 import sys
 
-from tpulamm_torch.cli._common import (DISTRIBUTED_FLAGS, add_unported_args,
-                                       refuse_unported, require_file)
+from tpulamm_torch.cli._common import require_file
+from tpulamm_torch.parallel.distributed import (add_distributed_args,
+                                                init_from_args)
 from tpulamm_torch.runtime.kvcache import KV_CACHE_TYPES
 from tpulamm_torch.utils import log as logm
 
@@ -61,7 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ignore-eos", action="store_true")
     p.add_argument("--grp-attn-n", type=int, default=1)
     p.add_argument("--grp-attn-w", type=int, default=512)
-    add_unported_args(p)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks of the mesh (all on --device)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel (slot-sharding) mesh dimension")
+    add_distributed_args(p)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain path)")
     p.add_argument("--override-kv", action="append", default=[],
@@ -144,11 +150,10 @@ def _process_escapes(s: str) -> str:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args.tp, args.dp, multihost=any(
-        getattr(args, a) is not None for a in DISTRIBUTED_FLAGS))
     require_file(build_parser(), args.model)
     logm.setup(args, "main")
     logm.log(f"args: {vars(args)}")
+    init_from_args(args)
 
     from tpulamm_torch.models.loader import parse_kv_override
     from tpulamm_torch.runtime.engine import Engine
@@ -169,7 +174,7 @@ def main(argv=None):
                     kv_dtype_v=args.cache_type_v,
                     grp_attn_n=args.grp_attn_n, grp_attn_w=args.grp_attn_w,
                     lora_path=args.lora, kv_overrides=overrides,
-                    device=args.device)
+                    tp=args.tp, dp=args.dp, device=args.device)
 
     sampling = SamplingParams(
         seed=args.seed if args.seed >= 0 else 0xFFFFFFFF,

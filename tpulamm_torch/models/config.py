@@ -68,6 +68,24 @@ class ModelConfig:
     ssm_d_state: int = 0
     ssm_dt_rank: int = 0
 
+    # -- tensor-parallel execution context -----------------------------------
+    # Set only on the per-rank cfg the Engine builds for a mesh
+    # (parallel.mesh): n_heads / n_kv_heads above are then LOCAL (global //
+    # tp), head_dim_kv holds the global head geometry, and the forward
+    # completes the row-parallel projections and gathers a vocab-sharded lm
+    # head across the tp ranks.
+    tp: int = 1
+    tp_axis: str | None = None
+    head_sharded: bool = False      # lm head vocab axis sharded on tp
+    # how each row-parallel projection completes its contraction:
+    # "psum"   -- weight K-sharded: partial products summed over tp
+    # "gather" -- weight replicated but activation feature-local (upstream
+    #             col weight sharded): the activation is gathered first
+    # "none"   -- nothing sharded on this path
+    row_attn: str = "none"          # attn output projection (wo)
+    row_ffn: str = "none"           # ffn down projection (w_down)
+    row_moe: str = "none"           # per-expert down projections
+
     # attention kernel selection: None = auto (flash kernel on CUDA when
     # the span calls for it), True/False = force
     flash_attn: bool | None = None
@@ -79,7 +97,9 @@ class ModelConfig:
 
     @property
     def head_dim(self) -> int:
-        return self.head_dim_kv if self.head_dim_kv else self.dim // self.n_heads
+        # n_heads is local under tensor parallelism; head geometry is global
+        return (self.head_dim_kv if self.head_dim_kv
+                else self.dim // (self.n_heads * self.tp))
 
     @property
     def cdtype(self) -> torch.dtype:

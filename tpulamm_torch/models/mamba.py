@@ -39,6 +39,7 @@ import torch
 
 from tpulamm_torch.models.config import ModelConfig
 from tpulamm_torch.models.transformer import Params, _norm, _proj, embed
+from tpulamm_torch.parallel.mesh import ShardedParams, run_forward
 from tpulamm_torch.ops.layers import silu
 
 
@@ -143,7 +144,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     transformer.forward (cells, kv_span, t_bucket and segs are ignored: a
     recurrent state has no attention), so the engine and its step graphs
     drive either family. Without params["output"] the final-norm hidden
-    states (B, T, dim) f32 take the logits' place."""
+    states (B, T, dim) f32 take the logits' place. On a dp mesh (params
+    a ShardedParams, state a MeshCache of per-group states; a recurrent
+    model has no tp) each dp group's rows run over its own state."""
+    if isinstance(params, ShardedParams):
+        def group(g, cfg, tok, pos, sl, ce, segs=None, embeds=None, **kw):
+            return forward(g.params[0], cfg, tok, pos, g.caches[0], sl)[0]
+        return run_forward(group, params, tokens, positions, state, slots,
+                           cells)
     del cells, kv_span, t_bucket, segs
     B, T = tokens.shape
     valid_b = positions >= 0

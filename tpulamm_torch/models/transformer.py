@@ -53,6 +53,7 @@ from tpulamm_torch.ops.layers import (act, alibi_slopes, layer_norm,
 from tpulamm_torch.ops.qmatmul import dense_matmul, qmatmul
 from tpulamm_torch.ops.qtensor import QTensor, gather_dequant_rows
 from tpulamm_torch.ops.rope import apply_rope, rope_angles
+from tpulamm_torch.parallel.mesh import ShardedParams, TPGroup, run_forward
 from tpulamm_torch.runtime.kvcache import KVCache, write_kv
 
 Params = dict[str, Any]
@@ -69,6 +70,33 @@ def _proj(x: torch.Tensor, w, cfg: ModelConfig, bias=None) -> torch.Tensor:
         y = qmatmul(x, w, compute_dtype=cfg.cdtype, inkq=cfg.int8_inkq)
     else:
         y = dense_matmul(x, w)
+    if bias is not None:
+        y = (y + bias.to(torch.float32)).to(y.dtype)
+    return y
+
+
+def _proj_parts(xs: list, ws: list, cfg: ModelConfig, mode: str,
+                g: TPGroup) -> list:
+    """Each tp rank's product of a row-parallel projection, before its
+    reduction: x_r @ w_r. mode "gather" (the weight replicated while the
+    activation is feature-local) first concatenates the ranks'
+    activations, and every rank multiplies the whole of it, as each JAX
+    shard does."""
+    if mode == "gather":
+        xs = [g.gather(xs)] * len(ws)
+    return [_proj(x, w, cfg) for x, w in zip(xs, ws)]
+
+
+def _proj_row(xs: list, ws: list, cfg: ModelConfig, bias, mode: str,
+              g: TPGroup) -> torch.Tensor:
+    """Row-parallel projection (input features sharded on tp;
+    transformer.py:57-76 of the JAX package): "psum" sums the ranks'
+    partial products over their K-slices, in rank order in f32; "gather"
+    and "none" take rank 0's product (every rank's is the same). The
+    (replicated) bias is added once, after the reduction; with one rank
+    and mode "none" this is _proj."""
+    ys = _proj_parts(xs, ws, cfg, mode, g)
+    y = g.psum(ys) if mode == "psum" else ys[0]
     if bias is not None:
         y = (y + bias.to(torch.float32)).to(y.dtype)
     return y
@@ -119,6 +147,29 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     t_bucket: the padded ubatch length the kernel choice is made on
     (None = T); segs: (B, T) packed segment ranges of the queries (None:
     the main sequence, no segment mask)."""
+    out = _attention([layer], cfg, h, positions, TPGroup.single(None, cache),
+                     layer_idx, slots, cells, kv_span, angles, t_bucket, segs)
+    return out, cache
+
+
+def _attention(layers: list, cfg: ModelConfig, h, positions, g: TPGroup,
+               layer_idx: int, slots, cells, kv_span, angles, t_bucket,
+               segs) -> torch.Tensor:
+    """Every tp rank's attention over its heads and cache, then the output
+    projection completed across the ranks (cfg.row_attn)."""
+    outs = [_attend(lyr, cfg, h, positions, c, layer_idx, slots, cells,
+                    kv_span, angles, t_bucket, segs, r)
+            for lyr, c, r in zip(layers, g.caches, g.index)]
+    return _proj_row(outs, [lyr["wo"] for lyr in layers], cfg,
+                     layers[0].get("bo"), cfg.row_attn, g)
+
+
+def _attend(layer: Params, cfg: ModelConfig, h: torch.Tensor,
+            positions: torch.Tensor, cache: KVCache, layer_idx: int,
+            slots, cells, kv_span, angles, t_bucket, segs,
+            rank: int) -> torch.Tensor:
+    """One rank's attention before the output projection: its q / k / v
+    heads (cfg's local counts), its cache, -> (B, T, n_heads * hd)."""
     B, T, _ = h.shape
     hd = cfg.head_dim
     if layer.get("wqkv_fused") is not None:
@@ -187,8 +238,7 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         o = fn(qf, kc, vc, kpos, qbase, qlen, ksc, vsc,
                scale=float(1.0 / math.sqrt(hd)), g=group, causal=cfg.causal)
         o = o.reshape(B, cfg.n_kv_heads, T, group, hd).permute(0, 2, 1, 3, 4)
-        o = o.reshape(B, T, cfg.n_heads * hd).to(cfg.cdtype)
-        return _proj(o, layer["wo"], cfg, layer.get("bo")), cache
+        return o.reshape(B, T, cfg.n_heads * hd).to(cfg.cdtype)
 
     # scores (B, Hkv, G, T, S) in f32, as the JAX path computes off the TPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -201,8 +251,12 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
     # that f32 value multiplies on the device without a host copy
     scores = scores * float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     if cfg.max_alibi_bias > 0.0:
-        # ggml_soft_max_ext ALiBi: scores += slope[h] * key position
-        slopes = alibi_slopes(cfg.n_heads, cfg.max_alibi_bias, h.device)
+        # ggml_soft_max_ext ALiBi: scores += slope[h] * key position. The
+        # slopes depend on the GLOBAL head index: under tp, this rank's
+        # contiguous block of the global table (transformer.py:320-330)
+        slopes = alibi_slopes(cfg.n_heads * cfg.tp, cfg.max_alibi_bias,
+                              h.device)[rank * cfg.n_heads:
+                                        (rank + 1) * cfg.n_heads]
         scores = scores + (slopes.reshape(1, cfg.n_kv_heads, group, 1, 1)
                            * kpos[:, None, None, None, :].to(torch.float32))
     # KQ_mask (llama_set_inputs, llama.cpp:8523): key cell live; causal
@@ -225,73 +279,111 @@ def attention(layer: Params, cfg: ModelConfig, h: torch.Tensor,
         # q8_0 V: the row scale folds into probs (s is the contracted axis)
         probs = probs * vsc[:, :, None, None, :]
     out = torch.einsum("bhgts,bhsd->bthgd", probs, vc.to(torch.float32))
-    out = out.reshape(B, T, cfg.n_heads * hd).to(cfg.cdtype)
-    return _proj(out, layer["wo"], cfg, layer.get("bo")), cache
+    return out.reshape(B, T, cfg.n_heads * hd).to(cfg.cdtype)
 
 
 def ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """llm_build_ffn (llama.cpp:5203): gated (PAR) when ffn_gate exists,
-    else act(up) (SEQ, with mpt's act scales). With cfg.fused_ffn, a
-    decode-size gated silu / gelu batch on CUDA runs the one-launch FFN
-    kernel, as the JAX forward does on the TPU with TPULAMM_FUSED_FFN
-    (transformer.py:377-394); on the CPU the flag changes nothing."""
-    if layer.get("wgateup_fused") is not None:
+    """llm_build_ffn (llama.cpp:5203) of one rank's weights."""
+    return _ffn([layer], cfg, h, TPGroup.single(layer, None))
+
+
+def _ffn(layers: list, cfg: ModelConfig, h: torch.Tensor,
+         g: TPGroup) -> torch.Tensor:
+    """llm_build_ffn (llama.cpp:5203) over the tp ranks: gated (PAR) when
+    ffn_gate exists, else act(up) (SEQ, with mpt's act scales); each rank
+    its N-slice of gate / up, the down projection completed across the
+    ranks (cfg.row_ffn). With cfg.fused_ffn, a decode-size gated silu /
+    gelu batch on CUDA runs the one-launch FFN kernel on each rank's
+    gate|up and down shards, as the JAX forward does on the TPU with
+    TPULAMM_FUSED_FFN (transformer.py:377-394), its partial outputs summed
+    over the ranks; a replicated w_down under a sharded gate|up ("gather")
+    needs the gathered activation between the two products and keeps the
+    unfused path. On the CPU the flag changes nothing."""
+    l0 = layers[0]
+    if l0.get("wgateup_fused") is not None:
         B, T, dim = h.shape
         if (cfg.fused_ffn and h.device.type == "cuda"
-                and isinstance(layer["w_down"], QTensor)
-                and ffn_fused_eligible(layer["wgateup_fused"],
-                                       layer["w_down"], B * T)
+                and cfg.row_ffn in ("none", "psum")
+                and all(isinstance(lyr["w_down"], QTensor) for lyr in layers)
+                and ffn_fused_eligible(l0["wgateup_fused"], l0["w_down"],
+                                       B * T)
                 and cfg.ffn_act in ("silu", "gelu")):
-            y = ffn_fused(h.reshape(B * T, dim), layer["wgateup_fused"],
-                          layer["w_down"], act=cfg.ffn_act)
-            if layer.get("b_down") is not None:
-                y = y + layer["b_down"].to(torch.float32)
+            ys = [ffn_fused(h.reshape(B * T, dim), lyr["wgateup_fused"],
+                            lyr["w_down"], act=cfg.ffn_act) for lyr in layers]
+            y = g.psum(ys) if cfg.row_ffn == "psum" else ys[0]
+            if l0.get("b_down") is not None:
+                y = y + l0["b_down"].to(torch.float32)
             return y.reshape(B, T, dim)
-        gu = _proj(h, layer["wgateup_fused"], cfg)
+    mids = [_ffn_mid(lyr, cfg, h) for lyr in layers]
+    return _proj_row(mids, [lyr["w_down"] for lyr in layers], cfg,
+                     l0.get("b_down"), cfg.row_ffn, g)
+
+
+def _ffn_mid(lyr: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """One rank's FFN activation, the input of its down projection."""
+    if lyr.get("wgateup_fused") is not None:
+        gu = _proj(h, lyr["wgateup_fused"], cfg)
         half = gu.shape[-1] // 2
         mid = (act(gu[..., :half].to(torch.float32), cfg.ffn_act)
                * gu[..., half:].to(torch.float32))
-        return _proj(mid.to(cfg.cdtype), layer["w_down"], cfg,
-                     layer.get("b_down"))
-    up = _proj(h, layer["w_up"], cfg, layer.get("b_up"))
-    if layer.get("w_gate") is not None:
-        gate = _proj(h, layer["w_gate"], cfg, layer.get("b_gate"))
+        return mid.to(cfg.cdtype)
+    up = _proj(h, lyr["w_up"], cfg, lyr.get("b_up"))
+    if lyr.get("w_gate") is not None:
+        gate = _proj(h, lyr["w_gate"], cfg, lyr.get("b_gate"))
         mid = act(gate.to(torch.float32), cfg.ffn_act) * up.to(torch.float32)
     else:
         mid = act(up.to(torch.float32), cfg.ffn_act)
-        if layer.get("ffn_act_scales") is not None:    # mpt (llm_build_ffn :5260)
-            mid = mid / layer["ffn_act_scales"].to(torch.float32)
-    return _proj(mid.to(cfg.cdtype), layer["w_down"], cfg, layer.get("b_down"))
+        if lyr.get("ffn_act_scales") is not None:  # mpt (llm_build_ffn :5260)
+            mid = mid / lyr["ffn_act_scales"].to(torch.float32)
+    return mid.to(cfg.cdtype)
 
 
 def moe_ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The MoE branch of build_llama of one rank's weights."""
+    return _moe_ffn([layer], cfg, h, TPGroup.single(layer, None))
+
+
+def _moe_ffn(layers: list, cfg: ModelConfig, h: torch.Tensor,
+             g: TPGroup) -> torch.Tensor:
     """The MoE branch of build_llama (llama.cpp:5797-5858) as the JAX
     package computes it (transformer.py:415-450): softmax over the router,
     the top n_expert_used renormalized, then every expert computed densely
-    and mixed with its (mostly zero) routing weight, in expert order."""
-    router = _proj(h, layer["ffn_gate_inp"], cfg)          # (B, T, E)
+    and mixed with its (mostly zero) routing weight, in expert order. Under
+    tp each rank mixes its partial expert outputs and ONE sum over the
+    ranks completes all of them (row_moe "psum": the sum is linear and the
+    routing weights are the same on every rank); "gather" gathers each
+    expert's activation for its replicated down weight."""
+    l0 = layers[0]
+    router = _proj(h, l0["ffn_gate_inp"], cfg)             # (B, T, E)
     probs = torch.exp(router - router.amax(-1, keepdim=True)).to(
         torch.float32)
     probs = probs / probs.sum(-1, keepdim=True)
     topv, topi = torch.topk(probs, cfg.n_expert_used, dim=-1)
     topv = topv / topv.sum(-1, keepdim=True)               # renormalize
     weights = torch.zeros_like(probs).scatter_(-1, topi, topv)
-    out = None
+    outs = [None] * len(layers)
     for e in range(cfg.n_expert):
-        gate = _proj(h, layer["ffn_gate_exp"][e], cfg)
-        up = _proj(h, layer["ffn_up_exp"][e], cfg)
-        mid = (act(gate.to(torch.float32), cfg.ffn_act)
-               * up.to(torch.float32)).to(cfg.cdtype)
-        ex = _proj(mid, layer["ffn_down_exp"][e], cfg).to(torch.float32)
-        ex = ex * weights[..., e:e + 1]
-        out = ex if out is None else out + ex
+        mids = []
+        for lyr in layers:
+            gate = _proj(h, lyr["ffn_gate_exp"][e], cfg)
+            up = _proj(h, lyr["ffn_up_exp"][e], cfg)
+            mids.append((act(gate.to(torch.float32), cfg.ffn_act)
+                         * up.to(torch.float32)).to(cfg.cdtype))
+        mode = "gather" if cfg.row_moe == "gather" else "none"
+        exs = _proj_parts(mids, [lyr["ffn_down_exp"][e] for lyr in layers],
+                          cfg, mode, g)
+        for i, ex in enumerate(exs):
+            ex = ex.to(torch.float32) * weights[..., e:e + 1]
+            outs[i] = ex if outs[i] is None else outs[i] + ex
+    out = g.psum(outs) if cfg.row_moe == "psum" else outs[0]
     return out.to(cfg.cdtype)
 
 
-def _layer_ffn(layer: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    if layer.get("ffn_gate_inp") is not None and cfg.n_expert > 0:
-        return moe_ffn(layer, cfg, h)
-    return ffn(layer, cfg, h)
+def _layer_ffn(layers: list, cfg: ModelConfig, h: torch.Tensor,
+               g: TPGroup) -> torch.Tensor:
+    if layers[0].get("ffn_gate_inp") is not None and cfg.n_expert > 0:
+        return _moe_ffn(layers, cfg, h, g)
+    return _ffn(layers, cfg, h, g)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -311,7 +403,29 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     the final hidden states (B, T, dim) f32 take the logits' place.
     embeds (B, T, dim), when given, replaces the token-embedding lookup:
     the reference's llama_batch.embd input (llama.cpp:8530-8537), through
-    which llava splices projected image embeddings into the stream."""
+    which llava splices projected image embeddings into the stream.
+
+    params may be a mesh's ShardedParams (with cache its MeshCache): each
+    dp group's rows then run through every local tp rank's weights and
+    cache (parallel.mesh.run_forward), with the per-rank config it holds
+    in place of cfg."""
+    kw = dict(kv_span=kv_span, t_bucket=t_bucket, segs=segs, embeds=embeds)
+    if isinstance(params, ShardedParams):
+        return run_forward(_forward, params, tokens, positions, cache, slots,
+                           cells, **kw)
+    return _forward(TPGroup.single(params, cache), cfg, tokens, positions,
+                    slots, cells, **kw), cache
+
+
+def _forward(g: TPGroup, cfg: ModelConfig, tokens, positions, slots, cells,
+             kv_span=None, t_bucket=None, segs=None, embeds=None
+             ) -> torch.Tensor:
+    """The forward of one tp group's ranks (g) -> logits (or the final
+    hidden states). Replicated work (embeddings, norms, residuals) runs
+    once; each layer's attention and FFN run every rank and complete
+    their collectives; a vocab-sharded head is gathered back in vocab
+    order before the tile padding is cut (transformer.py:531-538)."""
+    params = g.params[0]
     h = (embeds.to(cfg.cdtype) if embeds is not None
          else embed(params, cfg, tokens))
     angles = (rope_angles(cfg.rope, positions) if cfg.rope.kind != "none"
@@ -330,17 +444,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.tok_norm:
         h = _norm(h, params, "tok_norm", cfg)
 
-    def attn(layer, il, x):
-        out, _ = attention(layer, cfg, x, positions, cache, il, slots, cells,
-                           kv_span, angles, t_bucket, segs)
-        return out
+    def attn(layers, il, x):
+        return _attention(layers, cfg, x, positions, g, il, slots, cells,
+                          kv_span, angles, t_bucket, segs)
 
     for il, layer in enumerate(params["layers"]):
+        lys = [p["layers"][il] for p in g.params]
         if cfg.post_norm:
             # bert: x -> attn -> +res -> LN -> ffn -> +res -> LN
-            h = _norm((h + attn(layer, il, h)).to(cfg.cdtype), layer,
+            h = _norm((h + attn(lys, il, h)).to(cfg.cdtype), layer,
                       "attn_out_norm", cfg)
-            h = _norm((h + _layer_ffn(layer, cfg, h)).to(cfg.cdtype),
+            h = _norm((h + _layer_ffn(lys, cfg, h, g)).to(cfg.cdtype),
                       layer, "layer_out_norm", cfg)
         elif cfg.parallel_residual:
             hn = _norm(h, layer, "attn_norm", cfg)
@@ -349,27 +463,31 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             # input; falcon / phi2 / plamo / gptj share the attention norm
             ha = (_norm(h, layer, "attn_norm_2", cfg)
                   if layer.get("attn_norm_2") is not None else hn)
-            attn_out = attn(layer, il, ha)
+            attn_out = attn(lys, il, ha)
             hf = (_norm(h, layer, "ffn_norm", cfg)
                   if layer.get("ffn_norm") is not None else hn)
-            h = (h + attn_out + _layer_ffn(layer, cfg, hf)).to(cfg.cdtype)
+            h = (h + attn_out + _layer_ffn(lys, cfg, hf, g)).to(cfg.cdtype)
         else:
-            attn_out = attn(layer, il, _norm(h, layer, "attn_norm", cfg))
+            attn_out = attn(lys, il, _norm(h, layer, "attn_norm", cfg))
             if cfg.res_scale != 1.0:
                 attn_out = attn_out * cfg.res_scale
             h = (h + attn_out).to(cfg.cdtype)
-            ffn_out = _layer_ffn(layer, cfg, _norm(h, layer, "ffn_norm", cfg))
+            ffn_out = _layer_ffn(lys, cfg, _norm(h, layer, "ffn_norm", cfg),
+                                 g)
             if cfg.res_scale != 1.0:
                 ffn_out = ffn_out * cfg.res_scale
             h = (h + ffn_out).to(cfg.cdtype)
     if params.get("out_norm") is not None:
         h = _norm(h, params, "out_norm", cfg)
     if params.get("output") is None:
-        return h.to(torch.float32), cache            # embedding model
+        return h.to(torch.float32)                   # embedding model
     if cfg.logit_scale != 1.0:
         h = (h.to(torch.float32) * cfg.logit_scale).to(cfg.cdtype)
-    logits = _proj(h, params["output"], cfg, params.get("output_b"))
+    heads = [_proj(h, p["output"], cfg, p.get("output_b")) for p in g.params]
+    # a vocab-sharded head: the contiguous shards concatenate back in
+    # vocab order (the tile padding sits in the last shard)
+    logits = g.gather(heads) if cfg.head_sharded else heads[0]
     if logits.shape[-1] != cfg.vocab_size:
         # the lm head was tile-padded; padded columns are exact zeros
         logits = logits[..., : cfg.vocab_size]
-    return logits.to(torch.float32), cache
+    return logits.to(torch.float32)

@@ -101,6 +101,21 @@ class QTensor:
         return QTensor(qtype=self.qtype, shape=(hi - lo, self.shape[1]),
                        layout="mm", planes=planes)
 
+    def slice_k(self, lo: int, hi: int) -> "QTensor":
+        """Slice along K at 256-element chunk bounds (the planes interleave
+        within a chunk): axis 0 of every plane, each a contiguous copy, a
+        standalone QTensor of K = hi - lo that the kernels read."""
+        k = self.shape[1]
+        assert self.layout == "mm" and 0 <= lo < hi <= k
+        assert lo % 256 == 0 and hi % 256 == 0, (lo, hi)
+        planes = {}
+        for name, p in self.planes.items():
+            rows = p.shape[0]
+            assert (lo * rows) % k == 0 and (hi * rows) % k == 0, name
+            planes[name] = p[lo * rows // k:hi * rows // k].contiguous()
+        return QTensor(qtype=self.qtype, shape=(self.shape[0], hi - lo),
+                       layout="mm", planes=planes)
+
     def pad_n(self, n_new: int) -> "QTensor":
         """Zero-pad along N. Padded columns dequantize to exactly 0 (their
         scales are 0), so callers slice the matmul output back down."""

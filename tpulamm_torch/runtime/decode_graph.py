@@ -34,7 +34,9 @@ runs between the kernels of a step.
 
 On the CPU the same step runs eagerly through the same buffers and block
 code. On CUDA a capture or replay that fails raises; nothing falls back to
-the eager loop.
+the eager loop. A mesh that spans processes (parallel.distributed) steps
+eagerly by design: its gloo collectives cannot be captured; the steps and
+tokens are the same.
 """
 
 from __future__ import annotations
@@ -171,9 +173,12 @@ def check_error(word) -> None:
 class DecodeGraphs:
     """An engine's step graphs, one for each key, in one memory pool."""
 
-    def __init__(self, device: torch.device, trash: int):
+    def __init__(self, device: torch.device, trash: int,
+                 eager: bool = False):
+        """eager: never capture (a multi-process mesh's steps)."""
         self.device = device
         self.trash = trash
+        self.eager = eager
         self.graphs: dict = {}
         self.pool = None
         self.capture_s = 0.0
@@ -188,7 +193,7 @@ class DecodeGraphs:
         return g
 
     def _capture(self, bufs: StepBuffers, body, gen) -> StepGraph:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             return StepGraph(bufs, body)
         t0 = time.perf_counter()
         before = [dict(c) for c in _counters()]

@@ -55,6 +55,17 @@
   megakernel=True makes each generate_fast step of a one-slot engine one
   launch through every layer (ops.mega_decode) in its own step graph;
   fused_ffn and int8_inkq change the kernels the forward runs on CUDA
+- a (dp, tp) mesh (tp=, dp=; parallel.mesh): the weights cut by the
+  megatron shard plan into per-rank tensors, the cache into per-rank
+  caches of the rank's kv heads and dp group's slots, every rank on this
+  engine's device (a process's one card; several processes through
+  parallel.distributed). As in the JAX engine, prefill and single-slot
+  steps then run the all-slots batch with the other rows padded to the
+  trash cell, the active-slot compaction and the megakernel are off, the
+  speculation hooks need dp == 1 and the draft tier an unmeshed target;
+  generate_fast decodes through the all-slots blocks. A step on a
+  one-process mesh is still one captured CUDA graph; a multi-process
+  mesh (a gloo collective cannot be captured) steps eagerly.
 - per-phase timings mirror llama_print_timings (llama.h:949)
 
 Entry points run on CUDA unless the caller asks for the CPU; with no
@@ -64,6 +75,7 @@ CUDA device the default raises rather than falling back.
 from __future__ import annotations
 
 import codecs
+import sys
 import time
 from dataclasses import dataclass
 
@@ -77,9 +89,11 @@ from tpulamm_torch.models.loader import AbortError, load_model
 from tpulamm_torch.ops import device_sampling as ds
 from tpulamm_torch.ops.mega_decode import build_mega, mega_decode_layers
 from tpulamm_torch.ops.qtensor import QTensor
+from tpulamm_torch.parallel import distributed
+from tpulamm_torch.parallel import mesh as pmesh
 from tpulamm_torch.runtime import decode_graph as dg
 from tpulamm_torch.runtime import kvcache as kv
-from tpulamm_torch.runtime.kvcache import KVCache
+from tpulamm_torch.runtime.kvcache import KVCache, MeshCache
 from tpulamm_torch.runtime.sampling import (Sampler, SamplingParams,
                                            apply_guidance)
 from tpulamm_torch.tokenizer.spm import build_tokenizer
@@ -145,7 +159,7 @@ class Engine:
                  grp_attn_w: int = 512, megakernel: bool = False,
                  fused_ffn: bool = False, int8_inkq: bool = False,
                  lora_path: str | None = None, kv_overrides=None,
-                 load_abort=None, device=None):
+                 tp: int = 1, dp: int = 1, load_abort=None, device=None):
         """kv_dtype / kv_dtype_v: the K and V storage (-ctk / -ctv), a
         torch float dtype, its name, or "q8_0"; V defaults to K's.
         flash_attn: None picks the flash kernels by span as the JAX
@@ -164,6 +178,10 @@ class Engine:
         carry the delta (llama_model_apply_lora_from_file, --lora).
         kv_overrides: GGUF metadata values applied before the model's
         hyperparameters are read (--override-kv, models.loader).
+        tp / dp: the tensor- and data-parallel mesh (parallel.mesh): every
+        rank on `device`; under an initialized multi-process
+        torch.distributed world (parallel.distributed), this process's
+        block of the ranks.
         load_abort: () -> bool, checked before each layer loads; True
         cancels the load with AbortError."""
         t0 = time.perf_counter()
@@ -180,6 +198,11 @@ class Engine:
                                                   load_lora_gguf)
             self.params = apply_lora_to_qparams(
                 self.params, load_lora_gguf(lora_path), self.cfg)
+        self.tp, self.dp = int(tp), int(dp)
+        self.mesh = None
+        meshed = self.tp * self.dp > 1 or distributed.world() is not None
+        if meshed:
+            self._validate_mesh(n_slots)
         self._fuse_projections()
         self.tokenizer = (build_tokenizer(self.metadata)
                           if "tokenizer.ggml.tokens" in self.metadata else None)
@@ -203,24 +226,34 @@ class Engine:
         vd, qv = storage(kv_dtype if kv_dtype_v is None else kv_dtype_v)
         # recurrent archs (mamba) carry an SSM state instead of a KV cache
         self.recurrent = self.cfg.arch == "mamba"
-        if self.recurrent:
-            self.cache = mamba.MambaState.create(self.cfg, n_slots,
-                                                 self.device)
-        else:
+
+        def make_cache(rows: int, kv_heads: int):
+            if self.recurrent:
+                return mamba.MambaState.create(self.cfg, rows, self.device)
             # cell n_ctx is the trash cell for padding rows
-            self.cache = KVCache.create(
-                self.cfg.n_layers, n_slots, n_ctx + 1, self.cfg.n_kv_heads,
+            return KVCache.create(
+                self.cfg.n_layers, rows, n_ctx + 1, kv_heads,
                 self.cfg.head_dim, dtype=kd or torch.bfloat16,
                 dtype_v=vd or torch.bfloat16, qtype_k=qk, qtype_v=qv,
                 device=self.device)
+        self.cfg_step = self.cfg
+        if meshed:
+            self._setup_mesh(make_cache)
+        else:
+            self.cache = make_cache(n_slots, self.cfg.n_kv_heads)
         # host mirror of the cache's cell positions: cell allocation
         # (llama_kv_cache_find_slot, llama.cpp:2207) needs no device sync
         self.n_past = np.zeros(n_slots, np.int64)
         self.cell_pos = np.full((n_slots, n_ctx), -1, np.int64)
         self.ga_i = np.zeros(n_slots, np.int64)     # self-extend group index
-        self.mega = self._build_mega() if megakernel else None
-        # the step graphs (one memory pool) and the generator of their draws
-        self.graphs = dg.DecodeGraphs(self.device, n_ctx)
+        # the megakernel is off under a mesh (engine.py:196 of the JAX one)
+        self.mega = (self._build_mega() if megakernel and self.mesh is None
+                     else None)
+        # the step graphs (one memory pool) and the generator of their draws;
+        # a gloo collective cannot be captured: eager steps across processes
+        self.graphs = dg.DecodeGraphs(
+            self.device, n_ctx, eager=self.mesh is not None
+            and self.mesh.process_count > 1)
         self._gen = torch.Generator(device=self.device)
         # abort_callback (llama.h:654): checked before each prefill ubatch,
         # between generate_fast blocks and generate tokens; None = never
@@ -236,15 +269,62 @@ class Engine:
         if self.abort_callback is not None and self.abort_callback():
             raise AbortError("aborted by callback")
 
+    # -- the mesh (tensor / data parallel serving) ---------------------------
+    def _validate_mesh(self, n_slots: int):
+        """Engine-level mesh constraints, checked before any placement
+        (engine.py:219-237 of the JAX package). Its device count check has
+        no counterpart: every rank of a process shares its device."""
+        tp, dp = self.tp, self.dp
+        if self.cfg.arch == "mamba" and tp > 1:
+            raise ValueError("recurrent (mamba) models support dp only")
+        if tp > 1:
+            if self.cfg.n_heads % tp:
+                raise ValueError(
+                    f"n_heads={self.cfg.n_heads} not divisible by tp={tp}")
+            if self.cfg.n_kv_heads % tp:
+                raise ValueError(
+                    f"n_kv_heads={self.cfg.n_kv_heads} not divisible by "
+                    f"tp={tp} (choose tp <= n_kv_heads that divides it)")
+        if n_slots % dp:
+            raise ValueError(f"n_slots={n_slots} not divisible by dp={dp}")
+
+    def _setup_mesh(self, make_cache):
+        """Cut the weights by the shard plan into this process's tp ranks
+        and make each local rank's cache (its kv heads, its dp group's
+        slots); the per-rank config (cfg_step) travels with the weights.
+        Prints the placement once."""
+        mesh = pmesh.make_mesh(self.dp, self.tp, self.device)
+        plan = pmesh.param_plan(self.params, self.tp)
+        self.cfg_step = pmesh.step_config(self.cfg, self.tp, self.params,
+                                          plan)
+        ranks = pmesh.shard_params(self.params, plan, self.tp, mesh.local_tp,
+                                   self.cfg.cdtype)
+        self.params = pmesh.ShardedParams(mesh, self.cfg_step, ranks)
+        n_per = self.n_slots // self.dp
+        kv_heads = self.cfg.n_kv_heads // self.tp
+        self.cache = MeshCache({d: [make_cache(n_per, kv_heads)
+                                    for _ in mesh.local_tp]
+                                for d in mesh.local_dp}, n_per)
+        self.mesh = mesh
+        print(mesh.describe(), file=sys.stderr, flush=True)
+
     def _fuse_projections(self):
         """Fuse the QKV and gate+up QTensors into one launch each (plane
         concat along N), and pad a tile-unfriendly lm head (vocab 32000)
-        to a multiple of 1024; forward() slices the logits back. The JAX
-        conditions (engine.py:397-414): QKV not under qk-norm (persimmon
-        normalizes q and k apart), gate|up of equal shapes without
-        biases; MoE experts stay apart."""
+        to a multiple of 1024 (under tp also of tp * 128, so each vocab
+        shard tiles); forward() slices the logits back. The JAX conditions
+        (engine.py:331-414): QKV not under qk-norm (persimmon normalizes q
+        and k apart), gate|up of equal shapes without biases; MoE experts
+        stay apart.
+
+        Under tp > 1 the fusion is SHARD-INTERLEAVED: a concat over the
+        per-rank slices ([q_0|k_0|v_0|q_1|k_1|v_1|...]), so an even N split
+        of the fused planes lands [q_i|k_i|v_i] on rank i and each rank
+        splits its piece by its local head counts; every part must split
+        evenly over tp and each rank's piece still tile (N % 128)."""
         out_w = self.params.get("output")
-        quant = 1024
+        tp = self.tp
+        quant = 1024 if tp <= 1 else int(np.lcm(1024, tp * 128))
         if (isinstance(out_w, QTensor) and out_w.layout == "mm"
                 and out_w.shape[0] % quant != 0 and out_w.shape[0] >= 4096):
             n_pad = -(-out_w.shape[0] // quant) * quant
@@ -255,20 +335,39 @@ class Engine:
                     [b, b.new_zeros(n_pad - b.shape[0])])
 
         def fusable(ws) -> bool:
-            return (all(isinstance(w, QTensor) and w.layout == "mm"
-                        for w in ws) and len({w.qtype for w in ws}) == 1)
+            if not (all(isinstance(w, QTensor) and w.layout == "mm"
+                        for w in ws) and len({w.qtype for w in ws}) == 1):
+                return False
+            if tp <= 1:
+                return True
+            if any(w.shape[0] % tp for w in ws):
+                return False
+            return sum(w.shape[0] for w in ws) // tp % 128 == 0
+
+        def interleave(parts, cut, cat):
+            """cat(parts) at tp = 1; the shard-interleaved cat under tp."""
+            if tp <= 1:
+                return cat(parts)
+            return cat([cut(p, s * p.shape[0] // tp,
+                            (s + 1) * p.shape[0] // tp)
+                        for s in range(tp) for p in parts])
+
+        def fuse(ws):
+            return interleave(ws, lambda w, lo, hi: w.slice_n(lo, hi),
+                              QTensor.concat_n)
 
         for layer in self.params.get("layers", []):
             ws = [layer.get(k) for k in ("wq", "wk", "wv")]
             if fusable(ws) and not self.cfg.qk_norm:
-                layer["wqkv_fused"] = QTensor.concat_n(ws)
+                layer["wqkv_fused"] = fuse(ws)
                 bs = [layer.get(b) for b in ("bq", "bk", "bv")]
                 if any(b is not None for b in bs):
-                    layer["bqkv_fused"] = torch.cat([
+                    layer["bqkv_fused"] = interleave([
                         b if b is not None else torch.zeros(
                             w.shape[0], dtype=torch.float32,
                             device=self.device)
-                        for b, w in zip(bs, ws)])
+                        for b, w in zip(bs, ws)],
+                        lambda b, lo, hi: b[lo:hi], torch.cat)
                 # drop the unfused tensors (they would double the weights)
                 for key in ("wq", "wk", "wv", "bq", "bk", "bv"):
                     layer.pop(key, None)
@@ -276,7 +375,7 @@ class Engine:
             if (fusable(gu) and gu[0].shape == gu[1].shape
                     and layer.get("b_gate") is None
                     and layer.get("b_up") is None):
-                layer["wgateup_fused"] = QTensor.concat_n(gu)
+                layer["wgateup_fused"] = fuse(gu)
                 layer.pop("w_gate", None)
                 layer.pop("w_up", None)
 
@@ -349,9 +448,9 @@ class Engine:
         not streamed every step. None = the full batch. The slots=None
         forward reads and writes the FIRST B cache rows, so no renumbering
         is needed while slots are assigned lowest-free first. The
-        megakernel and recurrent engines keep the full batch, as the JAX
-        ones do."""
-        if self.mega is not None or self.recurrent:
+        megakernel, recurrent and meshed engines keep the full batch, as
+        the JAX ones do (a mesh shards the rows over dp)."""
+        if self.mega is not None or self.recurrent or self.mesh is not None:
             return None
         hi = max(ids) + 1
         b = 1 << (hi - 1).bit_length() if hi > 1 else 1
@@ -380,8 +479,15 @@ class Engine:
         device logits, or hidden states where `params` (default the
         engine's) lack the lm head (decode steps replay graphs: _graph).
         segs: (1, T) packed segment ranges (eval_segmented); embeds: (1, T,
-        dim) input embeddings in place of the tokens' (eval_embeds)."""
+        dim) input embeddings in place of the tokens' (eval_embeds). On a
+        mesh the batch covers every slot in order (the rows shard over dp):
+        only `slot`'s row is live, the others pad to the trash cell."""
         n = tok.shape[1]
+        row = 0
+        if self.mesh is not None:
+            tok, pos, cel, segs, embeds = self._all_slots(
+                slot, tok, pos, cel, segs, embeds)
+            row, slot = slot, None
         # one host-to-device copy for tokens, positions, cells (and segs)
         rows = [tok, pos, cel] + ([] if segs is None else [segs])
         host = torch.from_numpy(np.stack(rows).astype(np.int64))
@@ -394,7 +500,24 @@ class Engine:
                 self.cache, slot, c, kv_span=self._kv_span(0),
                 t_bucket=self._bucket_for(n) if n > 1 else 1,
                 segs=sg[0] if sg else None, **kw)
-        return logits
+        return logits[row:row + 1]
+
+    def _all_slots(self, slot: int, tok, pos, cel, segs, embeds):
+        """A one-slot (1, T) ubatch as the mesh's all-slots batch (engine.py
+        :527-534 and :558-566 of the JAX package): token 0, position -1,
+        the trash cell (and segment 0, zero embeddings) in every other
+        row."""
+        R, n = self.n_slots, tok.shape[1]
+
+        def full(a, fill):
+            out = np.full((R,) + np.shape(a)[1:], fill,
+                          np.asarray(a).dtype)
+            out[slot] = a[0]
+            return out
+        return (full(tok, 0), full(pos, -1), full(cel, self.n_ctx),
+                None if segs is None else full(segs, 0),
+                None if embeds is None else full(
+                    np.asarray(embeds, np.float32), 0.0))
 
     def _run_device(self, slot: int, tokens: np.ndarray,
                     positions: np.ndarray, cells: np.ndarray) -> torch.Tensor:
@@ -479,8 +602,10 @@ class Engine:
             raise ValueError(
                 f"non-causal embedding input ({len(tokens)} tokens) exceeds "
                 f"n_ubatch={self.n_ubatch}; raise n_ubatch/n_ctx")
-        params = {k: v for k, v in self.params.items()
-                  if k not in ("output", "output_b")}
+        params = (self.params.without(("output", "output_b"))
+                  if self.mesh is not None else
+                  {k: v for k, v in self.params.items()
+                   if k not in ("output", "output_b")})
         self.reset_slot(slot)
         h = np.concatenate([                           # (T, dim)
             self._step(chunk[None], pos[None], cells[None], int(slot),
@@ -628,7 +753,17 @@ class Engine:
         self._maybe_shift(slot)
         pos = int(self.n_past[slot])
         cell = self._cells_for(slot, 1, np.array([pos]))[0]
-        logits = self._step_logits(int(slot), [token], [pos], [cell], [1])[0]
+        if self.mesh is None:
+            logits = self._step_logits(int(slot), [token], [pos], [cell],
+                                       [1])[0]
+        else:
+            # the all-slots step: only `slot`'s row is live
+            R = self.n_slots
+            tok, p, c, a = (np.zeros(R, np.int32), np.full(R, -1, np.int32),
+                            np.full(R, self.n_ctx, np.int32),
+                            np.zeros(R, np.int32))
+            tok[slot], p[slot], c[slot], a[slot] = token, pos, cell, 1
+            logits = self._step_logits(None, tok, p, c, a)[slot]
         self.n_past[slot] += 1
         self.timings.t_eval += time.perf_counter() - t0
         self.timings.n_eval += 1
@@ -886,6 +1021,8 @@ class Engine:
         if self.mega is not None or self.recurrent:
             raise ValueError("speculation: plain, non-recurrent engines "
                              "only")
+        if self.mesh is not None and self.dp != 1:
+            raise ValueError("speculation tiers need dp == 1")
         n = int(self.n_past[slot])
         if not np.array_equal(self.cell_pos[slot, :n], np.arange(n)):
             raise ValueError(f"slot {slot}: cells not contiguous")
@@ -945,8 +1082,9 @@ class Engine:
     def attach_draft(self, draft) -> None:
         """Attach a draft Engine for spec_draft_block (server
         --model-draft)."""
-        if draft.n_slots != 1 or draft.mega is not None or draft.recurrent:
-            raise ValueError("draft engine must be single-slot, "
+        if (draft.n_slots != 1 or draft.mega is not None or draft.recurrent
+                or draft.mesh is not None):
+            raise ValueError("draft engine must be single-slot, unmeshed, "
                              "non-recurrent, without the megakernel")
         self.draft = draft
         self._draft_synced: list[int] | None = None
@@ -965,6 +1103,10 @@ class Engine:
         draft = getattr(self, "draft", None)
         if draft is None:
             raise ValueError("no draft engine attached")
+        if self.mesh is not None:
+            # the draft's cycle runs beside an unsharded target only; a
+            # meshed server keeps the lookup tier (engine.py:1468-1471)
+            raise ValueError("draft tier: unmeshed target engines only")
         n = self._spec_preflight(slot, k)
         if len(hist) != n:
             raise ValueError(f"hist has {len(hist)} tokens, slot holds {n}")
@@ -1030,14 +1172,14 @@ class Engine:
             startb = int(self.n_past[slot])
             rows = (self.cache.save_slot(slot)
                     if self.recurrent and stop_on_eos else None)
-            toks = self._block(path, int(slot), [out[-1]], [startb], [1], n,
-                               [temp], top_k, seed + len(out))
+            toks = self._slot_block(path, slot, out[-1], startb, n, temp,
+                                    top_k, seed + len(out))
             if rows is not None and eos in toks[:-1, 0]:
                 # the same seed repeats the block's draws up to the EOS
                 n = int(np.flatnonzero(toks[:, 0] == eos)[0]) + 1
                 self.cache.restore_slot(slot, rows)
-                toks = self._block(path, int(slot), [out[-1]], [startb], [1],
-                                   n, [temp], top_k, seed + len(out))
+                toks = self._slot_block(path, slot, out[-1], startb, n, temp,
+                                        top_k, seed + len(out))
             self.n_past[slot] = startb + n
             self.cell_pos[slot, startb:startb + n] = np.arange(startb,
                                                                startb + n)
@@ -1053,6 +1195,22 @@ class Engine:
         self.timings.n_eval += len(out)
         text = self.tokenizer.decode(out) if self.tokenizer else ""
         return out, text
+
+    def _slot_block(self, path: str, slot: int, tok: int, pos: int, n: int,
+                    temp: float, top_k: int, seed: int) -> np.ndarray:
+        """One slot's decode block -> (n, 1) tokens: the one-row block, or
+        on a mesh the all-slots block with only `slot` active (the JAX
+        engine's mesh path through decode_batch_fast, engine.py:1567-1607;
+        the host mirrors are generate_fast's to move)."""
+        if self.mesh is None:
+            return self._block(path, int(slot), [tok], [pos], [1], n, [temp],
+                               top_k, seed)
+        R = self.n_slots
+        t, p = np.zeros(R, np.int64), np.zeros(R, np.int64)
+        a, tv = np.zeros(R, bool), np.zeros(R, np.float32)
+        t[slot], p[slot], a[slot], tv[slot] = tok, pos, True, temp
+        return self._block("step", None, t, p, a, n, tv, top_k,
+                           seed)[:, slot:slot + 1]
 
     def generate(self, prompt: str | list[int], *, n_predict: int = 128,
                  sampling: SamplingParams | None = None, slot: int = 0,

@@ -11,6 +11,10 @@ builds its result and copies it back into the same storage).
   per-(b, h, cell) f32 row scales in ks / vs; K and V independently.
 - position surgery: seq_rm, seq_keep, seq_cp, seq_add and seq_div (which
   re-rotate cached K by the position change), defrag.
+- a mesh's cache (MeshCache, parallel.mesh): one cache per local rank,
+  whose K / V (and q8_0 scale) rows are the rank's kv heads and its dp
+  group's slots; every op here takes it as it takes one cache, and acts on
+  the ranks that hold the slot.
 - the segment plane seg: a (B, S) int32 packed range lo | hi << 16 a
   cell, 0 = the main sequence (visible to every query); the multi-seq_id
   batch masks of lookahead, tree speculation and eval_segmented. write_kv
@@ -76,6 +80,58 @@ class KVCache:
                             device=device))
 
 
+class MeshCache:
+    """The cache of a (dp, tp) mesh: groups[d] holds one cache (a KVCache,
+    or a models.mamba.MambaState) for each local tp rank of dp group d,
+    each over that group's n_per slots (global slot s is row s % n_per of
+    group s // n_per) and, for a KVCache, the rank's n_kv_heads / tp heads.
+    A process holds the groups of its ranks only."""
+
+    def __init__(self, groups: dict, n_per: int):
+        self.groups = groups
+        self.n_per = n_per
+
+    def caches(self) -> list:
+        return [c for d in sorted(self.groups) for c in self.groups[d]]
+
+    def rows(self, slot: int) -> list:
+        """[(cache, local row)] of every local rank holding `slot`."""
+        d, r = divmod(int(slot), self.n_per)
+        return [(c, r) for c in self.groups.get(d, [])]
+
+    # the recurrent state's slot API (models.mamba.MambaState)
+    def reset_slot(self, slot: int) -> None:
+        for c, r in self.rows(slot):
+            c.reset_slot(r)
+
+    def copy_slot(self, src: int, dst: int) -> None:
+        for (a, ra), (b, rb) in zip(self.rows(src), self.rows(dst)):
+            copy_row(a, ra, b, rb)
+
+    def save_slot(self, slot: int) -> list:
+        return [c.save_slot(r) for c, r in self.rows(slot)]
+
+    def restore_slot(self, slot: int, rows) -> None:
+        for (c, r), saved in zip(self.rows(slot), rows):
+            c.restore_slot(r, saved)
+
+
+def copy_row(src, rs: int, dst, rd: int) -> None:
+    """Copy row rs of one cache onto row rd of another of the same layout
+    (a KVCache's K, V, scales, positions and segments, or a recurrent
+    state's conv and ssm rows), in place."""
+    if not isinstance(src, KVCache):
+        dst.conv[:, rd].copy_(src.conv[:, rs])
+        dst.ssm[:, rd].copy_(src.ssm[:, rs])
+        return
+    for a, b in ((src.k, dst.k), (src.v, dst.v), (src.ks, dst.ks),
+                 (src.vs, dst.vs)):
+        for x, y in zip(a or (), b or ()):
+            y[rd].copy_(x[rs])
+    dst.pos[rd].copy_(src.pos[rs])
+    dst.seg[rd].copy_(src.seg[rs])
+
+
 def q8_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row (last-axis) absmax int8 quantization, as the JAX package's:
     x (..., D) -> (codes int8 (..., D), scales f32 (...,)) with scale =
@@ -99,6 +155,10 @@ def seq_rm(cache: KVCache, slot: int, p0: int = 0,
            p1: int = INT32_MAX) -> KVCache:
     """Invalidate the cells of `slot` whose position is in [p0, p1)
     (in place; the K/V rows stay and are masked by position -1)."""
+    if isinstance(cache, MeshCache):
+        for c, r in cache.rows(slot):
+            seq_rm(c, r, p0, p1)
+        return cache
     row = cache.pos[slot]
     row.masked_fill_((row >= p0) & (row < p1) & (row >= 0), -1)
     return cache
@@ -111,12 +171,12 @@ def clear(cache: KVCache) -> KVCache:
 
 def seq_cp(cache: KVCache, src: int, dst: int) -> KVCache:
     """Copy slot src's cells (K, V, scales, positions, segments) onto slot
-    dst, in place (llama_kv_cache_seq_cp)."""
-    for bufs in (cache.k, cache.v, cache.ks, cache.vs):
-        for buf in bufs or ():
-            buf[dst].copy_(buf[src])
-    cache.pos[dst].copy_(cache.pos[src])
-    cache.seg[dst].copy_(cache.seg[src])
+    dst, in place (llama_kv_cache_seq_cp); on a mesh, between any two dp
+    groups this process holds."""
+    if isinstance(cache, MeshCache):
+        cache.copy_slot(src, dst)
+    else:
+        copy_row(cache, src, cache, dst)
     return cache
 
 
@@ -133,6 +193,10 @@ def seq_add(cache: KVCache, slot: int, p0: int, p1: int, delta: int,
     """Shift positions in [p0, p1) by delta and re-rope cached K (the
     reference's K-shift); cells whose new position falls below 0 are
     removed. In place."""
+    if isinstance(cache, MeshCache):
+        for c, r in cache.rows(slot):
+            seq_add(c, r, p0, p1, delta, rope)
+        return cache
     m = _range_mask(cache.pos, slot, p0, p1)
     new_pos = torch.where(m, cache.pos + delta, cache.pos)
     _apply_pos_change(cache, m, new_pos, rope)
@@ -144,6 +208,10 @@ def seq_div(cache: KVCache, slot: int, p0: int, p1: int, d: int,
             rope: RopeParams) -> KVCache:
     """Integer-divide positions in [p0, p1) by d (self-extend) and re-rope
     cached K. In place."""
+    if isinstance(cache, MeshCache):
+        for c, r in cache.rows(slot):
+            seq_div(c, r, p0, p1, d, rope)
+        return cache
     m = _range_mask(cache.pos, slot, p0, p1)
     new_pos = torch.where(m, torch.div(cache.pos, d, rounding_mode="floor"),
                           cache.pos)
@@ -177,6 +245,10 @@ def defrag(cache: KVCache) -> KVCache:
     """Compact live cells to the front of each slot, keeping their order
     (llama_kv_cache_defrag): a stable gather of k, v, ks, vs, pos and seg,
     each copied back into its own buffer."""
+    if isinstance(cache, MeshCache):
+        for c in cache.caches():
+            defrag(c)
+        return cache
     S = cache.pos.shape[1]
     live = cache.pos >= 0
     ar = torch.arange(S, device=cache.pos.device)

@@ -17,6 +17,12 @@ segment plane of lookahead and tree speculation), n_past, cell_pos,
 ga_i, tokens and meta. A recurrent (mamba) engine's file has the magic
 MAGIC + "-recurrent" and its state's conv and ssm (L, n_slots, ...) f32
 arrays with n_past and tokens, as the JAX package writes it.
+
+A meshed engine writes and reads the same file: its per-rank caches are
+gathered into the global layout (kv heads over tp, slots over dp) before
+the write and cut back into the ranks after the read, as the JAX package
+device_gets its sharded arrays; either package, meshed or not, loads the
+other's file.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import json
 import numpy as np
 import torch
 
-from tpulamm_torch.runtime.kvcache import KVCache
+from tpulamm_torch.runtime.kvcache import KVCache, MeshCache
 
 MAGIC = "tpulamm-session-v2"   # v2: KV buffers are head-major (B, H, S, D)
 
@@ -42,8 +48,59 @@ def _stack(bufs: list) -> np.ndarray:
     return np.stack([x.cpu().numpy() for x in bufs])
 
 
-def save_session(path: str, engine, tokens: list[int] | None = None) -> None:
+def _global(engine):
+    """The engine's cache in the global layout: its own unmeshed; a mesh's
+    ranks gathered (kv heads concatenated over tp -- across processes
+    through the mesh's collectives -- and slots over dp)."""
     cache = engine.cache
+    if not isinstance(cache, MeshCache):
+        return cache
+    comm = engine.mesh.comm
+    groups = [cache.groups[d] for d in sorted(cache.groups)]
+    first = groups[0][0]
+    if not isinstance(first, KVCache):       # recurrent: slots on dp only
+        return type(first)(conv=torch.cat([g[0].conv for g in groups], 1),
+                           ssm=torch.cat([g[0].ssm for g in groups], 1))
+
+    def heads(parts):
+        return torch.cat(parts if comm is None else comm.gather_parts(parts),
+                         dim=1)
+
+    def layers(name):
+        if getattr(first, name) is None:
+            return None
+        return [torch.cat([heads([getattr(c, name)[i] for c in g])
+                           for g in groups])
+                for i in range(len(getattr(first, name)))]
+    return KVCache(k=layers("k"), v=layers("v"),
+                   pos=torch.cat([g[0].pos for g in groups]),
+                   ks=layers("ks"), vs=layers("vs"),
+                   seg=torch.cat([g[0].seg for g in groups]))
+
+
+def _scatter(engine, new) -> None:
+    """Copy a global-layout cache into a mesh's rank caches, in place."""
+    cache, mesh = engine.cache, engine.mesh
+    n = cache.n_per
+    for d, group in cache.groups.items():
+        rows = slice(d * n, (d + 1) * n)
+        for c, t in zip(group, mesh.local_tp):
+            if not isinstance(c, KVCache):
+                c.conv.copy_(new.conv[:, rows])
+                c.ssm.copy_(new.ssm[:, rows])
+                continue
+            h = c.k[0].shape[1]
+            hs = slice(t * h, (t + 1) * h)
+            for dst, src in ((c.k, new.k), (c.v, new.v), (c.ks, new.ks),
+                             (c.vs, new.vs)):
+                for a, b in zip(dst or [], src or []):
+                    a.copy_(b[rows, hs])
+            c.pos.copy_(new.pos[rows])
+            c.seg.copy_(new.seg[rows])
+
+
+def save_session(path: str, engine, tokens: list[int] | None = None) -> None:
+    cache = _global(engine)
     toks = np.asarray(tokens if tokens is not None else [], np.int32)
     if engine.recurrent:
         with open(path, "wb") as fh:
@@ -99,15 +156,20 @@ def load_session(path: str, engine) -> list[int]:
     """Restore engine state in place; returns the saved token history."""
     z = np.load(path, allow_pickle=False)
     if str(z["magic"]) == MAGIC + "-recurrent":
-        st = engine.cache
+        st = _global(engine) if engine.recurrent else None
         if (not engine.recurrent or z["conv"].shape != tuple(st.conv.shape)
                 or z["ssm"].shape != tuple(st.ssm.shape)):
             raise ValueError(f"{path}: a recurrent state of conv "
                              f"{z['conv'].shape}, ssm {z['ssm'].shape} does "
                              "not fit this engine")
+        new = type(st)(conv=torch.from_numpy(z["conv"]),
+                       ssm=torch.from_numpy(z["ssm"]))
         # in place: the captured step graphs read these buffers
-        st.conv.copy_(torch.from_numpy(z["conv"]))
-        st.ssm.copy_(torch.from_numpy(z["ssm"]))
+        if engine.mesh is not None:
+            _scatter(engine, new)
+        else:
+            st.conv.copy_(new.conv)
+            st.ssm.copy_(new.ssm)
         engine.n_past = z["n_past"].copy()
         return [int(t) for t in z["tokens"]]
     if engine.recurrent:
@@ -132,7 +194,7 @@ def load_session(path: str, engine) -> list[int]:
              if "seg" in z.files else None))
     # the step graphs were captured on the engine's cache storage and
     # layout (-ctk / -ctv): a swapped layout is an error
-    old = engine.cache
+    old = _global(engine)
     if ((new.ks is None) != (old.ks is None)
             or (new.vs is None) != (old.vs is None)
             or new.k[0].dtype != old.k[0].dtype
@@ -149,12 +211,15 @@ def load_session(path: str, engine) -> list[int]:
                          f"{tuple(old.k[0].shape)}")
     # copy into the engine's buffers (on engine.device) in place: the
     # captured step graphs read them
-    for dst, src in ((old.k, new.k), (old.v, new.v), (old.ks, new.ks),
-                     (old.vs, new.vs)):
-        for d, s_ in zip(dst or [], src or []):
-            d.copy_(s_)
-    old.pos.copy_(new.pos)
-    old.seg.copy_(new.seg)
+    if engine.mesh is not None:
+        _scatter(engine, new)
+    else:
+        for dst, src in ((old.k, new.k), (old.v, new.v), (old.ks, new.ks),
+                         (old.vs, new.vs)):
+            for d, s_ in zip(dst or [], src or []):
+                d.copy_(s_)
+        old.pos.copy_(new.pos)
+        old.seg.copy_(new.seg)
     engine.n_past = z["n_past"].copy()
     engine.cell_pos = z["cell_pos"].copy()
     engine.ga_i = z["ga_i"].copy()

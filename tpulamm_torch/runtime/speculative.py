@@ -714,10 +714,12 @@ def generate_speculative_fast(target, draft, prompt, *, n_predict: int = 128,
     TPULAMM_SPEC_TOKEN_MATCH A/B switch is not ported). Both engines
     one-slot, no megakernel. Returns (token_ids, text, SpecStats)."""
     for eng, name in ((target, "target"), (draft, "draft")):
-        if eng.mega is not None or eng.n_slots != 1 or eng.recurrent:
+        if (eng.mega is not None or eng.n_slots != 1 or eng.recurrent
+                or eng.mesh is not None):
             raise ValueError(
-                f"{name} engine must be single-slot, non-recurrent, "
-                "without the megakernel, for on-device speculation")
+                f"{name} engine must be single-slot, unmeshed, "
+                "non-recurrent, without the megakernel, for on-device "
+                "speculation")
     tokens = _tokens(target, prompt)
     target.reset_slot(0)
     draft.reset_slot(0)
@@ -810,9 +812,9 @@ def generate_prompt_lookup_fast(engine, prompt, *, n_predict: int = 128,
     device (lookup.cpp parity, no drafting model): the n-gram search runs
     over a history buffer on the device. Greedy output is identical to
     plain greedy decoding. Returns (token_ids, text, SpecStats)."""
-    if engine.mega is not None or engine.recurrent:
-        raise ValueError("engine must be non-recurrent, without the "
-                         "megakernel, for on-device speculation")
+    if engine.mega is not None or engine.recurrent or engine.mesh is not None:
+        raise ValueError("engine must be unmeshed, non-recurrent, without "
+                         "the megakernel, for on-device speculation")
     tokens = _tokens(engine, prompt)
     engine.reset_slot(slot)
     logits = engine.prefill(slot, tokens)

@@ -30,9 +30,15 @@ tokenize, render JSON and pass queues. A graph capture in the default
 (global) mode is safe because no other thread of the server touches CUDA
 meanwhile.
 
-Not ported yet, and refused by `serve` / `main`: the `--tp` / `--dp` mesh
-and the multi-host transport (the distributed arguments,
-`--broadcast-port`, `--mh-heartbeat`; ROADMAP queue 1, item 14).
+The mesh: `--tp` / `--dp` build the Engine on a (dp, tp) mesh whose ranks
+all live on `--device` (parallel.mesh). Multi-host serving: every process
+starts with the same arguments and `--coordinator HOST:PORT
+--num-processes N --process-id I` (parallel.distributed); process 0 keeps
+HTTP and mirrors its engine calls over the broadcast channel
+(`--broadcast-port`, default HTTP port + 1000; server.multihost) to the
+others, which apply them; a worker silent for `--mh-heartbeat` seconds
+fails the in-flight requests and every later one with 503
+(`llamacpp:mh_workers_lost` in /metrics).
 """
 
 from __future__ import annotations
@@ -48,17 +54,22 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from tpulamm_torch.cli._common import (DISTRIBUTED_FLAGS, MESH_ITEM,
-                                       add_unported_args, refuse_unported,
-                                       require_file)
+from tpulamm_torch.cli._common import require_file
 from tpulamm_torch.grammar.engine import Grammar
 from tpulamm_torch.grammar.json_schema import json_grammar, schema_to_grammar
 from tpulamm_torch.ops.device_sampling import fast_chain_eligible
+from tpulamm_torch.parallel.distributed import (add_distributed_args,
+                                                init_from_args, world)
 from tpulamm_torch.runtime.chat import (apply_chat_template,
                                         template_from_metadata)
 from tpulamm_torch.runtime.kvcache import KV_CACHE_TYPES
 from tpulamm_torch.runtime.sampling import Sampler, SamplingParams, softmax
+from tpulamm_torch.server.multihost import (CallBroadcaster, MirroredEngine,
+                                            WorkerLost, connect_worker,
+                                            worker_loop)
 from tpulamm_torch.utils import log as logm
+
+WORKER_LOST = "multi-host worker lost"
 
 
 @dataclass
@@ -77,6 +88,9 @@ class Request:
     # set to cancel mid-generation (client disconnect or POST /cancel);
     # the scheduler frees the slot at the next decode boundary
     cancel: threading.Event = field(default_factory=threading.Event)
+    # the HTTP status of an "error" item: 503 once a multi-host worker is
+    # lost (the server cannot serve), else 400
+    error_status: int = 400
 
 
 @dataclass
@@ -117,6 +131,8 @@ class Metrics:
         self.spec_accepted = 0
         # spec blocks verified against the --model-draft draft engine
         self.spec_draft_blocks = 0
+        # multi-host transport health
+        self.mh_workers_lost = 0
         # prompt tokens satisfied from a cached KV prefix (cache_prompt)
         self.cached_prompt_tokens = 0
 
@@ -147,6 +163,8 @@ class Metrics:
             f"llamacpp:spec_accepted_total {self.spec_accepted}\n"
             "# TYPE llamacpp:spec_draft_blocks_total counter\n"
             f"llamacpp:spec_draft_blocks_total {self.spec_draft_blocks}\n"
+            "# TYPE llamacpp:mh_workers_lost counter\n"
+            f"llamacpp:mh_workers_lost {self.mh_workers_lost}\n"
             "# TYPE llamacpp:prompt_cached_tokens_total counter\n"
             f"llamacpp:prompt_cached_tokens_total "
             f"{self.cached_prompt_tokens}\n")
@@ -171,6 +189,7 @@ class Scheduler(threading.Thread):
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self.metrics = Metrics()
         self.running = True
+        self.worker_lost = False  # multi-host transport degraded
         self.requests: dict[str, Request] = {}   # rid -> live request
         # shared system prompt (server.cpp:118,639-672,1028-1087): one
         # prefill, seq_cp fan-out to every slot; requests then reuse the
@@ -217,6 +236,10 @@ class Scheduler(threading.Thread):
         with self.metrics.lock:
             self.metrics.requests += 1
             self.metrics.queue_depth += 1
+        if self.worker_lost:
+            # degraded multi-host: refuse instead of queueing forever
+            self._fail_request(req, WORKER_LOST, 503)
+            return
         self.requests[req.rid] = req
         self.pending.put(req)
 
@@ -255,10 +278,37 @@ class Scheduler(threading.Thread):
             if slot.req is not None and slot.req.cancel.is_set():
                 self._finish_slot(i, "cancelled")
 
-    def _fail_request(self, req: Request, msg: str):
+    def _fail_request(self, req: Request, msg: str, status: int = 400):
         self.requests.pop(req.rid, None)
+        req.error_status = status
         req.out.put(("error", msg, {"prompt_tokens": 0,
                                     "completion_tokens": 0, "t_total": 0.0}))
+
+    def on_worker_lost(self, idx: int):
+        """Multi-host transport callback (the heartbeat monitor thread): a
+        worker stopped heartbeating. Fail every live request with 503 and
+        refuse new ones -- the scheduler thread may be blocked inside a
+        collective that can never complete (the dead worker was a
+        participant), so the client-visible failure must not depend on
+        it. The next mirrored engine call raises WorkerLost
+        (server.multihost)."""
+        self.worker_lost = True
+        with self.metrics.lock:
+            self.metrics.mh_workers_lost += 1
+        print(f"server: worker {idx} lost -- failing in-flight requests",
+              flush=True)
+        try:
+            while True:
+                self._fail_request(self.pending.get_nowait(), WORKER_LOST,
+                                   503)
+        except queue.Empty:
+            pass
+        # fail the streams; slot teardown is left to the run() loop (it
+        # may be blocked in a device step: the client error cannot wait)
+        for slot in self.slots:
+            req = slot.req
+            if req is not None:
+                self._fail_request(req, WORKER_LOST, 503)
 
     def _assign(self):
         for i, slot in enumerate(self.slots):
@@ -719,78 +769,97 @@ class Scheduler(threading.Thread):
 
     def run(self):
         while self.running:
-            self._sweep_cancelled()
-            if self._pending_system is not None:
-                # apply when every slot is idle; hold new assignments so
-                # a busy server cannot starve the update
-                if all(s.req is None for s in self.slots):
-                    self._apply_system()
-                else:
-                    time.sleep(0.002)
-                    continue
-            self._assign()
-            self._compact_slots()
-            active = {i: s.next_tok for i, s in enumerate(self.slots)
-                      if s.req is not None and s.next_tok is not None}
-            with self.metrics.lock:
-                self.metrics.busy_slots = sum(
-                    1 for s in self.slots if s.req is not None)
-            if not active:
+            if self.worker_lost:
+                # degraded multi-host: the requests were failed by
+                # on_worker_lost; tear down slot state and idle (another
+                # step would hang on the dead worker)
+                for slot in self.slots:
+                    if slot.req is not None:
+                        self.requests.pop(slot.req.rid, None)
+                        slot.req = None
+                        slot.sampler = None
+                        slot.next_tok = None
+                time.sleep(0.05)
+                continue
+            try:
+                self._run_once()
+            except WorkerLost:
+                continue               # on_worker_lost failed the requests
+
+    def _run_once(self):
+        """One pass of the loop: assign, then one decode tier."""
+        self._sweep_cancelled()
+        if self._pending_system is not None:
+            # apply when every slot is idle; hold new assignments so
+            # a busy server cannot starve the update
+            if all(s.req is None for s in self.slots):
+                self._apply_system()
+            else:
                 time.sleep(0.002)
-                continue
-            # the speculative tiers (the JAX server's order): a draft
-            # model serves a single active slot, greedy or sampled;
-            # prompt lookup serves one greedy slot by the single-slot
-            # block, several or sampled ones by the compound verify
-            spec_ok = self._block_ok(active, self._fast_eligible)
-            if (spec_ok and len(active) == 1
-                    and getattr(self.engine, "draft", None) is not None):
+                return
+        self._assign()
+        self._compact_slots()
+        active = {i: s.next_tok for i, s in enumerate(self.slots)
+                  if s.req is not None and s.next_tok is not None}
+        with self.metrics.lock:
+            self.metrics.busy_slots = sum(
+                1 for s in self.slots if s.req is not None)
+        if not active:
+            time.sleep(0.002)
+            return
+        # the speculative tiers (the JAX server's order): a draft
+        # model serves a single active slot, greedy or sampled;
+        # prompt lookup serves one greedy slot by the single-slot
+        # block, several or sampled ones by the compound verify
+        spec_ok = self._block_ok(active, self._fast_eligible)
+        if (spec_ok and len(active) == 1
+                and getattr(self.engine, "draft", None) is not None):
+            i = next(iter(active))
+            if self._run_draft_block(i, active[i]):
+                with self.metrics.lock:
+                    self.metrics.fast_blocks += 1
+                return
+        if self.lookup_decoding and spec_ok:
+            greedy = all(self.slots[i].req.params.temp <= 0.0
+                         for i in active)
+            if greedy and len(active) == 1:
                 i = next(iter(active))
-                if self._run_draft_block(i, active[i]):
-                    with self.metrics.lock:
-                        self.metrics.fast_blocks += 1
-                    continue
-            if self.lookup_decoding and spec_ok:
-                greedy = all(self.slots[i].req.params.temp <= 0.0
-                             for i in active)
-                if greedy and len(active) == 1:
-                    i = next(iter(active))
-                    ok = self._run_lookup_block(i, active[i])
-                else:
-                    ok = self._run_lookup_block_multi(active, greedy=greedy)
-                if ok:
-                    with self.metrics.lock:
-                        self.metrics.fast_blocks += 1
-                    continue
-            # multi-token device blocks when every active request uses
-            # block-reproducible sampling; the block samples with ONE
-            # top_k, so stochastic requests must agree on it (greedy ones
-            # don't use it)
-            if (self._block_ok(active, self._fast_eligible)
-                    and len({self.slots[i].req.params.top_k
-                             for i in active
-                             if self.slots[i].req.params.temp > 0.0}) <= 1
-                    and self._run_fast_block(active)):
+                ok = self._run_lookup_block(i, active[i])
+            else:
+                ok = self._run_lookup_block_multi(active, greedy=greedy)
+            if ok:
                 with self.metrics.lock:
                     self.metrics.fast_blocks += 1
-                continue
-            # second tier: the full device sampler chain (penalties +
-            # default queue) -- covers the OpenAI-default request shape
-            # that would otherwise take the per-token host loop
-            if (not self.engine.recurrent
-                    and self._block_ok(active, fast_chain_eligible)
-                    and self._run_sampled_block(active)):
-                with self.metrics.lock:
-                    self.metrics.fast_blocks += 1
-                    self.metrics.sampled_blocks += 1
-                continue
+                return
+        # multi-token device blocks when every active request uses
+        # block-reproducible sampling; the block samples with ONE
+        # top_k, so stochastic requests must agree on it (greedy ones
+        # don't use it)
+        if (self._block_ok(active, self._fast_eligible)
+                and len({self.slots[i].req.params.top_k
+                         for i in active
+                         if self.slots[i].req.params.temp > 0.0}) <= 1
+                and self._run_fast_block(active)):
             with self.metrics.lock:
-                self.metrics.slow_steps += 1
-            for i, t in active.items():
-                self.slots[i].hist.append(t)
-            logits = self.engine.decode_batch(active)
-            for i, lg in logits.items():
-                self._sample_and_emit(i, lg)
+                self.metrics.fast_blocks += 1
+            return
+        # second tier: the full device sampler chain (penalties +
+        # default queue) -- covers the OpenAI-default request shape
+        # that would otherwise take the per-token host loop
+        if (not self.engine.recurrent
+                and self._block_ok(active, fast_chain_eligible)
+                and self._run_sampled_block(active)):
+            with self.metrics.lock:
+                self.metrics.fast_blocks += 1
+                self.metrics.sampled_blocks += 1
+            return
+        with self.metrics.lock:
+            self.metrics.slow_steps += 1
+        for i, t in active.items():
+            self.slots[i].hist.append(t)
+        logits = self.engine.decode_batch(active)
+        for i, lg in logits.items():
+            self._sample_and_emit(i, lg)
 
 
 def _chat_prompt(messages: list[dict], metadata: dict | None = None) -> str:
@@ -984,7 +1053,7 @@ def make_handler(sched: Scheduler, model_name: str):
             while True:
                 item = req.out.get()
                 if item[0] == "error":
-                    self._json(400, {"error": item[1]})
+                    self._json(req.error_status, {"error": item[1]})
                     return
                 if item[0] == "tok":
                     text += item[2]
@@ -1080,7 +1149,7 @@ def make_handler(sched: Scheduler, model_name: str):
                     sched.submit(req)
                     kind, vec, _ = req.out.get()
                     if kind == "error":
-                        self._json(400, {"error": vec})
+                        self._json(req.error_status, {"error": vec})
                         return
                     vecs.append(vec)
                 if self.path == "/embedding":
@@ -1135,25 +1204,58 @@ def serve(model_path: str, host: str = "127.0.0.1", port: int = 8080,
           cache_type_k="bfloat16", cache_type_v=None,
           lookup_decoding: bool = False, system_prompt: str | None = None,
           broadcast: tuple[str, int] | None = None,
-          model_draft: str | None = None, device=None):
+          model_draft: str | None = None, heartbeat: float = 5.0,
+          device=None):
     """Load the model on `device` (default "cuda"; with no CUDA device that
     raises unless "cpu" is asked for), start the Scheduler and serve HTTP
     until the server is shut down. `started` (an Event) gets the httpd and
     the scheduler as attributes and is set once the port is bound.
-    lookup_decoding: the prompt-lookup speculative tiers; model_draft: a
-    draft GGUF, loaded as a one-slot Engine on the same device and
-    attached for draft-model speculation. tp / dp > 1 and broadcast
-    (multi-host) raise: ROADMAP queue 1, item 14."""
-    refuse_unported(tp, dp, multihost=broadcast is not None)
+    tp / dp: the engine's mesh (parallel.mesh). lookup_decoding: the
+    prompt-lookup speculative tiers; model_draft: a draft GGUF, loaded as
+    a one-slot Engine on the same device and attached for draft-model
+    speculation.
+
+    broadcast=(host, port): the multi-host serving transport
+    (server.multihost) over an initialized multi-process world
+    (parallel.distributed). Process 0 accepts process_count - 1 workers on
+    `port`, wraps its engine so every engine call replicates to them, and
+    serves HTTP as usual; the other processes connect to process 0's
+    host:port and apply the call stream. Every process must reach this
+    function with identical model / mesh arguments. A worker heartbeat
+    fails requests with 503 within ~`heartbeat` seconds of a worker dying
+    instead of hanging on the next collective."""
     from tpulamm_torch.runtime.engine import Engine
+    if broadcast is not None and world() is None:
+        raise ValueError("broadcast: the multi-host transport needs a "
+                         "multi-process world (parallel.distributed)")
     engine = Engine(model_path, n_ctx=n_ctx, n_slots=n_slots,
                     compute_dtype=compute_dtype, kv_dtype=cache_type_k,
-                    kv_dtype_v=cache_type_v, device=device)
+                    kv_dtype_v=cache_type_v, tp=tp, dp=dp, device=device)
     if model_draft:
+        # every process attaches its own draft (small, unmeshed)
         engine.attach_draft(Engine(model_draft, n_ctx=n_ctx, n_slots=1,
                                    compute_dtype=compute_dtype,
                                    device=device))
+    sched_holder = []
+
+    def _on_worker_lost(idx: int):
+        if sched_holder:
+            sched_holder[0].on_worker_lost(idx)
+
+    if broadcast is not None:
+        index, count = world()
+        bhost, bport = broadcast
+        if index != 0:
+            sock = connect_worker(bhost, bport)
+            print(f"worker {index}: applying engine calls from "
+                  f"{bhost}:{bport}", flush=True)
+            worker_loop(engine, sock, heartbeat=heartbeat / 4)
+            return
+        tx = CallBroadcaster(bport, count - 1, on_worker_lost=_on_worker_lost,
+                             dead_after=heartbeat)
+        engine = MirroredEngine(engine, tx)
     sched = Scheduler(engine, n_slots, lookup_decoding=lookup_decoding)
+    sched_holder.append(sched)
     if system_prompt:
         sched.set_system_prompt(system_prompt)
     sched.start()
@@ -1180,10 +1282,19 @@ def main(argv=None):
     p.add_argument("--compute-dtype", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain path)")
-    add_unported_args(p)
-    for flag in ("--broadcast-port", "--mh-heartbeat"):
-        p.add_argument(flag, default=None,
-                       help=f"multi-host serving: not ported ({MESH_ITEM})")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks of the mesh (all on --device)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel (slot-sharding) mesh dimension")
+    add_distributed_args(p)
+    p.add_argument("--broadcast-port", type=int, default=None,
+                   help="multi-host serving: TCP port on process 0 for "
+                        "the engine-call broadcast channel (default: "
+                        "HTTP port + 1000)")
+    p.add_argument("--mh-heartbeat", type=float, default=5.0,
+                   help="multi-host: seconds without a worker heartbeat "
+                        "before the worker is declared lost and in-flight "
+                        "requests fail with 503")
     p.add_argument("-ctk", "--cache-type-k", default="bfloat16",
                    choices=KV_CACHE_TYPES)
     p.add_argument("-ctv", "--cache-type-v", default=None,
@@ -1201,22 +1312,31 @@ def main(argv=None):
                         "(one prefill + seq_cp fan-out; server.cpp -spf)")
     logm.add_args(p)
     args = p.parse_args(argv)
-    multihost = any(getattr(args, a) is not None for a in (
-        *DISTRIBUTED_FLAGS, "broadcast_port", "mh_heartbeat"))
-    refuse_unported(args.tp, args.dp, multihost=multihost)
     logm.setup(args, "server")
     logm.log(f"args: {vars(args)}")
     require_file(p, args.model)
     require_file(p, args.model_draft, "draft model")
+    info = init_from_args(args)
+    broadcast = None
+    if info is not None and info["process_count"] > 1:
+        # multi-host serving: process 0 keeps the HTTP frontend and
+        # mirrors every engine call to the other processes over a TCP side
+        # channel (server.multihost); the worker address is the
+        # coordinator's host
+        bhost = (args.coordinator.rsplit(":", 1)[0]
+                 if args.coordinator else "127.0.0.1")
+        broadcast = (bhost, args.broadcast_port or args.port + 1000)
     system_prompt = None
     if args.system_prompt_file:
         with open(args.system_prompt_file, errors="replace") as f:
             system_prompt = f.read()
     serve(args.model, args.host, args.port, n_slots=args.parallel,
           n_ctx=args.ctx_size, compute_dtype=args.compute_dtype,
+          tp=args.tp, dp=args.dp,
           cache_type_k=args.cache_type_k, cache_type_v=args.cache_type_v,
           system_prompt=system_prompt, lookup_decoding=args.lookup_decoding,
-          model_draft=args.model_draft, device=args.device)
+          broadcast=broadcast, model_draft=args.model_draft,
+          heartbeat=args.mh_heartbeat, device=args.device)
 
 
 if __name__ == "__main__":

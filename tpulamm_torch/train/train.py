@@ -126,13 +126,14 @@ def train(params: dict, cfg: ModelConfig, data: np.ndarray,
     overriding the default random-window sampler (document-aligned tasks
     like tools/passkey_train need episode boundaries respected).
 
-    mesh: the JAX package's data / tensor-parallel mesh; not ported.
+    mesh: the JAX package's data / tensor-parallel mesh for training; not
+    ported yet (the serving mesh is Engine(tp=, dp=)).
     stats: see optimize."""
     if mesh is not None:
-        from tpulamm_torch.cli._common import MESH_ITEM
+        from tpulamm_torch.cli._common import MESH_TRAIN_ITEM
         raise NotImplementedError(
             f"train(mesh=...): sharded training is not ported yet "
-            f"({MESH_ITEM})")
+            f"({MESH_TRAIN_ITEM})")
     if batches is None:
         batches = sample_batches(data, tc)
     return optimize(params,
