@@ -341,6 +341,31 @@ Phases (any failure raises, so the exit code is not 0):
      exactly twice --tp 1's launches), and 2 layers of Mistral-7B width
      with fused_ffn at tp 2 against tp 1 (ffn_fused on each rank's shards:
      exact launches, the same greedy tokens or a near-tie parting)
+  15. sharded training, the pipeline and the int8 audit (slice 20), after
+     phase 14. 15a: train(mesh=make_mesh(2, 2)) against train at tp 1 at
+     TinyLlama-1.1B width (phase 13's config, 22 layers, ctx 512 x batch
+     4), 4 AdamW steps each from one init drawn on the card and the same
+     batches: each step's loss within 1e-4 relative, the params after the
+     last step within 1e-4 of each tensor's max|p|, both runs' step
+     seconds and max_memory_allocated, no port kernel launched. 15b: the
+     GPipe pipeline (parallel/pipeline.py) at 8 layers of the same width,
+     4 microbatches of 1 x 512, at pp 2 and pp 4: the loss and every
+     gradient against the unpipelined causal_lm_loss on the card (1e-4
+     relative, 1e-4 of max|g|), 4 train_step_pp steps against the
+     unpipelined loop (losses 1e-4 relative, params 1e-4 of max|p|); the
+     pp 4 params unstacked in layer order and written by save_params_gguf
+     (the file's engine at f32 compute within 1e-4 of max|logit| of the
+     training forward), quantized to Q4_0 and served by generate_fast:
+     exactly 33 qmm for the ubatch and 33 qmm_int8 a step. 15c: at 2
+     layers, train(mesh=) at tp 2 and the pipeline at pp 2 each across two
+     processes on the one card (gloo), 3 AdamW steps: both processes'
+     losses and params equal the one-process run's bit for bit. 15d:
+     tools.int8_kl_audit on phase 8's 1-layer LLaMA-7B-width F32 source in
+     its six formats (phase 8's files), --steps 64 --prefix 64: its table,
+     KL >= 0, top-1 in [0, 1], and each pass's decode steps counted apart:
+     exactly 5 qmm_int8 a step and no qmm with int8 dots, 5 qmm a step and
+     no qmm_int8 with Engine(int8_dot="0"). Each sub-step's seconds are
+     printed
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -2424,10 +2449,13 @@ def quality_source(rng, shape=LLAMA_7B, n_layers: int = 2) -> tuple:
 
 def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
                   n_ctx: int = 512, n_chunks: int = 2, cmp_ctx: int = 128,
-                  corpus: bytes | None = None, source=None) -> dict:
+                  corpus: bytes | None = None, source=None,
+                  keep: dict | None = None) -> dict:
     """Phase 8: the quantizer and the quality path at full width. source:
     quality_source(rng, shape, n_layers)'s result, written beforehand
-    (during the build), or None to write it here."""
+    (during the build), or None to write it here. keep: a dict that gets
+    the six quantized files (format -> path) after the phase succeeds,
+    left in place for phase 15d."""
     t_phase = time.perf_counter()
     src, write_s = (quality_source(rng, shape, n_layers) if source is None
                     else source)
@@ -2622,9 +2650,11 @@ def phase_quality(device, rng, smi: str, shape=LLAMA_7B, n_layers: int = 2,
         for key, val in QUALITY_PREDICTIONS.items():
             log(f"[quality] predicted {key}: {val}")
         log(f"[quality] {smi}")
+        if keep is not None:
+            keep.update(files)
     finally:
         for path in made:
-            if os.path.exists(path):
+            if os.path.exists(path) and path not in (keep or {}).values():
                 os.remove(path)
     secs = time.perf_counter() - t_phase
     for step, dt in steps.items():
@@ -5481,6 +5511,491 @@ def phase_mesh_small(device, rng, smi: str, n_layers: int = 2,
     return out
 
 
+# -- slice 20: sharded training, the pipeline, the int8 audit (phase 15) -------
+# 15a: train(mesh=make_mesh(2, 2)) against train at tp 1 from one init and
+# the same batches at TinyLlama-1.1B width (phase 13's config, TRAIN_CTX x
+# TRAIN_BATCH), TRAIN15_STEPS AdamW steps (lr 1e-3, 10 of warmup): each
+# step's loss within TOL15_LOSS relative, every param after the last step
+# within TOL15_PARAM of its tensor's max|p|
+TRAIN15_LAYERS, TRAIN15_STEPS = 22, 4
+TOL15_LOSS, TOL15_PARAM = 1e-4, 1e-4
+# 15b: the GPipe pipeline at PP15's depth and width, microbatch 1: the
+# first batch's loss within TOL15_LOSS relative of the unpipelined
+# causal_lm_loss on the card and every gradient within TOL15_GRAD of its
+# tensor's max|g|; PP15["steps"] train_step_pp steps against the
+# unpipelined loop at TOL15_LOSS / TOL15_PARAM; the pp 4 params unstacked,
+# written by save_params_gguf (the F32 file's engine at f32 compute within
+# TOL15_F32 of max|logit| of train.model.forward_train's logits: the layer
+# order), quantized to Q4_0 and served by generate_fast (exactly
+# 4 x layers + 1 qmm a ubatch and qmm_int8 a decode step)
+PP15 = dict(layers=8, n_micro=4, seq=512, steps=4, prompt=64, n_gen=32)
+TOL15_GRAD, TOL15_F32 = 1e-4, 1e-4
+# 15c: 2 layers of the same width across two processes on the one card
+# (gloo): train(mesh=) at tp 2 and the pipeline at pp 2, PROC15_STEPS AdamW
+# steps each, every process's losses and params equal to the one-process
+# run's bit for bit (what tests/test_torch_train_mesh.py and
+# tests/test_torch_pipeline.py establish on the CPU)
+PROC15_LAYERS, PROC15_STEPS = 2, 3
+# 15d: tools.int8_kl_audit on phase 8's source in its six formats
+AUDIT15 = dict(steps=64, prefix=64)
+# what phase 15 was predicted to show, written before its first chip run
+# (PERF.md section 5)
+PHASE15_PREDICTIONS = {
+    "15a s a step": "tp 1 0.40-0.45, dp 2 x tp 2 0.50-0.80",
+    "15a max_memory_allocated": "tp 1 24-32 GB, dp 2 x tp 2 30-42 GB "
+                                "(above what each run starts beside)",
+    "15b s a step": "pp 2 and pp 4 0.20-0.35 (8 layers)",
+    "15b launches": "33 qmm a ubatch, 33 qmm_int8 a step",
+    "15d launches": "5 qmm_int8 a step with int8 dots, 5 qmm without",
+    "15d KL mean": "1e-6 to 1e-3 a format, top-1 >= 95%",
+    "phase 15 s": "100-200; 15c bit for bit",
+}
+
+
+def device_init(cfg, seed: int, device) -> dict:
+    """train.model.init_params' layout and distribution (normal(0,
+    1/sqrt(fan-in)) matrices, norms 1) drawn on the card from one seed:
+    init_params' numpy draws of 1.1e9 weights take ~29 s on the host."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def w(n, k):
+        return torch.randn((n, k), generator=g, device=device) / float(
+            np.sqrt(k))
+
+    def ones(n):
+        return torch.ones((n,), device=device)
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    params = {"tok_emb": w(cfg.vocab_size, cfg.dim),
+              "out_norm": ones(cfg.dim),
+              "output": w(cfg.vocab_size, cfg.dim)}
+    params["layers"] = [{
+        "attn_norm": ones(cfg.dim), "ffn_norm": ones(cfg.dim),
+        "wq": w(cfg.n_heads * cfg.head_dim, cfg.dim),
+        "wk": w(kvd, cfg.dim), "wv": w(kvd, cfg.dim),
+        "wo": w(cfg.dim, cfg.n_heads * cfg.head_dim),
+        "w_gate": w(cfg.ffn_dim, cfg.dim), "w_up": w(cfg.ffn_dim, cfg.dim),
+        "w_down": w(cfg.dim, cfg.ffn_dim)} for _ in range(cfg.n_layers)]
+    return params
+
+
+def tree_clone(tree):
+    from tpulamm_torch.train import optim as TO
+    return TO.tree_unflatten(tree, [x.clone() for x in TO.tree_leaves(tree)])
+
+
+def leaf_gaps(want: list, got: list) -> tuple[float, int]:
+    """The largest max|want - got| / max|want| over the leaves, and the
+    number of leaves not equal bit for bit."""
+    worst, unequal = 0.0, 0
+    for a, b in zip(want, got):
+        a, b = torch.as_tensor(a), torch.as_tensor(b).to(a.device)
+        d = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        worst = max(worst, d)
+        unequal += not torch.equal(a, b)
+    return worst, unequal
+
+
+def check_steps(label: str, want: list, got: list, tol: float) -> float:
+    worst = max(abs(a - b) / abs(a) for a, b in zip(want, got))
+    if worst > tol:
+        raise AssertionError(f"{label}: losses {got} against {want}: "
+                             f"{worst:.3g} relative > {tol}")
+    return worst
+
+
+def phase_train_mesh(device, files: dict, smi: str,
+                     n_layers: int = TRAIN15_LAYERS,
+                     steps: int = TRAIN15_STEPS) -> dict:
+    """15a: train(mesh=make_mesh(2, 2)) against train at tp 1 at
+    TinyLlama-1.1B width, n_layers deep, from one init (device_init) and
+    the same batches (sample_batches over the corpus): the losses, the
+    final params, each run's step seconds and max_memory_allocated above
+    what the run started with."""
+    from tpulamm_torch.parallel.mesh import make_mesh
+    from tpulamm_torch.train import optim as TO
+    from tpulamm_torch.train.train import TrainConfig, train
+    t_phase = time.perf_counter()
+    cfg = train_cfg(n_layers)
+    data = corpus_tokens(files)
+    tc = TrainConfig(lr=1e-3, batch_size=TRAIN_BATCH, seq_len=TRAIN_CTX,
+                     n_steps=steps, seed=TRAIN_SEED)
+    init = device_init(cfg, TRAIN_SEED, device)
+    runs = {}
+    for label, mesh in (("tp 1", None),
+                        ("dp 2 x tp 2", make_mesh(2, 2, device))):
+        p = tree_clone(init)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        stats = {}
+        reset_port_launches()
+        _, losses = train(p, cfg, data, tc, log_every=0, mesh=mesh,
+                          stats=stats)
+        expect_launches(f"15a {label}", {})
+        peak = torch.cuda.max_memory_allocated(device) - base
+        runs[label] = {"losses": losses, "step_s": stats["step_s"],
+                       "peak": peak, "params": TO.tree_leaves(p)}
+        log(f"[train-mesh] {label}, {n_layers} layers: losses "
+            f"{[round(x, 6) for x in losses]}; step s "
+            f"{[round(s, 4) for s in stats['step_s']]} (after the first "
+            f"{np.mean(stats['step_s'][1:]):.4f}); max_memory_allocated "
+            f"{peak / 1e9:.2f} GB above the {base / 1e9:.2f} GB it started "
+            f"beside; {smi}")
+    a, b = runs["tp 1"], runs["dp 2 x tp 2"]
+    loss_gap = check_steps("15a", a["losses"], b["losses"], TOL15_LOSS)
+    gap, unequal = leaf_gaps(a["params"], b["params"])
+    if gap > TOL15_PARAM:
+        raise AssertionError(f"15a: params {gap:.3g} of max|p| apart "
+                             f"> {TOL15_PARAM}")
+    del init, runs, a, b
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[train-mesh] dp 2 x tp 2 against tp 1: losses within "
+        f"{loss_gap:.3g} relative (<= {TOL15_LOSS}), params within "
+        f"{gap:.3g} of max|p| (<= {TOL15_PARAM}; {unequal} tensors not "
+        f"equal bit for bit); 15a {secs:.1f} s")
+    return {"loss_gap": loss_gap, "param_gap": gap, "seconds": secs}
+
+
+def phase_pipeline(device, files: dict, smi: str, shape: dict = PP15) -> dict:
+    """15b: the GPipe pipeline at pp 2 and pp 4 on the card against the
+    unpipelined causal_lm_loss and training loop, then the pp 4 params
+    unstacked, written, quantized and served."""
+    from tpulamm_torch.cli.quantize import quantize_file
+    from tpulamm_torch.parallel import pipeline as PPL
+    from tpulamm_torch.train import optim as TO
+    from tpulamm_torch.train.model import (causal_lm_loss, forward_train,
+                                           save_params_gguf)
+    from tpulamm_torch.train.train import (TrainConfig, make_optimizer,
+                                           optimize, sample_batches,
+                                           value_and_grad)
+    t_phase = time.perf_counter()
+    L, M, T = shape["layers"], shape["n_micro"], shape["seq"]
+    cfg = train_cfg(L)
+    tc = TrainConfig(lr=1e-3, batch_size=M, seq_len=T,
+                     n_steps=shape["steps"], seed=TRAIN_SEED + 1)
+    gen = sample_batches(corpus_tokens(files), tc)
+    flat = [next(gen) for _ in range(tc.n_steps)]      # (M, T + 1) each
+    micro = [torch.as_tensor(b.reshape(M, 1, T + 1), device=device)
+             for b in flat]
+    init = device_init(cfg, TRAIN_SEED + 1, device)
+    out = {}
+    # the first batch's loss and gradients, unpipelined then pipelined
+    first = torch.as_tensor(flat[0], device=device)
+    rl, rg = value_and_grad(lambda t: causal_lm_loss(t, cfg, first), init,
+                            TO.tree_leaves(init))
+    ref = TO.tree_leaves(PPL.stack_layer_params(TO.tree_unflatten(init,
+                                                                  rg)))
+    del rg
+    for n_pp in (2, 4):
+        mesh = PPL.make_pp_mesh(n_pp, device)
+        st = PPL.stack_layer_params(init)
+        loss_fn = PPL.make_pipeline_loss(cfg, mesh, M)
+        t0 = time.perf_counter()
+        pl, pg = value_and_grad(lambda p: loss_fn(p, micro[0]), st,
+                                TO.tree_leaves(st))
+        dt = time.perf_counter() - t0
+        lg = check_steps(f"15b pp {n_pp} loss", [float(rl)], [float(pl)],
+                         TOL15_LOSS)
+        gg, _ = leaf_gaps(ref, pg)
+        if gg > TOL15_GRAD:
+            raise AssertionError(f"15b pp {n_pp}: gradients {gg:.3g} of "
+                                 f"max|g| apart > {TOL15_GRAD}")
+        log(f"[pipeline] pp {n_pp}, {L} layers, {M} microbatches of 1 x "
+            f"{T}: loss {float(pl)!r} against unpipelined {float(rl)!r} "
+            f"({lg:.3g} relative), gradients within {gg:.3g} of max|g| "
+            f"(<= {TOL15_GRAD}); loss and gradients {dt:.3f} s")
+        del st, pg
+    del ref
+    # the training loops
+    unp = tree_clone(init)
+    st_u = {}
+    _, ul = optimize(unp, lambda t, b: causal_lm_loss(t, cfg, b), tc,
+                     iter(flat), log_every=0, stats=st_u)
+    want = TO.tree_leaves(PPL.stack_layer_params(unp))
+    for n_pp in (2, 4):
+        mesh = PPL.make_pp_mesh(n_pp, device)
+        st = PPL.stack_layer_params(tree_clone(init))
+        opt = make_optimizer(tc)
+        state = opt.init(TO.tree_leaves(st))
+        losses, secs = [], []
+        for b in micro:
+            t0 = time.perf_counter()
+            st, state, loss = PPL.train_step_pp(cfg, mesh, st, opt, state, b,
+                                                n_micro=M)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t0)
+        lg = check_steps(f"15b pp {n_pp} steps", ul, losses, TOL15_LOSS)
+        pgap, unequal = leaf_gaps(want, TO.tree_leaves(st))
+        if pgap > TOL15_PARAM:
+            raise AssertionError(f"15b pp {n_pp}: params {pgap:.3g} of "
+                                 f"max|p| apart > {TOL15_PARAM}")
+        out[f"pp{n_pp}_step_s"] = float(np.mean(secs[1:]))
+        log(f"[pipeline] pp {n_pp}: {len(losses)} train_step_pp steps, "
+            f"losses within {lg:.3g} relative of the unpipelined loop's, "
+            f"params within {pgap:.3g} of max|p| ({unequal} tensors not "
+            f"equal bit for bit); step s {[round(s, 4) for s in secs]} "
+            f"against unpipelined {[round(s, 4) for s in st_u['step_s']]}")
+    del unp, want, init
+    # the pp 4 params in layer order: the F32 file, then Q4_0 served
+    params = PPL.unstack_layer_params(st)
+    work = os.path.join(SMOKE_DIR, "pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        f32 = os.path.join(work, "pp_f32.gguf")
+        q4 = os.path.join(work, "pp_q4_0.gguf")
+        t0 = time.perf_counter()
+        save_params_gguf(params, cfg, f32)
+        t_save = time.perf_counter() - t0
+        prompt = np.random.default_rng(SEED + 31).integers(
+            3, cfg.vocab_size, size=shape["prompt"]).tolist()
+        with torch.no_grad():
+            want = forward_train(params, cfg, torch.as_tensor(
+                [prompt], device=device))[0].cpu().numpy()
+        del params, st
+        torch.cuda.empty_cache()
+        eng = Engine(f32, n_ctx=512, compute_dtype="float32",
+                     kv_dtype=torch.float32, device=device)
+        got = eng.prefill(0, prompt, logits_all=True)
+        del eng
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        if err > TOL15_F32:
+            raise AssertionError(f"15b: the written file's logits {err:.3g} "
+                                 f"of max|logit| from the training forward's")
+        t0 = time.perf_counter()
+        quantize_file(f32, q4, GGMLType.Q4_0)
+        t_q = time.perf_counter() - t0
+        eng = Engine(q4, n_ctx=512, device=device)
+        eng.generate_fast(prompt, n_predict=shape["n_gen"], stop_on_eos=False)
+        eng.timings = Timings()
+        reset_port_launches()
+        ids, _ = eng.generate_fast(prompt, n_predict=shape["n_gen"],
+                                   stop_on_eos=False)
+        n = 4 * L + 1
+        expect_launches("15b Q4_0 generate_fast", {
+            "qmm": n, "qmm_int8": n * eng.timings.n_step})
+        eng.reset_slot(0)
+        cos = cosine(eng.prefill(0, prompt, logits_all=True)[-1], want[-1])
+        del eng
+        log(f"[pipeline] pp 4 params unstacked in layer order: the F32 file "
+            f"({os.path.getsize(f32)} bytes, written in {t_save:.1f} s) at "
+            f"f32 compute within {err:.3g} of max|logit| of forward_train "
+            f"(<= {TOL15_F32}); Q4_0 ({t_q:.1f} s to quantize) "
+            f"generate_fast: {len(ids)} tokens, exactly {n} qmm for the "
+            f"ubatch and {n} qmm_int8 a step; its last prefill logits' "
+            f"cosine to the f32 forward's {cos:.6f}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[pipeline] 15b {out['seconds']:.1f} s; {smi}")
+    return out
+
+
+def proc_run(mode: str, device, mesh) -> dict:
+    """15c's run, the same in each process and in the one-process
+    reference: PROC15_STEPS AdamW steps at PROC15_LAYERS of TinyLlama
+    width from device_init, over seeded random batches; "train" through
+    train(mesh=), "pipeline" through train_step_pp at 4 microbatches of 1 x
+    TRAIN_CTX. Returns the losses and the global params on the host."""
+    from tpulamm_torch.parallel import pipeline as PPL
+    from tpulamm_torch.train import optim as TO
+    from tpulamm_torch.train.train import TrainConfig, make_optimizer, train
+    cfg = train_cfg(PROC15_LAYERS)
+    init = device_init(cfg, TRAIN_SEED + 2, device)
+    rng = np.random.default_rng(TRAIN_SEED + 2)
+    tc = TrainConfig(lr=1e-3, batch_size=TRAIN_BATCH, seq_len=TRAIN_CTX,
+                     n_steps=PROC15_STEPS)
+    batches = [rng.integers(3, cfg.vocab_size, (TRAIN_BATCH, TRAIN_CTX + 1))
+               for _ in range(PROC15_STEPS)]
+    if mode == "train":
+        _, losses = train(init, cfg, None, tc, log_every=0, mesh=mesh,
+                          batches=iter(batches))
+        leaves = TO.tree_leaves(init)
+    else:
+        st = PPL.shard_stages(PPL.stack_layer_params(init), mesh)
+        opt = make_optimizer(tc)
+        state = opt.init(TO.tree_leaves(st))
+        losses = []
+        for b in batches:
+            st, state, loss = PPL.train_step_pp(
+                cfg, mesh, st, opt, state,
+                b.reshape(TRAIN_BATCH, 1, TRAIN_CTX + 1),
+                n_micro=TRAIN_BATCH)
+            losses.append(float(loss))
+        leaves = TO.tree_leaves(PPL.gather_stages(st, mesh))
+    return {"losses": np.asarray(losses),
+            "leaves": [x.cpu().numpy() for x in leaves]}
+
+
+def proc_mesh(mode: str, device):
+    from tpulamm_torch.parallel.mesh import make_mesh
+    from tpulamm_torch.parallel.pipeline import make_pp_mesh
+    return (make_mesh(1, 2, device) if mode == "train"
+            else make_pp_mesh(2, device))
+
+
+def train_proc_main() -> int:
+    """15c's child: MODE PORT PID OUT -- one of the two processes of
+    proc_run(MODE) on the card over gloo; writes its losses and params to
+    OUT (npz)."""
+    from tpulamm_torch.parallel.distributed import init_distributed
+    mode, port, pid, out = sys.argv[1:5]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=2,
+                     process_id=int(pid))
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    res = proc_run(mode, device, proc_mesh(mode, device))
+    print(f"{mode} process {pid}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    np.savez(out, losses=res["losses"],
+             **{f"leaf{i}": x for i, x in enumerate(res["leaves"])})
+    return 0
+
+
+def phase_train_procs(device, smi: str) -> dict:
+    """15c: proc_run's "train" (tp 2) and "pipeline" (pp 2) modes each in
+    two processes on the one card over gloo, all four started together,
+    against the same runs in this process."""
+    t_phase = time.perf_counter()
+    work = os.path.join(SMOKE_DIR, "procs")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = {}
+    try:
+        for mode in ("train", "pipeline"):
+            port = str(free_port())
+            for pid in (0, 1):
+                procs[(mode, pid)] = child(
+                    "train_proc_main",
+                    [mode, port, str(pid),
+                     os.path.join(work, f"{mode}{pid}.npz")],
+                    os.path.join(work, f"{mode}{pid}.log"))
+        out = {}
+        for mode in ("train", "pipeline"):
+            t0 = time.perf_counter()
+            one = proc_run(mode, device, proc_mesh(mode, device))
+            log(f"[procs] {mode}, one process: losses "
+                f"{[round(float(x), 6) for x in one['losses']]} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            for pid in (0, 1):
+                p = procs[(mode, pid)]
+                rc = p.wait(timeout=600)
+                lp = os.path.join(work, f"{mode}{pid}.log")
+                for line in open(lp).read().splitlines()[-4:]:
+                    log(f"[procs {mode}{pid}] {line[:300]}")
+                if rc != 0:
+                    raise AssertionError(f"15c {mode} process {pid} "
+                                         f"returned {rc}")
+                res = np.load(os.path.join(work, f"{mode}{pid}.npz"))
+                same = np.array_equal(res["losses"], one["losses"])
+                gap, unequal = leaf_gaps(
+                    one["leaves"],
+                    [res[f"leaf{i}"] for i in range(len(one["leaves"]))])
+                if not same or unequal:
+                    raise AssertionError(
+                        f"15c {mode} process {pid}: losses "
+                        f"{res['losses'].tolist()} against "
+                        f"{one['losses'].tolist()}, {unequal} tensors not "
+                        f"equal bit for bit (largest gap {gap:.3g} of "
+                        f"max|p|)")
+            log(f"[procs] {mode} ({'tp' if mode == 'train' else 'pp'} 2 "
+                f"across two processes on {device}, gloo, "
+                f"{PROC15_LAYERS} layers, {PROC15_STEPS} AdamW steps): both "
+                "processes' losses and params equal the one-process run's "
+                "bit for bit")
+            out[mode] = one["losses"].tolist()
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[procs] 15c {out['seconds']:.1f} s; {smi}")
+    return out
+
+
+def phase_audit(device, smi: str, src: str, kept: dict,
+                n_layers: int = 1) -> dict:
+    """15d: tools.int8_kl_audit on phase 8's F32 source in its six formats
+    (phase 8's quantized files, kept for it: the audit's own quantizer
+    gives the same files); each pass's decode steps counted apart."""
+    from tpulamm_torch.tools import int8_kl_audit as AUD
+    t_phase = time.perf_counter()
+    work = os.path.join(SMOKE_DIR, "audit")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counts = {}
+
+    @contextlib.contextmanager
+    def on_decode(fmt, int8):
+        reset_port_launches()
+        yield
+        counts[(fmt, int8)] = {k: v for k, v in port_launches().items()
+                               if v}
+    try:
+        for fmt, path in kept.items():
+            os.replace(path, os.path.join(work, f"int8kl_{fmt.lower()}.gguf"))
+        js = os.path.join(work, "rows.json")
+        run_tool("int8_kl_audit",
+                 lambda argv: AUD.main(argv, on_decode=on_decode),
+                 ["--f32-model", src, "--steps", str(AUDIT15["steps"]),
+                  "--prefix", str(AUDIT15["prefix"]), "--out-dir", work,
+                  "--json", js, "--device", device.type])
+        with open(js) as f:
+            rows = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # the tool's stream is BOS + prefix + steps + 1 bytes: after the
+    # prefix's prefill, steps + 2 decode steps
+    n = (4 * n_layers + 1) * (AUDIT15["steps"] + 2)
+    for fmt in AUD.FORMATS:
+        r = rows[fmt]
+        if min(r["kl_mean"], r["kl_p99"], r["kl_max"]) < 0 or not (
+                0 <= r["top1"] <= 1):
+            raise AssertionError(f"15d {fmt}: {r}")
+        for int8, want in ((True, {"qmm_int8": n}), (False, {"qmm": n})):
+            if counts[(fmt, int8)] != want:
+                raise AssertionError(f"15d {fmt} int8 dots {int8}: "
+                                     f"launches {counts[(fmt, int8)]} != "
+                                     f"{want}")
+    secs = time.perf_counter() - t_phase
+    log(f"[audit] launches exact in all six formats: {n} qmm_int8 and no "
+        f"qmm over a pass's {AUDIT15['steps'] + 2} decode steps (after a "
+        f"{AUDIT15['prefix']}-token prefill) with int8 dots, {n} qmm and no "
+        f"qmm_int8 without; KL >= 0, top-1 in [0, 1]; 15d {secs:.1f} s; "
+        f"{smi}")
+    return {"rows": rows, "seconds": secs}
+
+
+def phase_slice20(device, smi: str, src: str, kept: dict) -> dict:
+    """Phase 15 (slice 20): 15a-15d, each sub-step's seconds printed. The
+    training inputs are phase 13's (train_files), written again: phase 13
+    removes its own."""
+    t0 = time.perf_counter()
+    files = train_files()
+    try:
+        out = {"15a": phase_train_mesh(device, files, smi)}
+        out["15b"] = phase_pipeline(device, files, smi)
+        out["15c"] = phase_train_procs(device, smi)
+        out["15d"] = phase_audit(device, smi, src, kept)
+    finally:
+        for path in [*kept.values(), files["vocab"], files["text"]]:
+            if os.path.exists(path):
+                os.remove(path)
+    for key, val in PHASE15_PREDICTIONS.items():
+        log(f"[slice 20] predicted {key}: {val}")
+    secs = time.perf_counter() - t0
+    log(f"[slice 20] phase 15: 15a {out['15a']['seconds']:.1f} s, 15b "
+        f"{out['15b']['seconds']:.1f} s, 15c {out['15c']['seconds']:.1f} s, "
+        f"15d {out['15d']['seconds']:.1f} s; {secs:.1f} s in all; {smi}")
+    return out
+
+
 def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
     """One line for each decode path: tok/s (or ms a step), the profiled
     wall and device ms a step of its graph replays, beside the prediction."""
@@ -5595,7 +6110,7 @@ def cmp_init() -> dict:
 
 def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
                q_src: tuple, init2: dict, done) -> int:
-    """Phases 3-13, the kernels line and the last line."""
+    """Phases 3-15, the kernels line and the last line."""
     stats = phase_kernels(device, rng)
     done("kernels")
     # phase 3e (slice 19), a generator of its own
@@ -5652,8 +6167,10 @@ def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
     done("speculation, 2 layers")
     # a generator of its own, as phase 7 has
     # 1 layer, cut from 2 to make room for phase 11 in the time limit
+    # its six files kept for phase 15d
+    kept = {}
     phase_quality(device, np.random.default_rng(SEED + 13), smi, n_layers=1,
-                  source=q_src)
+                  source=q_src, keep=kept)
     done("quality")
     # generators of their own, as phase 7 has
     phase_moe(device, np.random.default_rng(SEED + 16), smi)
@@ -5679,6 +6196,9 @@ def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
     # phase 14c-d (slice 19), a generator of its own
     phase_mesh_small(device, np.random.default_rng(SEED + 30), smi)
     done("mesh, 2 layers")
+    # phase 15 (slice 20): the training mesh, the pipeline, the audit
+    phase_slice20(device, smi, q_src[0], kept)
+    done("slice 20")
     decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "

@@ -136,3 +136,25 @@ def test_entry_points_default_to_cuda(model, tmp_path):
                      (tserver.main, ["--port", "0"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(["-m", model, "--tp", "2", *argv])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a CPU-only host")
+def test_training_mesh_entry_points_default_to_cuda(model, tmp_path):
+    """The training mesh, the pipeline's mesh, the params train(mesh=)
+    trains and the int8 audit run on the card unless asked for the CPU:
+    each default raises without CUDA (the audit before it quantizes)."""
+    from tpulamm_torch.models.config import ModelConfig
+    from tpulamm_torch.parallel.mesh import make_mesh
+    from tpulamm_torch.parallel.pipeline import make_pp_mesh
+    from tpulamm_torch.tools import int8_kl_audit
+    from tpulamm_torch.train.model import init_params
+    cfg = ModelConfig(arch="llama", vocab_size=64, dim=64, n_layers=2,
+                      n_heads=4, n_kv_heads=2, ffn_dim=128)
+    for call in (lambda: make_mesh(2, 2), lambda: make_pp_mesh(2),
+                 lambda: init_params(cfg),
+                 lambda: int8_kl_audit.main(
+                     ["--f32-model", model, "--formats", "Q4_0",
+                      "--out-dir", str(tmp_path / "out")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not (tmp_path / "out").exists()

@@ -5,8 +5,9 @@ and no source file of theirs imports any of them; nor do they load
 `transformers` or `PIL`, which the GPU machine lacks too: no source
 imports either at module level (a function may, where it skips without
 them: make_bench_model's mmproj target, clip.load_image). The worker
-script the port's multi-process tests start (tests/_torch_mesh_worker.py)
-imports none of them either."""
+script the port's multi-process tests start (tests/_torch_mesh_worker.py:
+the meshed engine and server, and the training mesh and pipeline across
+processes) imports none of them either."""
 
 import ast
 import pathlib
@@ -75,6 +76,9 @@ def test_imports_load_no_jax_or_tpulamm():
     assert "tpulamm_torch.runtime.engine" in loaded
     assert "tpulamm_torch.parallel.distributed" in loaded
     assert "tpulamm_torch.server.multihost" in loaded
+    assert "tpulamm_torch.parallel.pipeline" in loaded
+    assert "tpulamm_torch.train.shards" in loaded
+    assert "tpulamm_torch.tools.int8_kl_audit" in loaded
     bad = [m for m in loaded if _forbidden(m) or _absent_on_card(m)]
     assert not bad, bad
 

@@ -170,9 +170,17 @@ def test_train_with_grad_mask_freezes_tensors():
 
 
 def test_train_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """train(mesh=) runs since the training mesh was ported
+    (tests/test_torch_train_mesh.py); it raises where the JAX sharding
+    would: a batch that dp does not divide, heads that tp does not."""
+    from tpulamm_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="dp=2"):
         PT.train(PM.init_params(PCFG, device="cpu"), PCFG, DATA,
-                 PT.TrainConfig(n_steps=1), mesh=object())
+                 PT.TrainConfig(n_steps=1, batch_size=3, seq_len=8),
+                 mesh=make_mesh(2, 1, "cpu"))
+    with pytest.raises(ValueError, match="tp=4"):
+        PT.train(PM.init_params(PCFG, device="cpu"), PCFG, DATA,
+                 PT.TrainConfig(n_steps=1), mesh=make_mesh(1, 4, "cpu"))
 
 
 def test_save_params_gguf_bytes(tmp_path):

@@ -94,6 +94,10 @@ class ModelConfig:
     # gemv that quantizes its activations inside its launch
     fused_ffn: bool = False
     int8_inkq: bool = False
+    # qmm's int8 activation dots for M <= 16 (the JAX TPULAMM_INT8_DOT):
+    # "1" unless f32 compute was asked for, "0" never, "force" also under
+    # f32 compute and for any N with a multiple-of-128 tile (ops.qmm)
+    int8_dot: str = "1"
 
     @property
     def head_dim(self) -> int:

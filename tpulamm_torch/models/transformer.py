@@ -67,7 +67,8 @@ def unsupported_features(cfg: ModelConfig) -> list[str]:
 
 def _proj(x: torch.Tensor, w, cfg: ModelConfig, bias=None) -> torch.Tensor:
     if isinstance(w, QTensor):
-        y = qmatmul(x, w, compute_dtype=cfg.cdtype, inkq=cfg.int8_inkq)
+        y = qmatmul(x, w, compute_dtype=cfg.cdtype, inkq=cfg.int8_inkq,
+                    int8=cfg.int8_dot)
     else:
         y = dense_matmul(x, w)
     if bias is not None:

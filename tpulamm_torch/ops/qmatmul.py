@@ -19,15 +19,17 @@ from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor, *,
-            compute_dtype=torch.bfloat16, inkq: bool = False) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, inkq: bool = False,
+            int8: str = "1") -> torch.Tensor:
     """x: (..., K) activations; qt: (N, K) mm-layout QTensor -> (..., N) f32.
-    inkq: on CUDA the int8 path quantizes inside its launch."""
+    inkq: on CUDA the int8 path quantizes inside its launch; int8: the
+    int8 dots' switch (ops.qmm.use_int8), on CUDA only."""
     assert qt.layout == "mm", "qmatmul needs an mm-layout QTensor"
     n, k = qt.mm_dims
     lead = x.shape[:-1]
     xm = x.reshape(-1, k)
     if x.device.type == "cuda":
-        out = qmm(xm, qt, compute_dtype, inkq)
+        out = qmm(xm, qt, compute_dtype, inkq, int8)
     else:
         # torch has no bf16 x bf16 -> f32 dot: round the operands to the
         # compute dtype, then multiply in f32 (what jnp.dot with

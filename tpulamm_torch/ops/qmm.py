@@ -348,20 +348,28 @@ def _widest_divisor_tile(n: int, cap: int = 8192) -> int:
     return 0
 
 
-def use_int8(m: int, n: int, compute_dtype) -> bool:
-    """qmm_pallas's choice: int8 activations for M <= 16 unless f32 compute
-    was asked for explicitly, when N has a multiple-of-128 divisor tile of
-    at least 1024 (<= 8192); else the f32 dequant-matmul."""
-    return (m <= INT8_MAX_M and compute_dtype != torch.float32
-            and _widest_divisor_tile(n) >= 1024)
+INT8_MODES = ("1", "0", "force")
+
+
+def use_int8(m: int, n: int, compute_dtype, mode: str = "1") -> bool:
+    """qmm_pallas's choice under its TPULAMM_INT8_DOT `mode`: "1", int8
+    activations for M <= 16 unless f32 compute was asked for explicitly,
+    when N has a multiple-of-128 divisor tile of at least 1024 (<= 8192);
+    "0", never; "force", for M <= 16 at any compute dtype and any such tile
+    of at least 128. Else the f32 dequant-matmul."""
+    if mode == "0" or m > INT8_MAX_M:
+        return False
+    if mode == "force":
+        return _widest_divisor_tile(n) >= 128
+    return compute_dtype != torch.float32 and _widest_divisor_tile(n) >= 1024
 
 
 def qmm(x: torch.Tensor, qt: QTensor, compute_dtype=torch.bfloat16,
-        inkq: bool = False) -> torch.Tensor:
+        inkq: bool = False, int8: str = "1") -> torch.Tensor:
     """x (M, K) @ dequant(qt) -> (M, N) f32 by the path qmm_pallas takes;
     inkq: the int8 path quantizes inside its launch (TPULAMM_INT8_INKQ=1
-    in the JAX package)."""
+    in the JAX package); int8: use_int8's mode (TPULAMM_INT8_DOT)."""
     n, _ = qt.mm_dims
-    if use_int8(x.shape[0], n, compute_dtype):
+    if use_int8(x.shape[0], n, compute_dtype, int8):
         return qmm_int8_inkq_cuda(x, qt) if inkq else qmm_int8_cuda(x, qt)
     return qmm_cuda(x, qt)

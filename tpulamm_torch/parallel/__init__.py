@@ -1,2 +1,3 @@
-"""Tensor / data parallel serving on a (dp, tp) mesh and its multi-process
-runs (counterpart of tpulamm.parallel)."""
+"""Tensor / data parallel serving and training on a (dp, tp) mesh, the
+GPipe pipeline, and their multi-process runs (counterpart of
+tpulamm.parallel)."""

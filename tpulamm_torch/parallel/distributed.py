@@ -13,6 +13,12 @@ two processes share one device and NCCL refuses two ranks on one device.
 A gloo collective cannot be captured in a CUDA graph, so a multi-process
 mesh steps eagerly (runtime.decode_graph).
 
+Training's collectives are autograd Functions over the same gathers
+(gather_ranks, reduce_ranks, fan_out: megatron's "g" and "f") and the
+pipeline's hops go through send / recv, whose backwards carry the gradients
+the other way (parallel.pipeline); ordered_sum gives every process the
+same inner product of a tree split over them.
+
 Usage, each process of N:
 
     from tpulamm_torch.parallel.distributed import init_distributed
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import sys
 
+import numpy as np
 import torch
 
 
@@ -88,6 +95,171 @@ class CrossProcess:
         dist.all_gather(out, raw)
         return [p for blk in out
                 for p in blk.view(local.dtype).reshape(local.shape).unbind(0)]
+
+
+# -- collectives that autograd goes through (training) ----------------------
+# Megatron's pair of operators for a tp group: "f" on a column-parallel
+# product's input (fan_out) and "g" on a row-parallel product's output
+# (reduce_ranks), plus the vocab-sharded head's gather (gather_ranks). In
+# one process (comm None) they are tensor ops in rank order; across
+# processes the same sums run over every rank's part, gathered as raw bytes
+# (CrossProcess), so both give the same bits.
+
+class _Gather(torch.autograd.Function):
+    """Every rank's part in rank order from this process's local parts. The
+    backward hands each local part its own slice of the incoming gradients
+    and sums nothing over processes: every process computes the same loss
+    from the gathered parts, so each already holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, comm, *parts):
+        import torch.distributed as dist
+        ctx.lo, ctx.n = dist.get_rank() * len(parts), len(parts)
+        return tuple(comm.gather_parts(list(parts)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *grads[ctx.lo:ctx.lo + ctx.n])
+
+
+class _Fan(torch.autograd.Function):
+    """"f": n local copies of a replicated activation (the identity). The
+    backward sums the input gradients of every rank in rank order, gathered
+    across processes first: without it a replicated tensor upstream (a
+    norm's weight, the residual, tok_emb) gets only the local ranks'
+    share of its gradient."""
+
+    @staticmethod
+    def forward(ctx, comm, n, x):
+        ctx.comm = comm
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        parts = list(grads)
+        if ctx.comm is not None:
+            parts = ctx.comm.gather_parts(parts)
+        acc = parts[0]
+        for g in parts[1:]:
+            acc = acc + g
+        return None, None, acc
+
+
+def gather_ranks(parts: list, comm=None) -> list:
+    """Every rank's part in rank order (the local parts themselves in one
+    process); differentiable."""
+    return list(parts) if comm is None else list(_Gather.apply(comm, *parts))
+
+
+def reduce_ranks(parts: list, comm=None) -> torch.Tensor:
+    """"g": the f32 sum in rank order of every rank's partial product (a
+    row-parallel product's output); differentiable."""
+    parts = gather_ranks(parts, comm)
+    acc = parts[0].to(torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(torch.float32)
+    return acc
+
+
+def fan_out(x: torch.Tensor, n: int, comm=None) -> list:
+    """"f": `x` for each of the n local ranks (a column-parallel product's
+    input); see _Fan."""
+    return list(_Fan.apply(comm, n, x))
+
+
+def ordered_sum(dots: list, n_repl: int, comm=None) -> torch.Tensor:
+    """The f32 sum, in one fixed order, of the scalars of a tree split over
+    processes (an inner product's leaf by leaf terms): `dots` holds this
+    process's n_repl replicated terms, counted on process 0 only, then the
+    terms of its own pieces. Across processes every process's list is
+    gathered and added process by process, so every process gets the same
+    bits, and the bits one process holding every piece gets."""
+    vec = torch.stack(dots).to(torch.float32)
+    if comm is not None:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            vec = torch.cat([torch.zeros_like(vec[:n_repl]), vec[n_repl:]])
+        vec = torch.cat(comm.gather_parts([vec]))
+    acc = np.float32(0)
+    for v in vec.cpu().numpy():
+        acc = np.float32(acc + v)
+    return torch.tensor(acc, device=dots[0].device)
+
+
+# -- point to point (the pipeline's hops) -------------------------------------
+# The hops go through host copies: gloo's send / recv take CPU tensors.
+# Sends in a backward are asynchronous (isend), so no process waits on the
+# order in which another's autograd engine reaches its hops: a process
+# blocks only on a receive, whose matching send a later stage makes without
+# waiting. Each such send goes on the caller's `pending` list (its buffer
+# kept alive), which flush_sends completes.
+
+
+def flush_sends(pending: list) -> None:
+    """Wait for the asynchronous sends on `pending` and empty it."""
+    while pending:
+        work, _buf = pending.pop(0)
+        work.wait()
+
+
+class _Send(torch.autograd.Function):
+    """Send x to process dst (tag); returns a 0-d zero that the caller adds
+    to its loss so the backward reaches this hop, which receives x's
+    gradient from dst (back_tag)."""
+
+    @staticmethod
+    def forward(ctx, x, dst, tag, back_tag):
+        import torch.distributed as dist
+        dist.send(x.detach().to("cpu").contiguous(), dst, tag=tag)
+        ctx.meta = (x.shape, x.dtype, x.device, dst, back_tag)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        import torch.distributed as dist
+        shape, dtype, device, dst, back_tag = ctx.meta
+        buf = torch.empty(shape, dtype=dtype)
+        dist.recv(buf, dst, tag=back_tag)
+        return buf.to(device), None, None, None
+
+
+class _Recv(torch.autograd.Function):
+    """Receive a tensor from process src (tag). `anchor`, a parameter of
+    this process that the received tensor flows into, puts the hop on the
+    backward's path to the parameters (torch.autograd.grad runs only the
+    nodes on a path to its inputs): the backward sends the gradient back to
+    src and gives the anchor none."""
+
+    @staticmethod
+    def forward(ctx, anchor, shape, dtype, src, tag, back_tag, pending):
+        import torch.distributed as dist
+        buf = torch.empty(shape, dtype=dtype)
+        dist.recv(buf, src, tag=tag)
+        ctx.meta = (src, back_tag, pending)
+        return buf.to(anchor.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        src, back_tag, pending = ctx.meta
+        buf = grad.detach().to("cpu").contiguous()
+        pending.append((dist.isend(buf, src, tag=back_tag), buf))
+        return None, None, None, None, None, None, None
+
+
+def send(x: torch.Tensor, dst: int, tag: int, back_tag: int) -> torch.Tensor:
+    """Send x to process dst with `tag`; returns the 0-d token (see _Send).
+    Its gradient comes back with `back_tag`."""
+    return _Send.apply(x, dst, tag, back_tag)
+
+
+def recv(anchor: torch.Tensor, shape, dtype, src: int, tag: int,
+         back_tag: int, pending: list) -> torch.Tensor:
+    """A tensor from process src with `tag`, on anchor's device (see
+    _Recv); its gradient goes back with `back_tag`, an asynchronous send
+    put on `pending` (flush_sends)."""
+    return _Recv.apply(anchor, tuple(shape), dtype, src, tag, back_tag,
+                       pending)
 
 
 def add_distributed_args(p) -> None:

@@ -27,6 +27,11 @@ All the ranks of one process live on that process's one device (the
 engine's `device`). A mesh spans processes through parallel.distributed:
 each process owns a contiguous block of ranks, and a collective whose tp
 group crosses processes is finished over torch.distributed (gloo).
+
+Training (train.train(mesh=)) cuts a dense f32 tree by the same plan
+(train.shards.TrainShards) and runs train.model.forward_train over each dp
+group's ranks, its collectives the differentiable ones of
+parallel.distributed.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
+from tpulamm_torch.parallel.distributed import gather_ranks, reduce_ranks
 
 N, K = "N", "K"
 
@@ -277,12 +283,14 @@ class Mesh:
                 f"{self.process_count}")
 
 
-def make_mesh(n_dp: int, n_tp: int, device="cpu") -> Mesh:
-    """The mesh of this process: every rank on `device`; under an
-    initialized torch.distributed world of several processes, this
-    process's contiguous block of the ranks (parallel.distributed)."""
+def make_mesh(n_dp: int, n_tp: int, device=None) -> Mesh:
+    """The mesh of this process: every rank on `device` (default "cuda";
+    raises without CUDA); under an initialized torch.distributed world of
+    several processes, this process's contiguous block of the ranks
+    (parallel.distributed)."""
     from tpulamm_torch.parallel import distributed
-    dev = torch.device(device)
+    from tpulamm_torch.runtime.engine import resolve_device
+    dev = resolve_device(device)
     world = distributed.world()
     if world is None:
         return Mesh(n_dp, n_tp, dev)
@@ -313,18 +321,11 @@ class TPGroup:
     def single(cls, params, cache) -> "TPGroup":
         return cls([params], [cache], [0])
 
-    def _all(self, parts: list) -> list:
-        return parts if self.comm is None else self.comm.gather_parts(parts)
-
     def psum(self, parts: list) -> torch.Tensor:
-        parts = self._all(parts)
-        acc = parts[0].to(torch.float32)
-        for p in parts[1:]:
-            acc = acc + p.to(torch.float32)
-        return acc
+        return reduce_ranks(parts, self.comm)
 
     def gather(self, parts: list) -> torch.Tensor:
-        return torch.cat(self._all(parts), dim=-1)
+        return torch.cat(gather_ranks(parts, self.comm), dim=-1)
 
 
 @dataclass

@@ -54,7 +54,9 @@
   TPULAMM_FUSED_FFN and TPULAMM_INT8_INKQ, here Engine options):
   megakernel=True makes each generate_fast step of a one-slot engine one
   launch through every layer (ops.mega_decode) in its own step graph;
-  fused_ffn and int8_inkq change the kernels the forward runs on CUDA
+  fused_ffn and int8_inkq change the kernels the forward runs on CUDA;
+  int8_dot (TPULAMM_INT8_DOT) turns qmm's int8 dots off ("0") or forces
+  them ("force") at M <= 16 (tools.int8_kl_audit)
 - a (dp, tp) mesh (tp=, dp=; parallel.mesh): the weights cut by the
   megatron shard plan into per-rank tensors, the cache into per-rank
   caches of the rank's kv heads and dp group's slots, every rank on this
@@ -88,6 +90,7 @@ from tpulamm_torch.models.llama import forward
 from tpulamm_torch.models.loader import AbortError, load_model
 from tpulamm_torch.ops import device_sampling as ds
 from tpulamm_torch.ops.mega_decode import build_mega, mega_decode_layers
+from tpulamm_torch.ops.qmm import INT8_MODES
 from tpulamm_torch.ops.qtensor import QTensor
 from tpulamm_torch.parallel import distributed
 from tpulamm_torch.parallel import mesh as pmesh
@@ -158,7 +161,7 @@ class Engine:
                  flash_attn: bool | None = None, grp_attn_n: int = 1,
                  grp_attn_w: int = 512, megakernel: bool = False,
                  fused_ffn: bool = False, int8_inkq: bool = False,
-                 lora_path: str | None = None, kv_overrides=None,
+                 int8_dot="1", lora_path: str | None = None, kv_overrides=None,
                  tp: int = 1, dp: int = 1, load_abort=None, device=None):
         """kv_dtype / kv_dtype_v: the K and V storage (-ctk / -ctv), a
         torch float dtype, its name, or "q8_0"; V defaults to K's.
@@ -170,8 +173,12 @@ class Engine:
         megakernel where the model and cache allow it (self.mega);
         fused_ffn: decode-size FFNs run the one-launch FFN kernel;
         int8_inkq: the int8 gemv quantizes its activations inside its
-        launch. fused_ffn and int8_inkq act on CUDA only, as their JAX
-        switches act on the TPU only.
+        launch. int8_dot: qmm's int8 activation dots at M <= 16 (the JAX
+        TPULAMM_INT8_DOT): "1" (or True) unless f32 compute was asked for,
+        "0" (or False) never, "force" under any compute dtype; it changes
+        qmm's path choice only (ops.qmm.use_int8), not the megakernel's or
+        the fused FFN's. fused_ffn, int8_inkq and int8_dot act on CUDA
+        only, as their JAX switches act on the TPU only.
         lora_path: a LoRA adapter GGUF applied to the loaded weights
         (dequantize, add, requantize: train.lora.apply_lora_to_qparams)
         before the projections are fused, so the fused QKV and gate|up
@@ -184,6 +191,8 @@ class Engine:
         block of the ranks.
         load_abort: () -> bool, checked before each layer loads; True
         cancels the load with AbortError."""
+        if int8_dot not in INT8_MODES:
+            raise ValueError(f"int8_dot={int8_dot!r}: one of {INT8_MODES}")
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         self.cfg, self.params, self.metadata = load_model(
@@ -192,6 +201,7 @@ class Engine:
         self.cfg.flash_attn = flash_attn
         self.cfg.fused_ffn = fused_ffn
         self.cfg.int8_inkq = int8_inkq
+        self.cfg.int8_dot = int8_dot
         if lora_path:
             # llama_model_apply_lora_from_file parity (llama.h:436)
             from tpulamm_torch.train.lora import (apply_lora_to_qparams,

@@ -10,7 +10,8 @@ saves straight to GGUF and runs in the decode engine; torch autograd
 replaces ggml's reverse graph, torch.utils.checkpoint (a layer at a time)
 ggml_build_backward_gradient_checkpointing. Its products are plain torch
 ops, as the JAX forward's are plain XLA ops (no kernel of the inference
-path runs here).
+path runs here). Under a mesh the same forward runs over a tp group's
+rank list (train.train's mesh= path).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from torch.utils.checkpoint import checkpoint
 from tpulamm_torch.models.config import ModelConfig
 from tpulamm_torch.ops.layers import rms_norm, silu
 from tpulamm_torch.ops.rope import apply_rope
+from tpulamm_torch.parallel.distributed import (fan_out, gather_ranks,
+                                                reduce_ranks)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -64,11 +67,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     return params
 
 
-def _layer_fwd(layer: dict, cfg: ModelConfig, h: torch.Tensor,
+def _attention(layer: dict, cfg: ModelConfig, hn: torch.Tensor,
                positions: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    B, T, _ = h.shape
+    """Causal attention of the normed activations over cfg's heads (a tp
+    rank's own heads under a per-rank cfg) -> (B, T, n_heads * head_dim),
+    before the output projection."""
+    B, T, _ = hn.shape
     hd = cfg.head_dim
-    hn = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
     q = (hn @ layer["wq"].T).reshape(B, T, cfg.n_heads, hd)
     k = (hn @ layer["wk"].T).reshape(B, T, cfg.n_kv_heads, hd)
     v = (hn @ layer["wv"].T).reshape(B, T, cfg.n_kv_heads, hd)
@@ -80,37 +85,70 @@ def _layer_fwd(layer: dict, cfg: ModelConfig, h: torch.Tensor,
     scale = float(np.sqrt(np.asarray(hd, np.float32)))
     scores = torch.einsum("bthgd,bshd->bhgts", qg, k) / scale
     scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(h.dtype)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(hn.dtype)
     attn = torch.einsum("bhgts,bshd->bthgd", probs, v)
-    attn = attn.reshape(B, T, cfg.n_heads * hd)
-    h = h + attn @ layer["wo"].T
-    hn = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
+    return attn.reshape(B, T, cfg.n_heads * hd)
+
+
+def _ffn(layer: dict, hn: torch.Tensor) -> torch.Tensor:
     gate = hn @ layer["w_gate"].T
     up = hn @ layer["w_up"].T
-    return h + (silu(gate) * up) @ layer["w_down"].T
+    return (silu(gate) * up) @ layer["w_down"].T
 
 
-def forward_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  remat: bool = False) -> torch.Tensor:
+def _layer_fwd(layers: list, cfg: ModelConfig, h: torch.Tensor,
+               positions: torch.Tensor, mask: torch.Tensor,
+               comm=None) -> torch.Tensor:
+    """One layer over the tp ranks of a group (`layers`, one dict each in
+    rank order; one dict when the model is not sharded): each rank's
+    q / k / v heads and its partial wo product, summed in rank order ("g");
+    each rank's w_gate / w_up rows and its partial w_down product, summed,
+    where the FFN is sharded (row_ffn "psum"), else the replicated FFN
+    once. The normed input of a sharded product goes through "f". With one
+    rank both are the identity."""
+    n = len(layers)
+    hn = rms_norm(h, layers[0]["attn_norm"], cfg.norm_eps)
+    h = h + reduce_ranks(
+        [_attention(lyr, cfg, x, positions, mask) @ lyr["wo"].T
+         for lyr, x in zip(layers, fan_out(hn, n, comm))], comm)
+    hn = rms_norm(h, layers[0]["ffn_norm"], cfg.norm_eps)
+    if cfg.row_ffn != "psum":
+        return h + _ffn(layers[0], hn)
+    return h + reduce_ranks([_ffn(lyr, x) for lyr, x in
+                             zip(layers, fan_out(hn, n, comm))], comm)
+
+
+def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  remat: bool = False, comm=None) -> torch.Tensor:
     """tokens (B, T) -> logits (B, T, vocab) f32; full causal attention.
 
-    remat=True recomputes each layer in the backward pass
+    params: a dict, or under a mesh the list of one dp group's local tp
+    ranks' trees (train.shards.TrainShards), cfg then the per-rank config
+    (parallel.mesh.step_config) and comm the collectives of a group that
+    spans processes; the vocab-sharded head's parts are gathered in rank
+    order. remat=True recomputes each layer in the backward pass
     (torch.utils.checkpoint, the ggml grad-checkpointing analogue)."""
+    ranks = params if isinstance(params, list) else [params]
     B, T = tokens.shape
-    dev = params["tok_emb"].device
+    dev = ranks[0]["tok_emb"].device
     tokens = tokens.to(device=dev, dtype=torch.long)
-    h = params["tok_emb"][tokens]
+    h = ranks[0]["tok_emb"][tokens]
     positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
     mask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
     mask = mask[None, None, None]
-    for layer in params["layers"]:
+    for i in range(len(ranks[0]["layers"])):
+        layers = [r["layers"][i] for r in ranks]
         if remat:
-            h = checkpoint(_layer_fwd, layer, cfg, h, positions, mask,
+            h = checkpoint(_layer_fwd, layers, cfg, h, positions, mask, comm,
                            use_reentrant=False)
         else:
-            h = _layer_fwd(layer, cfg, h, positions, mask)
-    h = rms_norm(h, params["out_norm"], cfg.norm_eps)
-    return (h @ params["output"].T).to(torch.float32)
+            h = _layer_fwd(layers, cfg, h, positions, mask, comm)
+    h = rms_norm(h, ranks[0]["out_norm"], cfg.norm_eps)
+    if cfg.head_sharded:
+        parts = [x @ r["output"].T
+                 for r, x in zip(ranks, fan_out(h, len(ranks), comm))]
+        return torch.cat(gather_ranks(parts, comm), dim=-1).to(torch.float32)
+    return (h @ ranks[0]["output"].T).to(torch.float32)
 
 
 def token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

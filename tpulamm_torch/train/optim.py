@@ -111,10 +111,15 @@ class AdamW:
                 "nu": [torch.zeros_like(p) for p in params]}
 
     @torch.no_grad()
-    def update(self, grads: list, state: dict, params: list, **_):
+    def update(self, grads: list, state: dict, params: list, *, vdot=None,
+               **_):
+        """vdot: the inner product over the whole tree where the leaves are
+        one process's part of it (a mesh's or a pipeline's), default the
+        local sum."""
         tc = self.tc
         # clip_by_global_norm: t / norm * max_norm when norm >= max_norm
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        norm = torch.sqrt(sum((g * g).sum() for g in grads) if vdot is None
+                          else vdot(grads, grads))
         if not float(norm) < tc.grad_clip:
             for g in grads:
                 g.div_(norm).mul_(tc.grad_clip)
@@ -162,8 +167,10 @@ class LBFGS:
 
     @torch.no_grad()
     def update(self, grads: list, state: dict, params: list, *, value,
-               grad: list, value_and_grad_fn):
-        """value_and_grad_fn(leaves) -> (loss tensor, gradient leaves)."""
+               grad: list, value_and_grad_fn, vdot=None):
+        """value_and_grad_fn(leaves) -> (loss tensor, gradient leaves);
+        vdot as AdamW.update's (default tree_vdot)."""
+        dot = vdot or tree_vdot
         m = self.memory_size
         count = state["count"]
         mem = state["memory"]
@@ -172,14 +179,14 @@ class LBFGS:
         if count > 0:
             dw = [p - q for p, q in zip(params, state["params"])]
             du = [g - q for g, q in zip(grads, state["updates"])]
-            vdu = tree_vdot(du, dw)
+            vdu = dot(du, dw)
             rho = torch.where(vdu == 0.0, torch.zeros_like(vdu), 1.0 / vdu)
             mem[prev] = _Mem(dw, du, rho)
-            den = tree_vdot(du, du)
+            den = dot(du, du)
             scale = torch.where(den > 0.0, vdu / den, torch.ones_like(den))
         else:
             mem[prev] = None                 # optax writes zeros there
-            norm = torch.sqrt(tree_vdot(grads, grads))
+            norm = torch.sqrt(dot(grads, grads))
             scale = torch.clamp(1.0 / norm, max=1.0)
         # the two loops of Algorithm 7.4 over the ring: newest entry
         # first, then back from the oldest
@@ -190,7 +197,7 @@ class LBFGS:
             e = mem[i]
             if e is None:
                 continue
-            a = e.rho * tree_vdot(e.dw, vec)
+            a = e.rho * dot(e.dw, vec)
             alphas[i] = a
             vec = [v + (-a) * u for v, u in zip(vec, e.du)]
         vec = [scale * v for v in vec]
@@ -198,7 +205,7 @@ class LBFGS:
             e = mem[i]
             if e is None:
                 continue
-            b = e.rho * tree_vdot(e.du, vec)
+            b = e.rho * dot(e.du, vec)
             vec = [v + (alphas[i] - b) * w for v, w in zip(vec, e.dw)]
         state["params"] = [p.clone() for p in params]
         state["updates"] = [g.clone() for g in grads]
@@ -206,7 +213,7 @@ class LBFGS:
         # scale(-lr), then the zoom linesearch along that direction
         upd = [F32(-self.lr).item() * v for v in vec]
         stepsize, trials = self._zoom(params, upd, value, grad,
-                                      value_and_grad_fn)
+                                      value_and_grad_fn, dot)
         state["trials"] = trials
         return [stepsize * u for u in upd], state
 
@@ -243,18 +250,18 @@ class LBFGS:
             B = (fb - fa - fpa * db) / (db ** 2)
             return F32(a - fpa / (F32(2) * B))
 
-    def _zoom(self, params, upd, value, grad, vg_fn):
+    def _zoom(self, params, upd, value, grad, vg_fn, dot):
         """The stepsize the zoom linesearch picks along `upd`, and its
         number of trials."""
         def on_line(s):
             step = [p + float(s) * u for p, u in zip(params, upd)]
             v, g = vg_fn(step)
-            slope = tree_vdot(g, upd)
+            slope = dot(g, upd)
             vs = torch.stack([v.detach().float(), slope]).cpu().numpy()
             return F32(vs[0]), g, F32(vs[1])
 
         v0 = F32(float(value))
-        slope0 = F32(float(tree_vdot(upd, grad)))
+        slope0 = F32(float(dot(upd, grad)))
         st = dict(stepsize=F32(0), value=v0, slope=slope0, grad=grad,
                   low=F32(0), v_low=v0, s_low=slope0, high=F32(0),
                   v_high=v0, s_high=slope0, cubic=F32(0), v_cubic=v0,

@@ -55,11 +55,14 @@ def sample_batches(data: np.ndarray, tc: TrainConfig):
 
 
 def value_and_grad(loss_fn, tree, leaves: list):
-    """(loss, d loss / d leaves) of loss_fn(tree rebuilt from `leaves`)."""
+    """(loss, d loss / d leaves) of loss_fn(tree rebuilt from `leaves`); a
+    leaf the loss does not reach (a pipeline stage's tok_emb on another
+    process) gets zeros."""
     xs = [x.detach().requires_grad_(True) for x in leaves]
     with torch.enable_grad():
         loss = loss_fn(optim.tree_unflatten(tree, xs))
-        grads = torch.autograd.grad(loss, xs)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True,
+                                    materialize_grads=True)
     return loss.detach(), list(grads)
 
 
@@ -74,12 +77,15 @@ def device_batch(b, device):
 
 
 def optimize(tree, loss_fn, tc: TrainConfig, batches, log_every: int = 10,
-             log=print, prefix: str = "step", grad_mask=None, stats=None):
+             log=print, prefix: str = "step", grad_mask=None, stats=None,
+             vdot=None):
     """The training loop over any tree of tensors: n_steps of
     make_optimizer(tc) on loss_fn(tree, batch), a batch from `batches`
     each (device_batch). Returns (tree, losses). stats, a dict, gets each
     step's wall seconds ("step_s", ending in the loss's copy back) and the
-    line-search trials of an L-BFGS step ("trials")."""
+    line-search trials of an L-BFGS step ("trials"). vdot: the optimizer's
+    inner product where the tree is one process's part of a whole
+    (AdamW.update)."""
     opt = make_optimizer(tc)
     leaves = [x.detach() for x in optim.tree_leaves(tree)]
     mask = optim.tree_leaves(grad_mask) if grad_mask is not None else None
@@ -97,9 +103,10 @@ def optimize(tree, loss_fn, tc: TrainConfig, batches, log_every: int = 10,
             grads = [g * m for g, m in zip(grads, mask)]
         if tc.optimizer == "lbfgs":
             updates, state = opt.update(grads, state, leaves, value=loss,
-                                        grad=grads, value_and_grad_fn=vg)
+                                        grad=grads, value_and_grad_fn=vg,
+                                        vdot=vdot)
         else:
-            updates, state = opt.update(grads, state, leaves)
+            updates, state = opt.update(grads, state, leaves, vdot=vdot)
         optim.apply_updates(leaves, updates)
         losses.append(float(loss))
         if stats is not None:
@@ -126,17 +133,59 @@ def train(params: dict, cfg: ModelConfig, data: np.ndarray,
     overriding the default random-window sampler (document-aligned tasks
     like tools/passkey_train need episode boundaries respected).
 
-    mesh: the JAX package's data / tensor-parallel mesh for training; not
-    ported yet (the serving mesh is Engine(tp=, dp=)).
+    mesh: a (dp, tp) parallel.mesh.Mesh (make_mesh). The params are cut
+    by the megatron shard plan into per-rank tensors (TrainShards), each
+    batch's rows split over the dp groups (a batch dp does not divide
+    raises, as the JAX NamedSharding does), the loss is the mean over all
+    rows and the tp collectives go through autograd (parallel.distributed);
+    the products stay torch matmuls, as the JAX step's are XLA dots. The
+    caller's tensors get the trained values in the global layout. Across
+    processes the mesh is tp only (dp 1): every process runs the same
+    loop over the same batches and gets the same losses and params.
     stats: see optimize."""
-    if mesh is not None:
-        from tpulamm_torch.cli._common import MESH_TRAIN_ITEM
-        raise NotImplementedError(
-            f"train(mesh=...): sharded training is not ported yet "
-            f"({MESH_TRAIN_ITEM})")
     if batches is None:
         batches = sample_batches(data, tc)
+    if mesh is not None:
+        return _train_mesh(params, cfg, tc, batches, mesh, grad_mask,
+                           log_every, log, stats)
     return optimize(params,
                     lambda p, b: causal_lm_loss(p, cfg, b, remat=tc.remat),
                     tc, batches, log_every=log_every, log=log,
                     grad_mask=grad_mask, stats=stats)
+
+
+def _train_mesh(params, cfg, tc, batches, mesh, grad_mask, log_every, log,
+                stats):
+    """train(mesh=...): the loop over the mesh's unique leaves."""
+    from tpulamm_torch.parallel.mesh import step_config
+    from tpulamm_torch.train.model import forward_train, token_nll
+    from tpulamm_torch.train.shards import TrainShards
+    tp = mesh.tp
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} and n_kv_heads="
+                         f"{cfg.n_kv_heads} must both be divisible by "
+                         f"tp={tp}")
+    shards = TrainShards(params, mesh)
+    cfg_step = step_config(cfg, tp, params, shards.plan)
+
+    def loss_fn(leaves, batch):
+        if batch.shape[0] % mesh.dp:
+            raise ValueError(f"a batch of {batch.shape[0]} rows does not "
+                             f"split over dp={mesh.dp}")
+        ranks = shards.ranks(leaves)
+        n = batch.shape[0] // mesh.dp
+        nll = []
+        for d in mesh.local_dp:
+            rows = batch[d * n:(d + 1) * n]
+            nll.append(token_nll(forward_train(ranks, cfg_step, rows,
+                                               remat=tc.remat,
+                                               comm=mesh.comm), rows))
+        return torch.cat(nll).mean()
+    mask = shards.cut(grad_mask) if grad_mask is not None else None
+    leaves, losses = optimize(shards.leaves, loss_fn, tc, batches,
+                              log_every=log_every, log=log, grad_mask=mask,
+                              stats=stats, vdot=shards.vdot)
+    with torch.no_grad():
+        for dst, src in zip(optim.tree_leaves(params), shards.gather(leaves)):
+            dst.copy_(src)
+    return params, losses
