@@ -366,6 +366,18 @@ Phases (any failure raises, so the exit code is not 0):
      exactly 5 qmm_int8 a step and no qmm with int8 dots, 5 qmm a step and
      no qmm_int8 with Engine(int8_dot="0"). Each sub-step's seconds are
      printed
+  16. dp across processes (slice 21), all its children started at once.
+     16a: Engine(dp=2, tp=2, n_slots=2) at 2 layers of LLaMA-7B width,
+     Q4_0, in two processes on the one card (one dp group each, gloo)
+     beside the same engine in this process: the 512-token prefill of
+     slot 1, 64 greedy tokens of generate_fast there and a decode from
+     seq_cp(1, 0) across the processes, all bit for bit; exactly 18 qmm a
+     ubatch and 18 qmm_int8 a step in each process against 36 / 36 in one
+     process; each side's decode tok/s and 512-token prefill ms (with the
+     last position's logits and with logits_all). 16b: train(mesh=) at
+     make_mesh(2, 1) and make_mesh(2, 2) across two processes (15c's 2
+     layers and 3 AdamW steps): losses and params bit for bit the
+     one-process runs'
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -5799,7 +5811,8 @@ def proc_run(mode: str, device, mesh) -> dict:
     reference: PROC15_STEPS AdamW steps at PROC15_LAYERS of TinyLlama
     width from device_init, over seeded random batches; "train" through
     train(mesh=), "pipeline" through train_step_pp at 4 microbatches of 1 x
-    TRAIN_CTX. Returns the losses and the global params on the host."""
+    TRAIN_CTX; the other modes (PROC_MESHES) through train(mesh=) on
+    their meshes. Returns the losses and the global params on the host."""
     from tpulamm_torch.parallel import pipeline as PPL
     from tpulamm_torch.train import optim as TO
     from tpulamm_torch.train.train import TrainConfig, make_optimizer, train
@@ -5810,7 +5823,7 @@ def proc_run(mode: str, device, mesh) -> dict:
                      n_steps=PROC15_STEPS)
     batches = [rng.integers(3, cfg.vocab_size, (TRAIN_BATCH, TRAIN_CTX + 1))
                for _ in range(PROC15_STEPS)]
-    if mode == "train":
+    if mode != "pipeline":
         _, losses = train(init, cfg, None, tc, log_every=0, mesh=mesh,
                           batches=iter(batches))
         leaves = TO.tree_leaves(init)
@@ -5830,11 +5843,15 @@ def proc_run(mode: str, device, mesh) -> dict:
             "leaves": [x.cpu().numpy() for x in leaves]}
 
 
+# (dp, tp) of proc_run's train(mesh=) modes: 15c's, then 16b's
+PROC_MESHES = {"train": (1, 2), "train_dp2": (2, 1), "train_dp2tp2": (2, 2)}
+
+
 def proc_mesh(mode: str, device):
     from tpulamm_torch.parallel.mesh import make_mesh
     from tpulamm_torch.parallel.pipeline import make_pp_mesh
-    return (make_mesh(1, 2, device) if mode == "train"
-            else make_pp_mesh(2, device))
+    return (make_pp_mesh(2, device) if mode == "pipeline"
+            else make_mesh(*PROC_MESHES[mode], device))
 
 
 def train_proc_main() -> int:
@@ -5854,6 +5871,32 @@ def train_proc_main() -> int:
     np.savez(out, losses=res["losses"],
              **{f"leaf{i}": x for i, x in enumerate(res["leaves"])})
     return 0
+
+
+def child_result(p, work: str, name: str, label: str):
+    """Wait for the child `p` (its log work/NAME.log, its result
+    work/NAME.npz), print its log's last lines, raise unless it returned
+    0; returns its npz."""
+    rc = p.wait(timeout=600)
+    for line in open(os.path.join(work, f"{name}.log")).read().splitlines(
+            )[-4:]:
+        log(f"[{label} {name}] {line[:300]}")
+    if rc != 0:
+        raise AssertionError(f"{label} {name} returned {rc}")
+    return np.load(os.path.join(work, f"{name}.npz"))
+
+
+def check_proc_run(label: str, pid: int, res, one: dict) -> None:
+    """A child's proc_run result against the one-process run's: the
+    losses and every param bit for bit."""
+    same = np.array_equal(res["losses"], one["losses"])
+    gap, unequal = leaf_gaps(
+        one["leaves"], [res[f"leaf{i}"] for i in range(len(one["leaves"]))])
+    if not same or unequal:
+        raise AssertionError(
+            f"{label} process {pid}: losses {res['losses'].tolist()} "
+            f"against {one['losses'].tolist()}, {unequal} tensors not equal "
+            f"bit for bit (largest gap {gap:.3g} of max|p|)")
 
 
 def phase_train_procs(device, smi: str) -> dict:
@@ -5882,26 +5925,9 @@ def phase_train_procs(device, smi: str) -> dict:
                 f"{[round(float(x), 6) for x in one['losses']]} "
                 f"({time.perf_counter() - t0:.1f} s)")
             for pid in (0, 1):
-                p = procs[(mode, pid)]
-                rc = p.wait(timeout=600)
-                lp = os.path.join(work, f"{mode}{pid}.log")
-                for line in open(lp).read().splitlines()[-4:]:
-                    log(f"[procs {mode}{pid}] {line[:300]}")
-                if rc != 0:
-                    raise AssertionError(f"15c {mode} process {pid} "
-                                         f"returned {rc}")
-                res = np.load(os.path.join(work, f"{mode}{pid}.npz"))
-                same = np.array_equal(res["losses"], one["losses"])
-                gap, unequal = leaf_gaps(
-                    one["leaves"],
-                    [res[f"leaf{i}"] for i in range(len(one["leaves"]))])
-                if not same or unequal:
-                    raise AssertionError(
-                        f"15c {mode} process {pid}: losses "
-                        f"{res['losses'].tolist()} against "
-                        f"{one['losses'].tolist()}, {unequal} tensors not "
-                        f"equal bit for bit (largest gap {gap:.3g} of "
-                        f"max|p|)")
+                res = child_result(procs[(mode, pid)], work, f"{mode}{pid}",
+                                   "procs")
+                check_proc_run(f"15c {mode}", pid, res, one)
             log(f"[procs] {mode} ({'tp' if mode == 'train' else 'pp'} 2 "
                 f"across two processes on {device}, gloo, "
                 f"{PROC15_LAYERS} layers, {PROC15_STEPS} AdamW steps): both "
@@ -5993,6 +6019,196 @@ def phase_slice20(device, smi: str, src: str, kept: dict) -> dict:
     log(f"[slice 20] phase 15: 15a {out['15a']['seconds']:.1f} s, 15b "
         f"{out['15b']['seconds']:.1f} s, 15c {out['15c']['seconds']:.1f} s, "
         f"15d {out['15d']['seconds']:.1f} s; {secs:.1f} s in all; {smi}")
+    return out
+
+
+# -- slice 21: dp across processes (phase 16) ---------------------------------
+# 16a: Engine(dp=2, tp=2, n_slots=2) at DP16["layers"] of LLaMA-7B width,
+# Q4_0, in two processes on the one card (one dp group each, gloo) beside
+# the same engine in this process (dp16_run): the 512-token prefill of
+# slot 1 (the second group), DP16["n_gen"] greedy tokens of generate_fast
+# there, then seq_cp(1, 0) across the groups and a decode step from the
+# copy, each bit for bit; exactly DP16_PER qmm a ubatch and qmm_int8 a
+# step in each process (2 ranks x (4 products x 2 layers + the head's
+# shard)), twice that in one process; the prefill's wall ms on each side
+# (the two processes starting together), with the last position's logits
+# (what the dp exchange moves: B x vocab) and with logits_all (B x 512 x
+# vocab)
+DP16 = dict(layers=2, n_ctx=1024, n_gen=64)
+DP16_PER = 2 * (4 * DP16["layers"] + 1)
+# 16b: proc_run at make_mesh(2, 1) and make_mesh(2, 2) across two
+# processes (15c's settings): losses and params bit for bit
+DP16_MODES = ("train_dp2", "train_dp2tp2")
+# what phase 16 was predicted to show, written before its first chip run
+# (PERF.md section 5)
+PHASE16_PREDICTIONS = {
+    "16a launches": "18 qmm a ubatch and 18 qmm_int8 a step in each of two "
+                    "processes, 36 / 36 in one",
+    "16a decode tok/s": "one process (graphs) 250-450; two processes "
+                        "(eager, gloo, beside the other children) 30-120",
+    "16b": "bit for bit; the children within the phase",
+    "phase 16 s": "40-70",
+    "16a prefill ms": "one process 15-40 (both groups' rows); two "
+                      "processes 10-60 each (one group, beside the other "
+                      "children); logits_all adds 50-150 across processes "
+                      "(131 MB over gloo) and under 15 in one",
+}
+
+
+def dp16_run(path: str, device) -> dict:
+    """16a's drive, the same in each process and in one process (see
+    DP16): the prefill logits, the generate_fast tokens and decode tok/s,
+    the logits of a decode from the copy, and the launches of the prefill
+    ubatch and of the decode steps, which must be those of the ranks this
+    process holds."""
+    rng = np.random.default_rng(SEED + 41)
+    prompt = rng.integers(3, LLAMA_7B["vocab"], size=PROMPT).tolist()
+    eng = Engine(path, n_ctx=DP16["n_ctx"], n_slots=2, tp=2, dp=2,
+                 device=device)
+    per = len(eng.mesh.local_ranks) * (4 * DP16["layers"] + 1)
+    reset_port_launches()
+    lg = eng.prefill(1, prompt)
+    expect_launches("16a prefill", {"qmm": per})
+    ms = {}
+    for key, every in (("prefill_ms", False), ("prefill_all_ms", True)):
+        eng.reset_slot(1)
+        if eng.mesh.process_count > 1:
+            # both processes start the clock together: a process that
+            # arrives first would otherwise time its wait for the other
+            torch.distributed.barrier()
+        t0 = time.perf_counter()
+        eng.prefill(1, prompt, logits_all=every)
+        ms[key] = 1e3 * (time.perf_counter() - t0)
+    eng.generate_fast(prompt, n_predict=DP16["n_gen"], slot=1,
+                      stop_on_eos=False)
+    eng.timings = Timings()
+    reset_port_launches()
+    ids, _ = eng.generate_fast(prompt, n_predict=DP16["n_gen"], slot=1,
+                               stop_on_eos=False)
+    tm = eng.timings
+    expect_launches("16a generate_fast",
+                    {"qmm": per, "qmm_int8": per * tm.n_step})
+    eng.seq_cp(1, 0)
+    cp = eng.decode_one(0, ids[-1])
+    return {"logits": lg, "ids": np.asarray(ids), "cp": cp,
+            "tok_s": (len(ids) - 1) / tm.t_eval, "per": per,
+            "steps": tm.n_step, **ms}
+
+
+def dp16_main() -> int:
+    """16a's child: PORT PID MODEL OUT -- one of the two processes of
+    dp16_run on the card over gloo; writes its results to OUT (npz)."""
+    from tpulamm_torch.parallel.distributed import init_distributed
+    port, pid, path, out = sys.argv[1:5]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=2,
+                     process_id=int(pid), ranks=4)
+    t0 = time.perf_counter()
+    res = dp16_run(path, torch.device("cuda", 0))
+    print(f"dp 2 x tp 2 process {pid}: {time.perf_counter() - t0:.1f} s, "
+          f"decode {res['tok_s']:.2f} tok/s, prefill {res['prefill_ms']} ms "
+          f"({res['prefill_all_ms']} ms with logits_all)", flush=True)
+    np.savez(out, **res)
+    return 0
+
+
+def phase_dp_procs(device, smi: str) -> dict:
+    """Phase 16 (slice 21): dp across processes on the one card, every
+    child started at once (16b's four, then 16a's two once their model is
+    written) while this process runs the one-process references."""
+    t_phase = time.perf_counter()
+    work = os.path.join(SMOKE_DIR, "dp16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = {}
+    out = {}
+    try:
+        for mode in DP16_MODES:
+            port = str(free_port())
+            for pid in (0, 1):
+                procs[(mode, pid)] = child(
+                    "train_proc_main",
+                    [mode, port, str(pid),
+                     os.path.join(work, f"{mode}{pid}.npz")],
+                    os.path.join(work, f"{mode}{pid}.log"))
+        path = os.path.join(work, "llama7b_2l.gguf")
+        write_llama_gguf(path, DP16["layers"], np.random.default_rng(
+            SEED + 40), **LLAMA_7B)
+        port = str(free_port())
+        for pid in (0, 1):
+            procs[("serve", pid)] = child(
+                "dp16_main",
+                [port, str(pid), path, os.path.join(work, f"serve{pid}.npz")],
+                os.path.join(work, f"serve{pid}.log"))
+        t0 = time.perf_counter()
+        one = dp16_run(path, device)
+        if one["per"] != 2 * DP16_PER:
+            raise AssertionError(f"16a one process: {one['per']} launches "
+                                 f"a ubatch, not {2 * DP16_PER}")
+        log(f"[dp16] 16a one process: Engine(dp=2, tp=2), "
+            f"{DP16['layers']} layers of LLaMA-7B width, {one['per']} qmm a "
+            f"ubatch and qmm_int8 a step (exact; {one['steps']} steps, "
+            f"{one['per'] * one['steps']} qmm_int8), decode "
+            f"{one['tok_s']:.2f} tok/s (graphs), prefill "
+            f"{one['prefill_ms']} ms ({one['prefill_all_ms']} ms with "
+            f"logits_all) ({time.perf_counter() - t0:.1f} s)")
+        refs = {}
+        for mode in DP16_MODES:
+            t0 = time.perf_counter()
+            refs[mode] = proc_run(mode, device, proc_mesh(mode, device))
+            log(f"[dp16] 16b {mode}, one process: losses "
+                f"{[round(float(x), 6) for x in refs[mode]['losses']]} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        tok_s, pre = [], []
+        for pid in (0, 1):
+            res = child_result(procs[("serve", pid)], work, f"serve{pid}",
+                               "dp16")
+            if int(res["per"]) != DP16_PER:
+                raise AssertionError(f"16a process {pid}: {res['per']} "
+                                     f"launches a ubatch, not {DP16_PER}")
+            for key in ("logits", "ids", "cp"):
+                if not np.array_equal(res[key], one[key]):
+                    raise AssertionError(f"16a process {pid}: {key} differs "
+                                         "from the one-process engine's")
+            tok_s.append(float(res["tok_s"]))
+            pre.append((float(res["prefill_ms"]),
+                        float(res["prefill_all_ms"])))
+        log(f"[dp16] 16a two processes (one dp group each, gloo, eager "
+            f"steps): the prefill logits, {DP16['n_gen']} greedy tokens and "
+            f"the decode from seq_cp(1, 0) across the processes bit for bit "
+            f"the one-process engine's; exactly {DP16_PER} qmm a ubatch and "
+            f"{DP16_PER} qmm_int8 a step in each process ({int(res['steps'])}"
+            f" steps, {DP16_PER * int(res['steps'])} qmm_int8; against "
+            f"{2 * DP16_PER} / {2 * DP16_PER} in one); decode "
+            f"{tok_s[0]:.2f} / {tok_s[1]:.2f} tok/s (process 0 / 1, beside "
+            f"the other children) against {one['tok_s']:.2f} in one "
+            f"process; the 512-token prefill {pre[0][0]} / {pre[1][0]} ms "
+            f"({pre[0][1]} / {pre[1][1]} ms with logits_all) against "
+            f"{one['prefill_ms']} ({one['prefill_all_ms']}) in one; {smi}")
+        out["16a"] = {"one_tok_s": one["tok_s"], "procs_tok_s": tok_s,
+                      "one_prefill_ms": one["prefill_ms"],
+                      "procs_prefill_ms": pre}
+        for mode in DP16_MODES:
+            for pid in (0, 1):
+                res = child_result(procs[(mode, pid)], work, f"{mode}{pid}",
+                                   "dp16")
+                check_proc_run(f"16b {mode}", pid, res, refs[mode])
+            dp, tp = PROC_MESHES[mode]
+            log(f"[dp16] 16b train(mesh=make_mesh({dp}, {tp})) across two "
+                f"processes on {device} (gloo, {PROC15_LAYERS} layers, "
+                f"{PROC15_STEPS} AdamW steps): both processes' losses and "
+                "params equal the one-process run's bit for bit")
+            out[mode] = refs[mode]["losses"].tolist()
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    for key, val in PHASE16_PREDICTIONS.items():
+        log(f"[slice 21] predicted {key}: {val}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[slice 21] phase 16 {out['seconds']:.1f} s; {smi}")
     return out
 
 
@@ -6110,7 +6326,7 @@ def cmp_init() -> dict:
 
 def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
                q_src: tuple, init2: dict, done) -> int:
-    """Phases 3-15, the kernels line and the last line."""
+    """Phases 3-16, the kernels line and the last line."""
     stats = phase_kernels(device, rng)
     done("kernels")
     # phase 3e (slice 19), a generator of its own
@@ -6199,6 +6415,9 @@ def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
     # phase 15 (slice 20): the training mesh, the pipeline, the audit
     phase_slice20(device, smi, q_src[0], kept)
     done("slice 20")
+    # phase 16 (slice 21): dp across processes
+    phase_dp_procs(device, smi)
+    done("slice 21")
     decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "

@@ -11,13 +11,16 @@ on the CPU (gloo).
   worker's death answered with 503 within the heartbeat deadline;
 - the transport's repair: a send that outlasts the heartbeat deadline no
   longer declares the worker lost (the JAX broadcaster's socket timeout
-  does).
+  does);
+- a request whose assignment meets the lost transport (a mirrored call
+  raising WorkerLost, or any error once the worker is declared lost) is
+  answered 503, never 400, with no further mirrored call (no process
+  spawned: a Scheduler over an engine whose calls raise).
 """
 
 import json
 import os
 import pickle
-import socket
 import subprocess
 import sys
 import threading
@@ -25,6 +28,7 @@ import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -32,12 +36,15 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_mesh_worker import _free_port
 from tpulamm.gguf.constants import GGMLType
 from tpulamm.runtime.engine import Engine as JEngine
 from tpulamm.server import multihost as jmh
 from tpulamm_torch.runtime.engine import Engine
+from tpulamm_torch.runtime.sampling import SamplingParams
 from tpulamm_torch.server import multihost as tmh
-from tpulamm_torch.server.server import serve
+from tpulamm_torch.server.server import (WORKER_LOST, Request, Scheduler,
+                                         serve)
 from tpulamm_torch.tools.synth import write_llama_gguf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,12 +60,6 @@ def model_path(tmp_path_factory):
     write_llama_gguf(path, 2, np.random.default_rng(31), dim=256, ffn=512,
                      n_head=8, vocab=512, qtype=GGMLType.F32, std=0.08)
     return path
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _env() -> dict:
@@ -268,3 +269,57 @@ def test_slow_send_is_not_a_lost_worker(pkg, lost):
     if not lost:
         method, args, _ = pickle.loads(got["frame"])
         assert method == "decode_batch" and np.array_equal(args[0], big)
+
+
+class _LostEngine:
+    """The engine of a server whose worker died: the mirrored call named
+    `fails` raises WorkerLost, as MirroredEngine's calls do once the
+    transport is lost; with `fails` "prefill" the heartbeat monitor
+    declares the worker lost during the prefill (the request already in its
+    slot) and the step fails with the collective's own error. Every call
+    is recorded."""
+
+    n_ctx, recurrent, tokenizer = 64, False, None
+    cfg = SimpleNamespace(vocab_size=32)
+
+    def __init__(self, fails):
+        self.fails, self.calls, self.sched = fails, [], None
+        self.n_past = np.zeros(2, np.int64)
+        self.cell_pos = np.full((2, 64), -1, np.int64)
+
+    def _call(self, name):
+        self.calls.append(name)
+        if name == self.fails == "prefill":
+            self.sched.on_worker_lost(0)
+            raise RuntimeError("connection closed by peer")
+        if name == self.fails:
+            raise tmh.WorkerLost("worker(s) [0] lost")
+
+    def reset_slot(self, slot):
+        self._call("reset_slot")
+
+    def embed(self, prompt, slot=0):
+        self._call("embed")
+
+    def prefill(self, slot, tokens):
+        self._call("prefill")
+
+
+@pytest.mark.parametrize("kind,fails,calls", [
+    ("completion", "reset_slot", ["reset_slot"]),
+    ("embedding", "embed", ["embed"]),
+    ("completion", "prefill", ["reset_slot", "prefill"])])
+def test_assign_answers_a_lost_worker_503(kind, fails, calls):
+    eng = _LostEngine(fails)
+    sched = Scheduler(eng, 2)
+    eng.sched = sched
+    req = Request(prompt=[1, 5, 7], params=SamplingParams(), n_predict=4,
+                  stream=False, embed=kind == "embedding")
+    sched.submit(req)
+    sched._assign()
+    item = req.out.get_nowait()
+    assert item[0] == "error" and item[1] == WORKER_LOST
+    assert req.error_status == 503
+    assert eng.calls == calls          # the teardown made no mirrored call
+    assert all(s.req is None for s in sched.slots)
+    assert req.rid not in sched.requests

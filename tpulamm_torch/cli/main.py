@@ -21,7 +21,6 @@ starting the same command (parallel.distributed).
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 from tpulamm_torch.cli._common import require_file
@@ -228,8 +227,9 @@ def main(argv=None):
         if args.prompt_cache and engine.tokenizer is not None:
             from tpulamm_torch.runtime.session import load_session
             all_tokens = ptoks          # already tokenized above
-            if os.path.exists(args.prompt_cache):
-                saved = load_session(args.prompt_cache, engine)
+            # process 0 of a mesh decides whether the file is there
+            saved = load_session(args.prompt_cache, engine, missing_ok=True)
+            if saved is not None:
                 n = 0
                 while (n < min(len(saved), len(all_tokens)) - 1
                        and saved[n] == all_tokens[n]):

@@ -136,7 +136,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, state: MambaState,
             slots: int | torch.Tensor | None, cells: torch.Tensor = None,
             kv_span: int | None = None, t_bucket: int | None = None,
-            segs: torch.Tensor | None = None
+            segs: torch.Tensor | None = None, last_row: bool = False
             ) -> tuple[torch.Tensor, MambaState]:
     """tokens / positions: (B, T); slots: (B,) slot ids, an int slot of a
     one-row batch, or None for the first B slots -> (logits (B, T, vocab)
@@ -144,14 +144,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     transformer.forward (cells, kv_span, t_bucket and segs are ignored: a
     recurrent state has no attention), so the engine and its step graphs
     drive either family. Without params["output"] the final-norm hidden
-    states (B, T, dim) f32 take the logits' place. On a dp mesh (params
+    states (B, T, dim) f32 take the logits' place; last_row: each row's
+    last position only, (B, 1, ...). On a dp mesh (params
     a ShardedParams, state a MeshCache of per-group states; a recurrent
     model has no tp) each dp group's rows run over its own state."""
     if isinstance(params, ShardedParams):
         def group(g, cfg, tok, pos, sl, ce, segs=None, embeds=None, **kw):
             return forward(g.params[0], cfg, tok, pos, g.caches[0], sl)[0]
         return run_forward(group, params, tokens, positions, state, slots,
-                           cells)
+                           cells, last_row=last_row)
     del cells, kv_span, t_bucket, segs
     B, T = tokens.shape
     valid_b = positions >= 0
@@ -185,8 +186,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     h = _norm(h, params, "out_norm", cfg)
     if params.get("output") is None:
         # headless: final hidden states (llama_get_embeddings path)
-        return h.to(torch.float32), state
-    logits = _proj(h.to(cfg.cdtype), params["output"], cfg)
-    if logits.shape[-1] != cfg.vocab_size:
-        logits = logits[..., : cfg.vocab_size]       # tile-padded head
-    return logits.to(torch.float32), state
+        out = h
+    else:
+        out = _proj(h.to(cfg.cdtype), params["output"], cfg)
+        if out.shape[-1] != cfg.vocab_size:
+            out = out[..., : cfg.vocab_size]         # tile-padded head
+    return (out[:, -1:] if last_row else out).to(torch.float32), state

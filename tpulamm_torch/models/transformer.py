@@ -392,7 +392,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             slots: int | torch.Tensor | None, cells: torch.Tensor,
             kv_span: int | None = None, t_bucket: int | None = None,
             segs: torch.Tensor | None = None,
-            embeds: torch.Tensor | None = None
+            embeds: torch.Tensor | None = None, last_row: bool = False
             ) -> tuple[torch.Tensor, KVCache]:
     """tokens/positions/cells: (B, T); slots: (B,) slot ids, the slot of a
     one-row batch as an int, or None for the first B slots; t_bucket: the
@@ -405,6 +405,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     embeds (B, T, dim), when given, replaces the token-embedding lookup:
     the reference's llama_batch.embd input (llama.cpp:8530-8537), through
     which llava splices projected image embeddings into the stream.
+    last_row: only each row's last position's logits, (B, 1, vocab) (on a
+    mesh across processes, cut before the rows are exchanged).
 
     params may be a mesh's ShardedParams (with cache its MeshCache): each
     dp group's rows then run through every local tp rank's weights and
@@ -413,9 +415,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     kw = dict(kv_span=kv_span, t_bucket=t_bucket, segs=segs, embeds=embeds)
     if isinstance(params, ShardedParams):
         return run_forward(_forward, params, tokens, positions, cache, slots,
-                           cells, **kw)
-    return _forward(TPGroup.single(params, cache), cfg, tokens, positions,
-                    slots, cells, **kw), cache
+                           cells, last_row=last_row, **kw)
+    out = _forward(TPGroup.single(params, cache), cfg, tokens, positions,
+                   slots, cells, **kw)
+    return (out[:, -1:] if last_row else out), cache
 
 
 def _forward(g: TPGroup, cfg: ModelConfig, tokens, positions, slots, cells,

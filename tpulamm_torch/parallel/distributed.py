@@ -80,21 +80,89 @@ def world() -> tuple[int, int] | None:
 
 
 class CrossProcess:
-    """The collectives of a tp group that spans every process of the world
-    (a multi-process mesh has dp == 1). gather_parts all-gathers each
-    process's local parts and returns every rank's part in rank order:
-    the sum and the concatenation then run over them as in one process,
-    so the result is the one-process mesh's bit for bit. The parts travel
-    as raw bytes (gloo reduces no bf16; a gather needs none)."""
+    """The collectives of a group of processes: a tp group whose ranks
+    span processes, or a dp exchange (the processes that hold one tp
+    index, one dp group after another). `group` is a torch.distributed
+    process group (None: the whole world); `rank` is this process's index
+    in it. gather_parts all-gathers each member's local parts and returns
+    every part in member order (rank order in a tp group, dp order in a dp
+    exchange): a sum or concatenation then runs over them as in one
+    process, so the result is the one-process mesh's bit for bit. The
+    parts travel as raw bytes (gloo reduces no bf16; a gather needs
+    none). gather_first and scatter_first move a tensor to or from the
+    first member alone (`first`, its global rank), through host memory:
+    a session's cache, which only process 0 writes or reads."""
+
+    def __init__(self, group=None, first: int = 0):
+        import torch.distributed as dist
+        self.group, self.first = group, first
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
 
     def gather_parts(self, parts: list) -> list:
         import torch.distributed as dist
         local = torch.stack(parts).contiguous()
         raw = local.view(torch.uint8).reshape(-1)
-        out = [torch.empty_like(raw) for _ in range(dist.get_world_size())]
-        dist.all_gather(out, raw)
+        out = [torch.empty_like(raw) for _ in range(self.size)]
+        dist.all_gather(out, raw, group=self.group)
         return [p for blk in out
                 for p in blk.view(local.dtype).reshape(local.shape).unbind(0)]
+
+    def gather_first(self, x: torch.Tensor) -> list | None:
+        """x from every member in member order, as host tensors, on the
+        first member; None on the others."""
+        import torch.distributed as dist
+        raw = x.contiguous().reshape(-1).view(torch.uint8).cpu()
+        out = ([torch.empty_like(raw) for _ in range(self.size)]
+               if self.rank == 0 else None)
+        dist.gather(raw, out, dst=self.first, group=self.group)
+        return None if out is None else [
+            b.view(x.dtype).reshape(x.shape) for b in out]
+
+    def scatter_first(self, parts: list | None, shape, dtype
+                      ) -> torch.Tensor:
+        """The first member's parts[i] to member i (parts None on the
+        others), each of `shape` and `dtype`; returns this member's part
+        as a host tensor."""
+        import torch.distributed as dist
+        raw = torch.empty(torch.Size(shape).numel() * dtype.itemsize,
+                          dtype=torch.uint8)
+        src = None if parts is None else [
+            p.contiguous().reshape(-1).view(torch.uint8).cpu() for p in parts]
+        dist.scatter(raw, src, src=self.first, group=self.group)
+        return raw.view(dtype).reshape(shape)
+
+
+def gather_rows(x: torch.Tensor, comm=None, dim: int = 0) -> torch.Tensor:
+    """x from every member of `comm`, concatenated on `dim` in member order
+    (x itself without comm): a dp exchange's rows in dp order."""
+    return x if comm is None else torch.cat(comm.gather_parts([x]), dim)
+
+
+def mesh_comms(n_dp: int, n_tp: int, index: int, count: int) -> tuple:
+    """(tp comm, dp comm) of process `index` of `count` on a (n_dp, n_tp)
+    mesh whose contiguous rank blocks (parallel.mesh.block_size) are
+    whole dp groups or lie inside one. The tp comm spans the processes of
+    this process's dp group, the dp comm those that hold its tp indices;
+    either is None where it would be this process alone. gloo makes every
+    process create every group, in one order, member or not."""
+    import torch.distributed as dist
+    n_local = n_dp * n_tp // count
+    span = max(n_tp // n_local, 1)       # processes a dp group spans
+    tp_sets = [list(range(d * span, (d + 1) * span)) for d in range(n_dp)]
+    dp_sets = [list(range(j, count, span)) for j in range(span)]
+
+    def comm(sets):
+        mine = None
+        for members in sets:
+            if len(members) == 1:
+                continue
+            group = (None if len(members) == count
+                     else dist.new_group(members))
+            if index in members:
+                mine = CrossProcess(group, members[0])
+        return mine
+    return comm(tp_sets), comm(dp_sets)
 
 
 # -- collectives that autograd goes through (training) ----------------------
@@ -113,8 +181,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, comm, *parts):
-        import torch.distributed as dist
-        ctx.lo, ctx.n = dist.get_rank() * len(parts), len(parts)
+        ctx.lo, ctx.n = comm.rank * len(parts), len(parts)
         return tuple(comm.gather_parts(list(parts)))
 
     @staticmethod
@@ -169,21 +236,42 @@ def fan_out(x: torch.Tensor, n: int, comm=None) -> list:
 
 def ordered_sum(dots: list, n_repl: int, comm=None) -> torch.Tensor:
     """The f32 sum, in one fixed order, of the scalars of a tree split over
-    processes (an inner product's leaf by leaf terms): `dots` holds this
-    process's n_repl replicated terms, counted on process 0 only, then the
-    terms of its own pieces. Across processes every process's list is
-    gathered and added process by process, so every process gets the same
-    bits, and the bits one process holding every piece gets."""
+    the processes of `comm` (an inner product's leaf by leaf terms):
+    `dots` holds this process's n_repl replicated terms, counted on the
+    group's first process only, then the terms of its own pieces. Across
+    processes every member's list is gathered and added member by member,
+    so every member gets the same bits, and the bits one process holding
+    every piece gets."""
     vec = torch.stack(dots).to(torch.float32)
     if comm is not None:
-        import torch.distributed as dist
-        if dist.get_rank() != 0:
+        if comm.rank != 0:
             vec = torch.cat([torch.zeros_like(vec[:n_repl]), vec[n_repl:]])
         vec = torch.cat(comm.gather_parts([vec]))
     acc = np.float32(0)
     for v in vec.cpu().numpy():
         acc = np.float32(acc + v)
     return torch.tensor(acc, device=dots[0].device)
+
+
+def send_tensors(xs: list, dst: int, tag: int) -> None:
+    """The tensors xs to process dst as one host byte buffer (gloo's send
+    takes CPU tensors); recv_tensors takes them."""
+    import torch.distributed as dist
+    buf = torch.cat([x.contiguous().reshape(-1).view(torch.uint8)
+                     for x in xs])
+    dist.send(buf.cpu(), dst, tag=tag)
+
+
+def recv_tensors(xs: list, src: int, tag: int) -> None:
+    """Fill the tensors xs in place from process src's send_tensors of
+    tensors of the same shapes and dtypes."""
+    import torch.distributed as dist
+    sizes = [x.numel() * x.element_size() for x in xs]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8)
+    dist.recv(buf, src, tag=tag)
+    buf = buf.to(xs[0].device)
+    for x, piece in zip(xs, buf.split(sizes)):
+        x.copy_(piece.clone().view(x.dtype).reshape(x.shape))
 
 
 # -- point to point (the pipeline's hops) -------------------------------------

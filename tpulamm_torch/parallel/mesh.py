@@ -25,8 +25,11 @@ a decode step stays one capturable CUDA graph.
 
 All the ranks of one process live on that process's one device (the
 engine's `device`). A mesh spans processes through parallel.distributed:
-each process owns a contiguous block of ranks, and a collective whose tp
-group crosses processes is finished over torch.distributed (gloo).
+each process owns a contiguous block of ranks, whole dp groups or a part
+of one. A collective whose tp group crosses processes is finished over
+torch.distributed (gloo) in that group's processes; the dp groups' outputs
+(logits, a session's slots, a training loss and its gradients) are
+exchanged among the processes that hold the same tp indices, in dp order.
 
 Training (train.train(mesh=)) cuts a dense f32 tree by the same plan
 (train.shards.TrainShards) and runs train.model.forward_train over each dp
@@ -41,7 +44,8 @@ from dataclasses import dataclass, replace
 import torch
 
 from tpulamm_torch.ops.qtensor import QTensor, dequant_mm
-from tpulamm_torch.parallel.distributed import gather_ranks, reduce_ranks
+from tpulamm_torch.parallel.distributed import (gather_ranks, gather_rows,
+                                                reduce_ranks)
 
 N, K = "N", "K"
 
@@ -239,8 +243,11 @@ def shard_params(params: dict, plan: dict, tp: int, ranks, dtype) -> list:
 class Mesh:
     """A (dp, tp) mesh whose ranks of this process share its one device.
     Rank i is (i // tp, i % tp); process p owns the contiguous ranks
-    [p * n_local, (p + 1) * n_local). comm finishes the collectives of a
-    tp group that crosses processes (parallel.distributed.CrossProcess)."""
+    [p * n_local, (p + 1) * n_local): whole dp groups, or a part of one
+    (block_size). comm finishes the collectives of a tp group that crosses
+    processes; dp_comm exchanges the dp groups' rows among the processes
+    that hold this one's tp indices (parallel.distributed.CrossProcess).
+    Either is None where it would be this process alone."""
 
     dp: int
     tp: int
@@ -248,6 +255,7 @@ class Mesh:
     process_index: int = 0
     process_count: int = 1
     comm: object = None
+    dp_comm: object = None
 
     @property
     def n_ranks(self) -> int:
@@ -262,14 +270,18 @@ class Mesh:
         lo = self.process_index * self.n_local
         return range(lo, lo + self.n_local)
 
+    def owner(self, d: int, t: int) -> int:
+        """The process that holds rank (d, t)."""
+        return (d * self.tp + t) // self.n_local
+
     @property
     def local_dp(self) -> list[int]:
         return sorted({r // self.tp for r in self.local_ranks})
 
     @property
     def local_tp(self) -> list[int]:
-        """The tp indices this process holds (the same in every local dp
-        group: a multi-process mesh has dp == 1)."""
+        """The tp indices this process holds: the same in every local dp
+        group, since a rank block is whole dp groups or lies in one."""
         return sorted({r % self.tp for r in self.local_ranks})
 
     def describe(self) -> str:
@@ -283,11 +295,30 @@ class Mesh:
                 f"{self.process_count}")
 
 
+def block_size(n_dp: int, n_tp: int, count: int) -> int:
+    """The ranks each of `count` processes owns on a (n_dp, n_tp) mesh.
+    Raises ValueError unless the blocks are equal and each is whole dp
+    groups or lies inside one dp group."""
+    n = n_dp * n_tp
+    if n % count:
+        raise ValueError(f"mesh ({n_dp}, {n_tp}) has {n} ranks, which "
+                         f"{count} processes cannot own in equal blocks")
+    n_local = n // count
+    if n_local % n_tp and n_tp % n_local:
+        raise ValueError(
+            f"mesh ({n_dp}, {n_tp}) over {count} processes: a block of "
+            f"{n_local} ranks splits a dp group of tp={n_tp} unevenly (a "
+            f"block must be whole dp groups or lie inside one)")
+    return n_local
+
+
 def make_mesh(n_dp: int, n_tp: int, device=None) -> Mesh:
     """The mesh of this process: every rank on `device` (default "cuda";
     raises without CUDA); under an initialized torch.distributed world of
-    several processes, this process's contiguous block of the ranks
-    (parallel.distributed)."""
+    several processes, this process's contiguous block of the ranks and
+    the process groups of its collectives (parallel.distributed). Every
+    process of the world must call it, in the same order as its other
+    make_mesh calls."""
     from tpulamm_torch.parallel import distributed
     from tpulamm_torch.runtime.engine import resolve_device
     dev = resolve_device(device)
@@ -295,14 +326,9 @@ def make_mesh(n_dp: int, n_tp: int, device=None) -> Mesh:
     if world is None:
         return Mesh(n_dp, n_tp, dev)
     index, count = world
-    n = n_dp * n_tp
-    if n % count:
-        raise ValueError(f"mesh ({n_dp}, {n_tp}) has {n} ranks, which "
-                         f"{count} processes cannot own in equal blocks")
-    if n_dp != 1:
-        raise ValueError(f"a mesh across {count} processes shards tp only "
-                         f"(dp={n_dp}): dp across processes is not built")
-    return Mesh(n_dp, n_tp, dev, index, count, distributed.CrossProcess())
+    block_size(n_dp, n_tp, count)
+    return Mesh(n_dp, n_tp, dev, index, count,
+                *distributed.mesh_comms(n_dp, n_tp, index, count))
 
 
 class TPGroup:
@@ -345,17 +371,22 @@ class ShardedParams:
 
 
 def run_forward(body, sp: ShardedParams, tokens, positions, cache, slots,
-                cells, segs=None, embeds=None, **kw):
+                cells, segs=None, embeds=None, last_row=False, **kw):
     """A forward over the mesh: each local dp group's rows through
     body(TPGroup, cfg, tokens, positions, slots, cells, segs=, embeds=,
-    **kw) -> logits, concatenated in dp order. dp > 1 needs the all-slots
-    batch (slots None, B = n_slots: dp group d holds rows [d * B / dp,
-    (d + 1) * B / dp)); dp == 1 takes any slots argument."""
+    **kw) -> logits, concatenated in dp order; across processes the other
+    groups' rows come over the dp exchange, so every process returns the
+    whole batch's logits (the JAX mesh's replicated outputs). last_row:
+    each row's last position only, (B, 1, ...), cut before the exchange
+    (a prefill ubatch's caller reads no other). dp > 1 needs
+    the all-slots batch (slots None, B = n_slots: dp group d holds rows
+    [d * B / dp, (d + 1) * B / dp)); dp == 1 takes any slots argument."""
     mesh = sp.mesh
     if mesh.dp == 1:
         g = TPGroup(sp.ranks, cache.groups[0], mesh.local_tp, mesh.comm)
-        return body(g, sp.cfg, tokens, positions, slots, cells, segs=segs,
-                    embeds=embeds, **kw), cache
+        out = body(g, sp.cfg, tokens, positions, slots, cells, segs=segs,
+                   embeds=embeds, **kw)
+        return (out[:, -1:] if last_row else out), cache
     B = tokens.shape[0]
     if slots is not None or B != mesh.dp * cache.n_per:
         raise ValueError(f"a dp={mesh.dp} step runs every slot in order "
@@ -364,9 +395,10 @@ def run_forward(body, sp: ShardedParams, tokens, positions, cache, slots,
     for d in mesh.local_dp:
         rows = slice(d * cache.n_per, (d + 1) * cache.n_per)
         g = TPGroup(sp.ranks, cache.groups[d], mesh.local_tp, mesh.comm)
-        outs.append(body(
+        out = body(
             g, sp.cfg, tokens[rows], positions[rows], None,
             None if cells is None else cells[rows],
             segs=None if segs is None else segs[rows],
-            embeds=None if embeds is None else embeds[rows], **kw))
-    return torch.cat(outs), cache
+            embeds=None if embeds is None else embeds[rows], **kw)
+        outs.append(out[:, -1:] if last_row else out)
+    return gather_rows(torch.cat(outs), mesh.dp_comm), cache

@@ -61,11 +61,13 @@
   megatron shard plan into per-rank tensors, the cache into per-rank
   caches of the rank's kv heads and dp group's slots, every rank on this
   engine's device (a process's one card; several processes through
-  parallel.distributed). As in the JAX engine, prefill and single-slot
-  steps then run the all-slots batch with the other rows padded to the
-  trash cell, the active-slot compaction and the megakernel are off, the
-  speculation hooks need dp == 1 and the draft tier an unmeshed target;
-  generate_fast decodes through the all-slots blocks. A step on a
+  parallel.distributed, each holding whole dp groups or a part of one:
+  every process gets the whole batch's logits, and a slot copied between
+  dp groups moves between processes). As in the JAX engine, prefill and
+  single-slot steps then run the all-slots batch with the other rows
+  padded to the trash cell, the active-slot compaction and the megakernel
+  are off, the speculation hooks need dp == 1 and the draft tier an
+  unmeshed target; generate_fast decodes through the all-slots blocks. A step on a
   one-process mesh is still one captured CUDA graph; a multi-process
   mesh (a gloo collective cannot be captured) steps eagerly.
 - per-phase timings mirror llama_print_timings (llama.h:949)
@@ -297,6 +299,9 @@ class Engine:
                     f"tp={tp} (choose tp <= n_kv_heads that divides it)")
         if n_slots % dp:
             raise ValueError(f"n_slots={n_slots} not divisible by dp={dp}")
+        world = distributed.world()
+        if world is not None:
+            pmesh.block_size(dp, tp, world[1])
 
     def _setup_mesh(self, make_cache):
         """Cut the weights by the shard plan into this process's tp ranks
@@ -314,7 +319,7 @@ class Engine:
         kv_heads = self.cfg.n_kv_heads // self.tp
         self.cache = MeshCache({d: [make_cache(n_per, kv_heads)
                                     for _ in mesh.local_tp]
-                                for d in mesh.local_dp}, n_per)
+                                for d in mesh.local_dp}, n_per, mesh)
         self.mesh = mesh
         print(mesh.describe(), file=sys.stderr, flush=True)
 
@@ -484,14 +489,16 @@ class Engine:
 
     def _step(self, tok: np.ndarray, pos: np.ndarray, cel: np.ndarray,
               slot: int, params=None, segs: np.ndarray | None = None,
-              embeds: np.ndarray | None = None) -> torch.Tensor:
+              embeds: np.ndarray | None = None,
+              last: bool = False) -> torch.Tensor:
         """One eager forward over one slot's (1, T) prefill ubatch; returns
         device logits, or hidden states where `params` (default the
         engine's) lack the lm head (decode steps replay graphs: _graph).
         segs: (1, T) packed segment ranges (eval_segmented); embeds: (1, T,
         dim) input embeddings in place of the tokens' (eval_embeds). On a
         mesh the batch covers every slot in order (the rows shard over dp):
-        only `slot`'s row is live, the others pad to the trash cell."""
+        only `slot`'s row is live, the others pad to the trash cell. last:
+        the logits of the ubatch's last position only, (1, 1, vocab)."""
         n = tok.shape[1]
         row = 0
         if self.mesh is not None:
@@ -509,7 +516,7 @@ class Engine:
                 self.params if params is None else params, self.cfg, t, p,
                 self.cache, slot, c, kv_span=self._kv_span(0),
                 t_bucket=self._bucket_for(n) if n > 1 else 1,
-                segs=sg[0] if sg else None, **kw)
+                segs=sg[0] if sg else None, last_row=last, **kw)
         return logits[row:row + 1]
 
     def _all_slots(self, slot: int, tok, pos, cel, segs, embeds):
@@ -530,18 +537,18 @@ class Engine:
                     np.asarray(embeds, np.float32), 0.0))
 
     def _run_device(self, slot: int, tokens: np.ndarray,
-                    positions: np.ndarray, cells: np.ndarray) -> torch.Tensor:
-        """One ubatch for one slot -> (T, vocab) logits on the device."""
+                    positions: np.ndarray, cells: np.ndarray,
+                    last: bool = False) -> torch.Tensor:
+        """One ubatch for one slot -> (T, vocab) logits on the device ((1,
+        vocab) for `last`, the last position's)."""
         logits = self._step(np.asarray(tokens)[None], np.asarray(positions)[None],
-                            np.asarray(cells)[None], int(slot))
+                            np.asarray(cells)[None], int(slot), last=last)
         return logits[0]
 
     def _run(self, slot: int, tokens: np.ndarray, positions: np.ndarray,
              cells: np.ndarray, all_logits: bool = True) -> np.ndarray:
-        logits = self._run_device(slot, tokens, positions, cells)
-        if not all_logits:
-            logits = logits[-1:]
-        return logits.cpu().numpy()
+        return self._run_device(slot, tokens, positions, cells,
+                                last=not all_logits).cpu().numpy()
 
     def _cells_for(self, slot: int, n: int, positions: np.ndarray) -> np.ndarray:
         """Allocate n free cells (host mirror of llama_kv_cache_find_slot);

@@ -85,11 +85,13 @@ class MeshCache:
     or a models.mamba.MambaState) for each local tp rank of dp group d,
     each over that group's n_per slots (global slot s is row s % n_per of
     group s // n_per) and, for a KVCache, the rank's n_kv_heads / tp heads.
-    A process holds the groups of its ranks only."""
+    A process holds the groups of its ranks only (mesh: the
+    parallel.mesh.Mesh whose rank blocks say which process holds which)."""
 
-    def __init__(self, groups: dict, n_per: int):
+    def __init__(self, groups: dict, n_per: int, mesh):
         self.groups = groups
         self.n_per = n_per
+        self.mesh = mesh
 
     def caches(self) -> list:
         return [c for d in sorted(self.groups) for c in self.groups[d]]
@@ -105,8 +107,29 @@ class MeshCache:
             c.reset_slot(r)
 
     def copy_slot(self, src: int, dst: int) -> None:
-        for (a, ra), (b, rb) in zip(self.rows(src), self.rows(dst)):
-            copy_row(a, ra, b, rb)
+        """Copy slot src's rows onto slot dst on every tp index. Where the
+        two dp groups live in different processes, the process holding
+        (src's group, t) sends the rows to the one holding (dst's group,
+        t) (parallel.distributed.send_tensors); every process of the mesh
+        calls this, and one holding neither side does nothing."""
+        from tpulamm_torch.parallel.distributed import (recv_tensors,
+                                                        send_tensors)
+        mesh = self.mesh
+        (ds, rs), (dd, rd) = divmod(int(src), self.n_per), divmod(
+            int(dst), self.n_per)
+        for t in range(mesh.tp):
+            p_src, p_dst = mesh.owner(ds, t), mesh.owner(dd, t)
+            if p_src == mesh.process_index:
+                a = self.groups[ds][mesh.local_tp.index(t)]
+                if p_dst == p_src:
+                    copy_row(a, rs, self.groups[dd][mesh.local_tp.index(t)],
+                             rd)
+                else:
+                    send_tensors(row_views(a, rs), p_dst, tag=t)
+            elif p_dst == mesh.process_index:
+                recv_tensors(row_views(
+                    self.groups[dd][mesh.local_tp.index(t)], rd), p_src,
+                    tag=t)
 
     def save_slot(self, slot: int) -> list:
         return [c.save_slot(r) for c, r in self.rows(slot)]
@@ -116,20 +139,21 @@ class MeshCache:
             c.restore_slot(r, saved)
 
 
+def row_views(c, r: int) -> list:
+    """The tensors of row r of a cache, as views: a KVCache's K, V and
+    scales layer by layer, its positions and segments; or a recurrent
+    state's conv and ssm rows."""
+    if not isinstance(c, KVCache):
+        return [c.conv[:, r], c.ssm[:, r]]
+    return [x[r] for bufs in (c.k, c.v, c.ks, c.vs) for x in bufs or ()] + [
+        c.pos[r], c.seg[r]]
+
+
 def copy_row(src, rs: int, dst, rd: int) -> None:
-    """Copy row rs of one cache onto row rd of another of the same layout
-    (a KVCache's K, V, scales, positions and segments, or a recurrent
-    state's conv and ssm rows), in place."""
-    if not isinstance(src, KVCache):
-        dst.conv[:, rd].copy_(src.conv[:, rs])
-        dst.ssm[:, rd].copy_(src.ssm[:, rs])
-        return
-    for a, b in ((src.k, dst.k), (src.v, dst.v), (src.ks, dst.ks),
-                 (src.vs, dst.vs)):
-        for x, y in zip(a or (), b or ()):
-            y[rd].copy_(x[rs])
-    dst.pos[rd].copy_(src.pos[rs])
-    dst.seg[rd].copy_(src.seg[rs])
+    """Copy row rs of one cache onto row rd of another of the same layout,
+    in place (row_views)."""
+    for x, y in zip(row_views(src, rs), row_views(dst, rd)):
+        y.copy_(x)
 
 
 def q8_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -172,7 +196,7 @@ def clear(cache: KVCache) -> KVCache:
 def seq_cp(cache: KVCache, src: int, dst: int) -> KVCache:
     """Copy slot src's cells (K, V, scales, positions, segments) onto slot
     dst, in place (llama_kv_cache_seq_cp); on a mesh, between any two dp
-    groups this process holds."""
+    groups, across processes too (MeshCache.copy_slot)."""
     if isinstance(cache, MeshCache):
         cache.copy_slot(src, dst)
     else:

@@ -279,8 +279,12 @@ class Scheduler(threading.Thread):
                 self._finish_slot(i, "cancelled")
 
     def _fail_request(self, req: Request, msg: str, status: int = 400):
+        """Answer `req` with an error. A 503 stays: a request failed for a
+        lost worker keeps that status when a later handler fails it
+        again."""
         self.requests.pop(req.rid, None)
-        req.error_status = status
+        if req.error_status != 503:
+            req.error_status = status
         req.out.put(("error", msg, {"prompt_tokens": 0,
                                     "completion_tokens": 0, "t_total": 0.0}))
 
@@ -325,8 +329,13 @@ class Scheduler(threading.Thread):
             except Exception as e:  # noqa: BLE001 — a bad request (e.g.
                 # malformed grammar) must fail ITSELF, not kill the
                 # scheduler thread and hang every other client
-                self._fail_request(req, f"{type(e).__name__}: {e}")
-                self.engine.reset_slot(i)
+                if isinstance(e, WorkerLost) or self.worker_lost:
+                    # the transport is gone: 503, and no further mirrored
+                    # call (it would raise WorkerLost in its turn)
+                    self._fail_request(req, WORKER_LOST, 503)
+                else:
+                    self._fail_request(req, f"{type(e).__name__}: {e}")
+                    self.engine.reset_slot(i)
                 slot = self.slots[i]
                 slot.req = None
                 slot.sampler = None

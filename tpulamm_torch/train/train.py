@@ -140,8 +140,10 @@ def train(params: dict, cfg: ModelConfig, data: np.ndarray,
     rows and the tp collectives go through autograd (parallel.distributed);
     the products stay torch matmuls, as the JAX step's are XLA dots. The
     caller's tensors get the trained values in the global layout. Across
-    processes the mesh is tp only (dp 1): every process runs the same
-    loop over the same batches and gets the same losses and params.
+    processes (tp groups, dp groups or both split over them) every process
+    runs the same loop over the same batches: the dp groups' token losses
+    and gradients are exchanged in dp order, so every process gets the
+    losses and params of the one-process mesh, bit for bit.
     stats: see optimize."""
     if batches is None:
         batches = sample_batches(data, tc)
@@ -157,6 +159,7 @@ def train(params: dict, cfg: ModelConfig, data: np.ndarray,
 def _train_mesh(params, cfg, tc, batches, mesh, grad_mask, log_every, log,
                 stats):
     """train(mesh=...): the loop over the mesh's unique leaves."""
+    from tpulamm_torch.parallel.distributed import fan_out, gather_ranks
     from tpulamm_torch.parallel.mesh import step_config
     from tpulamm_torch.train.model import forward_train, token_nll
     from tpulamm_torch.train.shards import TrainShards
@@ -169,18 +172,26 @@ def _train_mesh(params, cfg, tc, batches, mesh, grad_mask, log_every, log,
     cfg_step = step_config(cfg, tp, params, shards.plan)
 
     def loss_fn(leaves, batch):
+        """The mean token loss over every dp group's rows. Each leaf is
+        fanned out to the local dp groups (fan_out over the dp exchange),
+        so its gradient is the sum of every dp group's in dp order, in one
+        process or across processes; the local groups' token losses are
+        gathered over the dp exchange before the mean."""
         if batch.shape[0] % mesh.dp:
             raise ValueError(f"a batch of {batch.shape[0]} rows does not "
                              f"split over dp={mesh.dp}")
-        ranks = shards.ranks(leaves)
+        local = mesh.local_dp
+        fans = [fan_out(x, len(local), mesh.dp_comm) for x in leaves]
         n = batch.shape[0] // mesh.dp
         nll = []
-        for d in mesh.local_dp:
+        for j, d in enumerate(local):
             rows = batch[d * n:(d + 1) * n]
+            ranks = shards.ranks([f[j] for f in fans])
             nll.append(token_nll(forward_train(ranks, cfg_step, rows,
                                                remat=tc.remat,
                                                comm=mesh.comm), rows))
-        return torch.cat(nll).mean()
+        return torch.cat(gather_ranks([torch.cat(nll)],
+                                      mesh.dp_comm)).mean()
     mask = shards.cut(grad_mask) if grad_mask is not None else None
     leaves, losses = optimize(shards.leaves, loss_fn, tc, batches,
                               log_every=log_every, log=log, grad_mask=mask,
