@@ -27,7 +27,13 @@ Phases (any failure raises, so the exit code is not 0):
      timed at the long-context path's shapes (B = 1, Hkv = 32, hd = 128,
      G = 1; flash_attention at T = 512, S in {1024, 16385}; flash_decode at
      T = 1, S in {8193, 16385}; q8 and bf16) beside the plain version,
-     scaled_dot_product_attention and the bound
+     scaled_dot_product_attention and the bound; then, from a generator
+     of their own, FLASH_CASES_256 (hd 256 prefill and decode cases in
+     bf16 and q8, a Gemma-2B decode of one KV head at G 8, f16 K/V at hd
+     128 and 256 on the older body) and the Gemma timing rows
+     (FLASH_TIMING_256: Gemma-7B's 512-token ubatch and decode step at S
+     8193, bf16 and q8, and Gemma-2B's q8 decode step), with each decode
+     body's residency as the built kernel reports it
   3c. the opt-in decode kernels against their plain versions on the card:
      qmm_int8_inkq bit for bit against qmm_int8 at the five 7B shapes in
      all six formats; ffn_fused at the 7B FFN (4096 -> 11008 -> 4096), M 1,
@@ -378,6 +384,15 @@ Phases (any failure raises, so the exit code is not 0):
      make_mesh(2, 1) and make_mesh(2, 2) across two processes (15c's 2
      layers and 3 AdamW steps): losses and params bit for bit the
      one-process runs'
+  17. Gemma at head dim 256: 8 of Gemma-7B's 28 layers at its
+     published widths (hidden 3072, ffn 24576, 16 heads and 16 KV heads of
+     256, vocab 256000, a tied Q4_0 head) served by Engine(n_ctx=8192)
+     with a bf16 cache -- generate_fast on a 6,000-token prompt for 64
+     greedy tokens; exactly 8 flash_attention a ubatch past the first
+     (88), 8 flash_decode, 33 qmm_int8 a step and 33 qmm a ubatch; the
+     graph block's tokens against eager steps; a captured 64-step block's
+     ms, then profiles of a decode step and of a 512-token ubatch at the
+     full span with the flash kernels' share of each one's device time
 Then one JSON line of the kernels and, last, the {"ok": true, ...} line.
 
 Without CUDA it prints no result and exits with 1. It imports nothing of
@@ -511,9 +526,10 @@ def flash_case(rng, device, *, B=2, Hkv=2, T=8, G=4, S=161, hd=64,
     ubatch); `shift` adds a seq_rm hole and a
     seq_add shift; `empty_row` gives batch row 1 qlen = 0; `sharp` scales
     q by 4, so that a few keys dominate each softmax and the outputs are
-    near the size of v. kind "bf16": bf16 K/V; "q8": int8 codes with
-    per-row f32 scales. causal: the mask the kernels run the case with
-    (flash_kw); the inputs do not depend on it."""
+    near the size of v. kind "bf16": bf16 K/V; "f16": f16 K/V (the
+    kernels' older body); "q8": int8 codes with per-row f32 scales.
+    causal: the mask the kernels run the case with (flash_kw); the inputs
+    do not depend on it."""
     TG = T * G
     q = rng.standard_normal((B, Hkv, TG, hd), dtype=np.float32)
     if sharp:
@@ -542,8 +558,9 @@ def flash_case(rng, device, *, B=2, Hkv=2, T=8, G=4, S=161, hd=64,
         t["v"] = rng.standard_normal((B, Hkv, S, hd), dtype=np.float32)
     out = {n: torch.from_numpy(a).to(device) for n, a in t.items()}
     if kind != "q8":
-        out["k"] = out["k"].to(torch.bfloat16)
-        out["v"] = out["v"].to(torch.bfloat16)
+        dt = torch.float16 if kind == "f16" else torch.bfloat16
+        out["k"] = out["k"].to(dt)
+        out["v"] = out["v"].to(dt)
     out.setdefault("ks", None)
     out.setdefault("vs", None)
     return out
@@ -583,6 +600,35 @@ FLASH_CASES = [
          causal=False),
     dict(hd=64, G=1, T=8, S=1024, Hkv=4, kind="q8", fresh=True,
          causal=False),
+]
+# the hd-256 phase-3b cases, drawn after FLASH_CASES and the timing rows
+# from a generator of their own (seed SEED + 42), so that no earlier draw
+# moves: head dim 256 (Gemma) on the redesigned bodies, a Gemma-2B decode
+# (one KV head, G 8) and f16 K/V at hd 128 and 256 (the older body that
+# remains)
+FLASH_CASES_256 = [
+    # a first 512-token ubatch (the causal diagonal), bf16 and q8
+    dict(hd=256, G=1, T=512, S=1024, Hkv=2, kind="bf16", fresh=True),
+    dict(hd=256, G=1, T=512, S=1024, Hkv=2, kind="q8", fresh=True),
+    # later ubatches over a long span with holes, shifts, a qlen = 0 row
+    dict(hd=256, G=1, T=100, S=4097, Hkv=2, kind="bf16", shift=True,
+         empty_row=True),
+    dict(hd=256, G=2, T=70, S=4097, Hkv=2, kind="q8", shift=True),
+    dict(hd=256, G=1, T=64, S=2049, Hkv=4, kind="bf16", sharp=True,
+         empty_row=True),
+    # decode over the trash cell's span, the sharp q8 one, 28 rows at odd S
+    dict(hd=256, G=1, T=1, S=8193, Hkv=4, kind="bf16", shift=True,
+         empty_row=True),
+    dict(hd=256, G=1, T=1, S=4097, Hkv=4, kind="q8", sharp=True),
+    dict(hd=256, G=4, T=7, S=161, kind="q8", shift=True),
+    # non-causal at hd 256
+    dict(hd=256, G=1, T=64, S=1025, Hkv=2, kind="bf16", shift=True,
+         causal=False),
+    # Gemma-2B's decode: one KV head of 8 query heads, q8
+    dict(hd=256, G=8, T=1, S=8193, Hkv=1, kind="q8"),
+    # f16 K/V: the older body at hd 128 and 256
+    dict(hd=128, G=4, T=16, S=2049, Hkv=2, kind="f16", shift=True),
+    dict(hd=256, G=1, T=1, S=4097, Hkv=2, kind="f16", empty_row=True),
 ]
 
 
@@ -851,6 +897,19 @@ def qmm_formats(device, rng, formats=FORMATS, shapes=QMM_FORMAT_SHAPES,
     return out
 
 
+# the Gemma timing rows, after FLASH_CASES_256 from the same generator:
+# Gemma-7B's attention at n_ctx 8192 (B 1, Hkv 16, G 1, hd 256, S 8193:
+# a 512-token ubatch and a decode step, bf16 and q8) and a Gemma-2B decode
+# step (Hkv 1, G 8, q8); (kernel, flash_case keywords)
+FLASH_TIMING_256 = [
+    ("flash_attention", dict(Hkv=16, G=1, T=512, S=8193, kind="bf16")),
+    ("flash_attention", dict(Hkv=16, G=1, T=512, S=8193, kind="q8")),
+    ("flash_decode", dict(Hkv=16, G=1, T=1, S=8193, kind="bf16")),
+    ("flash_decode", dict(Hkv=16, G=1, T=1, S=8193, kind="q8")),
+    ("flash_decode", dict(Hkv=1, G=8, T=1, S=8193, kind="q8")),
+]
+
+
 # flash timing at the long-context path's shapes (B = 1, Hkv = 32, hd = 128,
 # G = 1): (kernel, T, S, kind); the q8 S = 16385 rows feed the kernels line
 FLASH_TIMING = [("flash_attention", 512, 1024, "bf16"),
@@ -905,27 +964,26 @@ def sdpa_call(c, g: int, scale: float):
         q, k, v, attn_mask=mask, scale=scale)
 
 
-def phase_flash(device, rng, cases=FLASH_CASES, timing=FLASH_TIMING,
-                shape=(1, 32, 128), reps=20) -> dict:
-    """The flash kernels against flash_attention_ref: every FLASH_CASES
-    case through both wrappers, then the path's shapes, timed."""
-    stats = {name: {"max_abs_err": 0.0} for name in FA.LAUNCHES}
+def flash_run(fn, c, kw):
+    return fn(c["q"], c["k"], c["v"], c["kpos"], c["qbase"], c["qlen"],
+              c["ks"], c["vs"], **kw)
+
+
+def flash_check(cases, rng, device, stats) -> None:
+    """Each case through both wrappers against flash_attention_ref
+    (flash_err's tolerances), the same bits twice; the largest error of
+    each kernel into stats."""
     fns = {"flash_attention": FA.flash_attention,
            "flash_decode": FA.flash_decode}
-
-    def run(fn, c, kw):
-        return fn(c["q"], c["k"], c["v"], c["kpos"], c["qbase"], c["qlen"],
-                  c["ks"], c["vs"], **kw)
-
     for case in cases:
         c = flash_case(rng, device, **case)
         kw = flash_kw(case)
         refs = flash_refs(c, kw)
         errs = []
         for name, fn in fns.items():
-            got = run(fn, c, kw)
+            got = flash_run(fn, c, kw)
             err, rel, rms = flash_err(got, refs, c["qlen"])
-            if not torch.equal(got, run(fn, c, kw)):
+            if not torch.equal(got, flash_run(fn, c, kw)):
                 raise AssertionError(f"{name} {case}: two calls gave "
                                      "different bits")
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
@@ -933,30 +991,85 @@ def phase_flash(device, rng, cases=FLASH_CASES, timing=FLASH_TIMING,
                         f"rms {rms:.2e}; same bits twice)")
         log(f"[flash] {case}: max|ref| {float(refs[0].abs().max()):.3e}, "
             f"max abs err {'; '.join(errs)}")
+
+
+def flash_time(name: str, c, kw, g: int, reps: int, device) -> dict:
+    """One timing row: the kernel, its plain version and SDPA (median ms),
+    the bound (flash_bound), the error against the plain version."""
+    fn = getattr(FA, name)
+    refs = flash_refs(c, kw)
+    err, rel, rms = flash_err(flash_run(fn, c, kw), refs, c["qlen"])
+    t_k = time_ms(lambda: flash_run(fn, c, kw), device, reps)
+    t_p = time_ms(lambda: flash_run(FA.flash_attention_ref, c, kw), device,
+                  reps)
+    t_l = time_ms(sdpa_call(c, g, kw["scale"]), device, reps)
+    t_b, t_o = flash_bound(c, g)
+    return dict(err=err, rel=rel, rms=rms, ms=t_k, plain_ms=t_p,
+                library_ms=t_l, bytes_ms=t_b, ops_ms=t_o)
+
+
+def phase_flash(device, rng, cases=FLASH_CASES, timing=FLASH_TIMING,
+                shape=(1, 32, 128), reps=20, cases_256=FLASH_CASES_256,
+                timing_256=FLASH_TIMING_256) -> dict:
+    """The flash kernels against flash_attention_ref: every FLASH_CASES
+    case through both wrappers, then the path's shapes, timed; then
+    the hd-256 cases and Gemma timing rows from a generator of their own
+    (SEED + 42), with each decode body's residency as the wrapper reads it
+    from the built kernel."""
+    stats = {name: {"max_abs_err": 0.0} for name in FA.LAUNCHES}
+    flash_check(cases, rng, device, stats)
     B, Hkv, hd = shape
     for name, T, S, kind in timing:
         c = flash_case(rng, device, B=B, Hkv=Hkv, T=T, G=1, S=S, hd=hd,
                        kind=kind)
         kw = dict(scale=float(1.0 / np.sqrt(hd)), g=1)
-        refs = flash_refs(c, kw)
-        err, rel, rms = flash_err(run(fns[name], c, kw), refs, c["qlen"])
-        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-        t_k = time_ms(lambda: run(fns[name], c, kw), device, reps)
-        t_p = time_ms(lambda: run(FA.flash_attention_ref, c, kw), device,
-                      reps)
-        t_l = time_ms(sdpa_call(c, 1, kw["scale"]), device, reps)
-        t_b, t_o = flash_bound(c, 1)
+        r = flash_time(name, c, kw, 1, reps, device)
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                         r["err"])
         log(case_line(f"{kind} B={B} Hkv={Hkv} hd={hd} T={T} S={S}", name,
-                      err, t_k, t_p, t_l, t_b, t_o, err="abs err",
+                      r["err"], r["ms"], r["plain_ms"], r["library_ms"],
+                      r["bytes_ms"], r["ops_ms"], err="abs err",
                       library="sdpa")
-            + f" | bf16-q ref: {rel:.2e} of max, rms {rms:.2e}")
+            + f" | bf16-q ref: {r['rel']:.2e} of max, rms {r['rms']:.2e}")
         if kind == "q8" and S == 16385:
-            stats[name].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                               bound_ms=max(t_b, t_o), bytes_ms=t_b,
-                               ops_ms=t_o)
-        del c, refs
+            stats[name].update(ms=r["ms"], plain_ms=r["plain_ms"],
+                               library_ms=r["library_ms"],
+                               bound_ms=max(r["bytes_ms"], r["ops_ms"]),
+                               bytes_ms=r["bytes_ms"], ops_ms=r["ops_ms"])
+        del c
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    rng2 = np.random.default_rng(SEED + 42)
+    flash_check(cases_256, rng2, device, stats)
+    stats["flash_256"] = []
+    for name, case in timing_256:
+        hd2 = 256
+        c = flash_case(rng2, device, B=1, hd=hd2, **case)
+        kw = dict(scale=float(1.0 / np.sqrt(hd2)), g=case["G"])
+        r = flash_time(name, c, kw, case["G"], reps, device)
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                         r["err"])
+        label = (f"{case['kind']} B=1 Hkv={case['Hkv']} G={case['G']} "
+                 f"hd={hd2} T={case['T']} S={case['S']}")
+        stats["flash_256"].append(dict(r, kernel=name, label=label))
+        log(case_line(label, name, r["err"], r["ms"], r["plain_ms"],
+                      r["library_ms"], r["bytes_ms"], r["ops_ms"],
+                      err="abs err", library="sdpa").replace(
+                          "[kernels]", "[flash-256]")
+            + f" | bf16-q ref: {r['rel']:.2e} of max, rms {r['rms']:.2e}")
+        del c
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if device.type == "cuda":
+        got = {key: FA._residency(device, key[0], 3 if key[1] else 1,
+                                  3 if key[1] else 1, 8193)
+               for key in FA.DESIGN_RESIDENCY}
+        log("[flash-256] decode blocks an SM (built kernel at S 8193 / "
+            f"design), by (hd, int8 K/V): " + ", ".join(
+                f"{k}: {got[k]} / {FA.DESIGN_RESIDENCY[k]}" for k in got))
+        if got != FA.DESIGN_RESIDENCY:
+            raise AssertionError("flash_decode: the built kernel's residency "
+                                 "differs from DESIGN_RESIDENCY")
     return stats
 
 
@@ -6212,6 +6325,134 @@ def phase_dp_procs(device, smi: str) -> dict:
     return out
 
 
+# -- the Gemma-7B-width path at head dim 256 (phase 17) ----------------------
+# google/gemma-7b's config.json: hidden 3072, intermediate 24576, 16
+# attention heads and 16 KV heads of head_dim 256 (16 x 256 = 4096, not
+# 3072), vocab 256000, the head tied to the embedding, 8192 positions,
+# gated gelu; 8 of its 28 layers (the width is not cut)
+GEMMA_7B = dict(dim=3072, ffn=24576, n_head=16, head_dim=256, n_kv=16,
+                vocab=256000, n_ctx_train=8192)
+GEMMA_LAYERS, GEMMA_CTX, GEMMA_PROMPT, GEMMA_PREDICT = 8, 8192, 6000, 64
+# written before the first run: per layer a ubatch of span >= 1024 takes
+# flash_attention (ubatch 0, at span 512, the einsum) and a decode step at
+# the full 8,193-cell span flash_decode; QKV and gate|up fuse as for
+# LLaMA, so 4 products a layer and the tied Q4_0 head, each a qmm for a
+# ubatch and a qmm_int8 (every N tiles by >= 1024) for a decode step
+GEMMA_LAUNCHES = {"flash_attention_a_ubatch": 8, "flash_decode_a_step": 8,
+                  "qmm_a_ubatch": 33, "qmm_int8_a_step": 33}
+GEMMA_PREDICTIONS = {"prefill_tok_s": (12000.0, 25000.0),
+                     "decode_tok_s": (450.0, 800.0),
+                     "peak_mem_gb": (4.0, 8.0), "phase_s": (30.0, 60.0),
+                     "flash_share_decode": (0.15, 0.35),
+                     "flash_share_prefill": (0.10, 0.25)}
+FLASH_ENTRIES = ("prefill_kernel", "decode_kernel", "fd_combine")
+
+
+def phase_gemma(device, rng, smi: str, shape=GEMMA_7B,
+                n_layers: int = GEMMA_LAYERS, n_ctx: int = GEMMA_CTX,
+                prompt_len: int = GEMMA_PROMPT,
+                n_predict: int = GEMMA_PREDICT, n_ubatch: int = 512) -> dict:
+    """Phase 17: a Gemma-7B-width Q4_0 model (random blocks from `rng`) in
+    Engine(n_ctx=8192) with the default bf16 cache: one generate_fast run
+    over a long prompt, the launch counts held exactly to GEMMA_LAUNCHES,
+    the graph block's tokens against eager steps, then profiles of a
+    decode step and a 512-token ubatch at the full span, with the flash
+    kernels' share of each one's device time."""
+    t_phase = time.perf_counter()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, f"gemma7b_width_q4_0_{n_layers}l.gguf")
+    t0 = time.perf_counter()
+    write_family_gguf(path, "gemma", rng, n_layers=n_layers, **shape)
+    t_write = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        eng = Engine(path, n_ctx=n_ctx, n_ubatch=n_ubatch, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_load = time.perf_counter() - t0
+        cfg = eng.cfg
+        if (cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.dim) != (
+                shape["head_dim"], shape["n_head"], shape["n_kv"],
+                shape["dim"]):
+            raise AssertionError(f"gemma config {cfg}")
+        prompt = rng.integers(3, shape["vocab"], size=prompt_len).tolist()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_port_launches()
+        ids, _ = eng.generate_fast(prompt, n_predict=n_predict,
+                                   stop_on_eos=False)
+        tm = eng.timings
+        steps = tm.n_step              # the blocks' steps, over-run included
+        n_ub = -(-prompt_len // n_ubatch)
+        want = {"qmm": GEMMA_LAUNCHES["qmm_a_ubatch"] * n_ub,
+                "qmm_int8": GEMMA_LAUNCHES["qmm_int8_a_step"] * steps,
+                "flash_attention":
+                    GEMMA_LAUNCHES["flash_attention_a_ubatch"] * (n_ub - 1),
+                "flash_decode": GEMMA_LAUNCHES["flash_decode_a_step"] * steps}
+        got = expect_launches("gemma", want)
+        if steps != DG.pick_block(n_predict - 1, n_ctx):
+            raise AssertionError(f"gemma: {steps} decode steps")
+        peak = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else 0)
+        out = {"layers": n_layers, "write_s": t_write, "load_s": t_load,
+               "prefill_tok_s": tm.n_prefill / tm.t_prefill,
+               "decode_tok_s": (len(ids) - 1) / tm.t_eval,
+               "peak_mem_gb": peak / 1e9,
+               "launches": {k: v for k, v in got.items() if v}}
+        log(f"[gemma] Gemma-7B width, {n_layers} layers, Q4_0, hd "
+            f"{cfg.head_dim}, n_ctx {n_ctx}, bf16 cache: file written in "
+            f"{t_write:.1f} s, load {t_load:.2f} s; prefill {prompt_len} "
+            f"tokens ({n_ub} ubatches) {out['prefill_tok_s']:.1f} tok/s "
+            f"({tm.t_prefill:.3f} s), decode {len(ids) - 1} tokens ({steps} "
+            f"steps in graph blocks) {out['decode_tok_s']:.2f} tok/s, peak "
+            f"memory {out['peak_mem_gb']:.3f} GB; launches {out['launches']} "
+            f"as predicted ({GEMMA_LAUNCHES}, {n_ub} ubatches, the first at "
+            "span 512 on the einsum)")
+        check_against_eager(eng, "gemma", ids, prompt_len, "step", steps=16)
+        lg = eng.decode_one(0, ids[-1])
+        if not (np.isfinite(lg).all() and lg.shape == (shape["vocab"],)
+                and all(0 <= t < shape["vocab"] for t in ids)):
+            raise AssertionError("gemma logits not finite / misshapen")
+        if device.type == "cuda":
+            base = int(eng.n_past[0])
+            # the run above captured its graph inside its timing: a block
+            # of the same 64 steps again, its graph captured first
+            out["block_ms"] = wall_ms(lambda: (
+                eng.rollback(0, base),
+                eng.decode_batch_fast({0: 5}, 64)), n=2) / 64
+            eng.rollback(0, base)
+            out["block_tok_s"] = 1e3 / out["block_ms"]
+            log(f"[gemma] a 64-step block: {out['block_ms']:.3f} ms a step "
+                f"({out['block_tok_s']:.2f} tok/s); no profiler")
+            chunk = prompt[:n_ubatch]
+            for label, step, n in (
+                    ("gemma_decode", lambda: eng.decode_one(0, 5), 4),
+                    ("gemma_prefill", lambda: eng.prefill(0, chunk), 1)):
+                out.update(profile_steps(eng, label, step, steps=n))
+                eng.rollback(0, base)
+                port = out[f"{label}_port_ms"]
+                flash = sum(port.get(k, (0.0, 0))[0] for k in FLASH_ENTRIES)
+                share = flash / out[f"{label}_busy_ms"]
+                out[f"flash_share_{label.split('_')[1]}"] = share
+                log(f"[gemma] {label}: {out[f'{label}_busy_ms']:.3f} device "
+                    f"ms, the flash kernels {flash:.3f} ms ({share:.1%}): "
+                    + ", ".join(f"{k} {port[k][0]:.3f} ms x{port[k][1]}"
+                                for k in FLASH_ENTRIES if k in port))
+        out.update(graph_report(eng, "gemma"))
+        del eng
+    finally:
+        os.remove(path)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    for key, (lo, hi) in GEMMA_PREDICTIONS.items():
+        if key in out:
+            log(f"[gemma] {key} {out[key]:.4g}: predicted {lo:g}-{hi:g} "
+                f"({'met' if lo <= out[key] <= hi else 'MISSED'})")
+    log(f"[gemma] phase 17 {out['phase_s']:.1f} s; {smi}")
+    return out
+
+
 def decode_summary(sl: dict, oi: dict, lc: dict, hs: dict) -> None:
     """One line for each decode path: tok/s (or ms a step), the profiled
     wall and device ms a step of its graph replays, beside the prediction."""
@@ -6326,7 +6567,7 @@ def cmp_init() -> dict:
 
 def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
                q_src: tuple, init2: dict, done) -> int:
-    """Phases 3-16, the kernels line and the last line."""
+    """Phases 3-17, the kernels line and the last line."""
     stats = phase_kernels(device, rng)
     done("kernels")
     # phase 3e (slice 19), a generator of its own
@@ -6418,6 +6659,10 @@ def run_phases(device, rng, smi: str, kind: str, files: dict, trained: dict,
     # phase 16 (slice 21): dp across processes
     phase_dp_procs(device, smi)
     done("slice 21")
+    # phase 17: the Gemma-7B-width path at head dim 256, a
+    # generator of its own
+    phase_gemma(device, np.random.default_rng(SEED + 43), smi)
+    done("gemma")
     decode_summary(sl, oi, lc, hs)
     log("[kernels] qmm / qmm_int8 / qmm_int8_inkq times are sums over the "
         "five 7B shapes (qmm at M=512, the int8 gemvs at M=1), launches of "

@@ -19,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FLASH_CASES, FORMATS, MIN_TOP1, QUALITY_FORMATS,
-                        TOL_PPL, TOL_PPL_DEFAULT, mega_call, mega_case,
-                        quality_card_vs_cpu, random_blocks, write_llama_gguf)
+from chip_smoke import (FLASH_CASES, FLASH_CASES_256, FORMATS, MIN_TOP1,
+                        QUALITY_FORMATS, TOL_PPL, TOL_PPL_DEFAULT, mega_call,
+                        mega_case, quality_card_vs_cpu, random_blocks,
+                        write_llama_gguf)
 from tpulamm_torch.cli.quantize import NAMES, quantize_file
 from tpulamm_torch.gguf.constants import GGMLType
 from tpulamm_torch.ops import ffn_fused as FF
+from tpulamm_torch.ops import flash_attention as FA
 from tpulamm_torch.ops import mega_decode as MD
 from tpulamm_torch.ops import qmm as Q
 from tpulamm_torch.ops.qtensor import QTensor
@@ -249,6 +251,31 @@ def test_flash_kernels_same_bits_twice(dev, case):
     c, kw = _flash_args(FLASH_CASES[case], dev)
     for fn in (FA.flash_attention, FA.flash_decode):
         assert torch.equal(_call(fn, c, kw), _call(fn, c, kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(FLASH_CASES_256)))
+def test_flash_256_and_f16_match_plain(dev, case):
+    """Head dim 256 on the redesigned bodies, the Gemma-2B decode and f16
+    K/V on the older body (chip_smoke's FLASH_CASES_256): both kernels
+    against the plain version at the tolerances above, the same bits
+    twice."""
+    from chip_smoke import flash_err, flash_refs
+    c, kw = _flash_args(FLASH_CASES_256[case], dev)
+    refs = flash_refs(c, kw)
+    for fn in (FA.flash_attention, FA.flash_decode):
+        got = _call(fn, c, kw)
+        flash_err(got, refs, c["qlen"])
+        assert torch.equal(got, _call(fn, c, kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,q8", list(FA.DESIGN_RESIDENCY))
+def test_flash_decode_residency(dev, hd, q8):
+    """The built decode kernel holds as many blocks an SM as
+    DESIGN_RESIDENCY says, so the CPU tests chunk as the card does."""
+    t = 3 if q8 else 1
+    assert FA._residency(dev, hd, t, t, 8193) == FA.DESIGN_RESIDENCY[hd, q8]
 
 
 @pytest.mark.cuda

@@ -55,16 +55,25 @@
 //   permuted (the same way on both operands) so that each thread reads its
 //   B fragments as whole 16-byte runs of the staged rows and converts int8
 //   codes to bf16 in registers: there is no second bf16 copy. The wrapper
-//   sizes the chunks so that the grid is one wave of resident blocks
-//   (ops/flash_attention.py::decode_chunking); `fd_combine` folds the
+//   sizes the chunks so that the grid is one wave of resident blocks, as
+//   many as the built kernel's occupancy gives (tl_flash_decode_blocks;
+//   ops/flash_attention.py::decode_chunking); `fd_combine` folds the
 //   partials in chunk order (no atomics: a run gives the same bits every
 //   time).
-// - Head dim 256, and f32 / f16 K/V (not on the serving path: its caches
-//   are bf16 or q8_0), keep the older body (legacy::flash_kernel,
-//   mma.sync with 64-row blocks): a 64 x 256 f32 accumulator a warpgroup
-//   does not fit beside the scores, and neither do its operand tiles. The
-//   choice is by head dim and type at compile time; each (head dim, K/V
-//   type) has exactly one kernel.
+// - Head dim 256 (Gemma) runs the same two kernels, fitted to it: a
+//   warpgroup's 64 x 256 f32 O is 128 registers a thread, so the prefill
+//   takes key tiles of 64 (a 32-register score tile, P in 16; two 64-key
+//   bf16 K / V stages and Q in ~194 KB; int8 K: two staged slots and the
+//   two converted operand tiles in the same room), and PV is one wgmma
+//   m64n256k16 a k16 step over V's four 64-wide panels. The decode warp
+//   keeps its m16 x 256 accumulator (128 registers) and nothing else
+//   whole: q fragments and K / V runs are read as each product needs
+//   them, and a block of 4 warps holds its SM alone (bf16 K/V; int8: two).
+// - f32 / f16 K/V (not on the serving path: its caches are bf16 or q8_0,
+//   the CLIs' default bf16) keep the older body (legacy::flash_kernel,
+//   mma.sync with 64-row blocks, synchronous tiles), at every head dim.
+//   The choice is by head dim and type; each (head dim, K/V type) has
+//   exactly one kernel.
 // K, V, kpos, ks and vs are read through their strides: the span view of a
 // (B, Hkv, n_ctx + 1, hd) cache buffer is never copied.
 
@@ -92,6 +101,7 @@ struct Args {
   const float* ks;                 // (B, Hkv, S) or null
   const float* vs;
   float* out;                      // (B, Hkv, TG, hd), or the acc partials
+  float* acc;                      // prefill in parts: (B, Hkv, ns, TG, hd)
   float* m_part;                   // (B, Hkv, ns, TG) for the split kernel
   float* l_part;
   long long k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, kp_sb;
@@ -185,6 +195,17 @@ __device__ __forceinline__ uint2 int8_to_bf16(uint32_t w) {
                     __byte_perm(f[2], f[3], 0x7632));
 }
 
+// 16 bytes of read-only global memory, loaded where it stands: volatile, so
+// that a loop-invariant load is not hoisted into registers held for the
+// whole loop
+__device__ __forceinline__ float4 ldg_here(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
 // 2^x; results below 2^-126 flush to 0 (against a row maximum of 1)
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -271,6 +292,65 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64 f32) (+)= A (64 x 16) . B (16 x 64), both bf16 K-major in
+// shared memory (128-byte swizzle); scale_d 0 starts a new sum
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 256 f32) += A (64 x 16, bf16 in registers: the m64k16 fragment
+// a[0..3]) . B (16 x 256, bf16 MN-major in shared memory: tnspB = 1, four
+// 64-wide panels LBO apart)
+__device__ __forceinline__ void wgmma_rs256(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // -- the live-tile prepass ----------------------------------------------------
 // Tiles of BN keys over [kb, ke): a tile is live when some key is live for
 // some row of the block (kpos >= 0 and, causal, kpos <= qpos_hi), and needs
@@ -318,17 +398,31 @@ __device__ int live_tiles(const int* kp_row, int kb, int ke, bool causal,
 }
 
 // -- flash_attention: the prefill kernel (wgmma) ------------------------------
-constexpr int P_BM = 128, P_BN = 128, P_NT = 256;
+// P_BN<HD> keys a tile: 128 at head dims 64 and 128; 64 at 256, where a
+// warpgroup's 64 x 256 f32 O takes 128 registers a thread and a 128-key
+// score tile (64 more) and two stages of 128-key bf16 K / V (256 KB) would
+// not fit beside it
+constexpr int P_BM = 128, P_NT = 256;
+template <int HD>
+constexpr int P_BN = HD > 128 ? 64 : 128;
+// the head dim whose prefill takes parts (prefill_kernel's PARTS): Gemma's
+// row blocks leave half the SMs idle at 16 KV heads and three quarters at
+// one; the other head dims keep whole blocks only (and the build its
+// time)
+constexpr int P_PARTS_HD = 256;
 
 template <int HD, bool KQ8, bool VQ8>
 struct PLayout {
-  static constexpr int STAGES = KQ8 ? 3 : 2;
-  static constexpr int KB = P_BN * HD * (KQ8 ? 1 : 2);   // staged K tile
-  static constexpr int VB = P_BN * HD * (VQ8 ? 1 : 2);
+  static constexpr int BN = P_BN<HD>;
+  // 3 slots when K is int8, else 2; at hd 256 the converted operand tiles
+  // and Q leave room for 2 (3 would take 227 KB before the tile list)
+  static constexpr int STAGES = KQ8 && HD <= 128 ? 3 : 2;
+  static constexpr int KB = BN * HD * (KQ8 ? 1 : 2);     // staged K tile
+  static constexpr int VB = BN * HD * (VQ8 ? 1 : 2);
   static constexpr int O_K = 0, O_V = KB, O_KP = KB + VB;
-  static constexpr int O_KS = O_KP + P_BN * 4, O_VS = O_KS + P_BN * 4;
-  static constexpr int SLOT = (O_VS + P_BN * 4 + 1023) / 1024 * 1024;
-  static constexpr int OPB = P_BN * HD * 2;              // a bf16 operand tile
+  static constexpr int O_KS = O_KP + BN * 4, O_VS = O_KS + BN * 4;
+  static constexpr int SLOT = (O_VS + BN * 4 + 1023) / 1024 * 1024;
+  static constexpr int OPB = BN * HD * 2;                // a bf16 operand tile
   static constexpr int O_Q = 0;                          // P_BM x HD bf16
   static constexpr int O_RING = P_BM * HD * 2;
   static constexpr int O_KC = O_RING + STAGES * SLOT;    // converted K (int8)
@@ -337,30 +431,32 @@ struct PLayout {
 };
 
 // byte offset of 16-byte chunk c of staged key row r: int8 rows of HD
-// bytes, chunks XOR-swizzled by the row; bf16 rows are stored as the
-// operand (64-element panels of ROWS rows, 128-byte swizzle)
+// bytes, chunks XOR-swizzled by the row (within groups of 8 chunks); bf16
+// rows are stored as the operand (64-element panels of ROWS rows,
+// 128-byte swizzle)
 template <bool Q8, int HD, int ROWS>
 __device__ __forceinline__ int stage_off(int r, int c) {
   if constexpr (Q8)
-    return r * HD + ((c ^ (r & (HD / 16 - 1))) << 4);
+    return r * HD + ((c ^ (r & ((HD / 16 < 8 ? HD / 16 : 8) - 1))) << 4);
   else
     return (c >> 3) * ROWS * 128 + sw128(r, (c & 7) * 8);
 }
 
-// start the copies of key tile `tile` (keys tile * P_BN ..) into `slot`
+// start the copies of key tile `tile` (keys tile * BN ..) into `slot`
 template <int HD, bool KQ8, bool VQ8>
 __device__ __forceinline__ void p_load(const Args& a, uint8_t* slot, int tile,
                                        int b, int h, int tid) {
   using L = PLayout<HD, KQ8, VQ8>;
-  const int k0 = tile * P_BN;
+  constexpr int BN = L::BN;
+  const int k0 = tile * BN;
   {
     constexpr int ES = KQ8 ? 1 : 2, CH = HD * ES / 16;
     const char* base = (const char*)a.k + (b * a.k_sb + h * a.k_sh) * ES;
 #pragma unroll
-    for (int i = tid; i < P_BN * CH; i += P_NT) {
+    for (int i = tid; i < BN * CH; i += P_NT) {
       const int r = i / CH, c = i % CH, col = k0 + r;
       const bool ok = col < a.S;
-      cp16(slot + L::O_K + stage_off<KQ8, HD, P_BN>(r, c),
+      cp16(slot + L::O_K + stage_off<KQ8, HD, BN>(r, c),
            base + (ok ? col * a.k_ss * ES : 0) + c * 16, ok);
     }
   }
@@ -368,17 +464,17 @@ __device__ __forceinline__ void p_load(const Args& a, uint8_t* slot, int tile,
     constexpr int ES = VQ8 ? 1 : 2, CH = HD * ES / 16;
     const char* base = (const char*)a.v + (b * a.v_sb + h * a.v_sh) * ES;
 #pragma unroll
-    for (int i = tid; i < P_BN * CH; i += P_NT) {
+    for (int i = tid; i < BN * CH; i += P_NT) {
       const int r = i / CH, c = i % CH, col = k0 + r;
       const bool ok = col < a.S;
-      cp16(slot + L::O_V + stage_off<VQ8, HD, P_BN>(r, c),
+      cp16(slot + L::O_V + stage_off<VQ8, HD, BN>(r, c),
            base + (ok ? col * a.v_ss * ES : 0) + c * 16, ok);
     }
   }
   // kpos, ks, vs of the tile: 4 bytes each (span views are not 16-byte
   // aligned); columns past S are zeros, which the mask rejects by column
-  for (int i = tid; i < 3 * P_BN; i += P_NT) {
-    const int w = i / P_BN, r = i % P_BN, col = k0 + r;
+  for (int i = tid; i < 3 * BN; i += P_NT) {
+    const int w = i / BN, r = i % BN, col = k0 + r;
     const bool ok = col < a.S;
     const int* src;
     if (w == 0) {
@@ -389,30 +485,46 @@ __device__ __forceinline__ void p_load(const Args& a, uint8_t* slot, int tile,
       src = reinterpret_cast<const int*>(
           sc + (w == 1 ? b * a.ks_sb + h * a.ks_sh : b * a.vs_sb + h * a.vs_sh));
     }
-    cp4(slot + L::O_KP + w * P_BN * 4 + r * 4, src + (ok ? col : 0), ok);
+    cp4(slot + L::O_KP + w * BN * 4 + r * 4, src + (ok ? col : 0), ok);
   }
 }
 
 // int8 codes of a staged tile -> the bf16 operand tile (K-major panels,
 // 128-byte swizzle); a thread-step takes 8 codes to one 16-byte chunk. A
 // thread keeps its group of 8 codes and steps RSTEP rows, a multiple of 8,
-// so both swizzles keep their phase and the offsets are fixed strides.
+// so both swizzles (each of period 8 rows) keep their phase and the
+// offsets are fixed strides.
 template <int HD>
 __device__ __forceinline__ void p_convert(const uint8_t* raw, uint8_t* op,
                                           int tid) {
-  constexpr int C8 = HD / 8, RSTEP = P_NT / C8;
+  constexpr int BN = P_BN<HD>, C8 = HD / 8, RSTEP = P_NT / C8;
   static_assert(RSTEP % 8 == 0, "the swizzle phase must stay fixed");
   const int r0 = tid / C8, c8 = tid % C8;
   const uint8_t* src =
-      raw + stage_off<true, HD, P_BN>(r0, c8 >> 1) + (c8 & 1) * 8;
-  uint8_t* dst = op + (c8 >> 3) * P_BN * 128 + sw128(r0, (c8 & 7) * 8);
+      raw + stage_off<true, HD, BN>(r0, c8 >> 1) + (c8 & 1) * 8;
+  uint8_t* dst = op + (c8 >> 3) * BN * 128 + sw128(r0, (c8 & 7) * 8);
 #pragma unroll
-  for (int it = 0; it < P_BN / RSTEP; ++it) {
+  for (int it = 0; it < BN / RSTEP; ++it) {
     const uint2 w = *reinterpret_cast<const uint2*>(src + it * RSTEP * HD);
     const uint2 lo = int8_to_bf16(w.x), hi = int8_to_bf16(w.y);
     *reinterpret_cast<uint4*>(dst + it * RSTEP * 128) =
         make_uint4(lo.x, lo.y, hi.x, hi.y);
   }
+}
+
+// S (64 rows x BN keys) = Q K^T, one k16 step: m64n128k16 or m64n64k16
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BN / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&s)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  wgmma_ss128(s, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss64(s, da, db, scale_d);
 }
 
 template <int HD>
@@ -431,23 +543,36 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               uint64_t db) {
   wgmma_rs128(o, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs256(o, a, db);
+}
 
-template <int HD, bool KQ8, bool VQ8>
+// PARTS: the block takes part blockIdx.x % n_chunks of its rows' live tiles
+// and writes that part's unnormalised (acc, m, l) for fd_combine; a
+// compile-time choice: a part count read at run time in every instance
+// made the hd-128 prefill a quarter slower, whole
+template <int HD, bool KQ8, bool VQ8, bool PARTS>
 __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
   using L = PLayout<HD, KQ8, VQ8>;
-  constexpr int ST = L::STAGES;
+  constexpr int ST = L::STAGES, BN = L::BN;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: tiles start on one
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = sm + L::O_RING;
-  const int n_tiles = (a.S + P_BN - 1) / P_BN;
+  const int n_tiles = (a.S + BN - 1) / BN;
   int* n_live_s = reinterpret_cast<int*>(sm + L::FIXED);
   uint16_t* list = reinterpret_cast<uint16_t*>(sm + L::FIXED + 16);
   uint8_t* flags = reinterpret_cast<uint8_t*>(list + n_tiles);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * P_BM;
+  const int n_parts = PARTS ? a.n_chunks : 1;
+  const int part = PARTS ? blockIdx.x % n_parts : 0;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row0 = blockIdx.x / n_parts * P_BM;
   const int qb = a.qbase[b], ql = a.qlen[b], G = a.G, TG = a.TG;
   const bool causal = a.causal != 0;
   const int rend = min(TG, row0 + P_BM);
@@ -462,11 +587,15 @@ __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
   const float sl2 = a.scale * LOG2E;
   const bool has_ks = a.ks != nullptr, has_vs = a.vs != nullptr;
 
-  const int n_live =
-      block_live ? live_tiles<P_NT, P_BN>(a.kpos + b * a.kp_sb, 0, a.S,
-                                          causal, qb + row0 / G, qb + t_last,
-                                          rows_ok, flags, list, n_live_s)
+  const int n_all =
+      block_live ? live_tiles<P_NT, BN>(a.kpos + b * a.kp_sb, 0, a.S,
+                                        causal, qb + row0 / G, qb + t_last,
+                                        rows_ok, flags, list, n_live_s)
                  : 0;
+  // this part's live tiles: an equal share of the list, in order
+  const int i0 = part * n_all / n_parts;
+  const int n_live = (part + 1) * n_all / n_parts - i0;
+  list += i0;
 
   float o[HD / 2];
 #pragma unroll
@@ -501,7 +630,7 @@ __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
 
     for (int i = 0; i < n_live; ++i) {
       const int ent = list[i];
-      const int k0 = (ent & 0x7FFF) * P_BN;
+      const int k0 = (ent & 0x7FFF) * BN;
       const bool masked = (ent & MASKED) != 0;
       uint8_t* slot = ring + (i % ST) * L::SLOT;
       // (A) tile i has landed (and K(i) is converted); every MMA of tile
@@ -514,16 +643,16 @@ __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
                              list[i + ST - 1] & 0x7FFF, b, h, tid);
       cp_commit();
 
-      // S = Q K^T: 64 rows x 128 keys a warpgroup
+      // S = Q K^T: 64 rows x BN keys a warpgroup
       const uint32_t kop = smem_u32(KQ8 ? sm + L::O_KC : slot + L::O_K);
-      float s[64];
+      float s[BN / 2];
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const int off = (kk & 3) * 32;      // 16 bf16 of the panel
-        wgmma_ss128(s,
-                    desc_sw128(qop + (kk >> 2) * P_BM * 128 + off),
-                    desc_sw128(kop + (kk >> 2) * P_BN * 128 + off), kk > 0);
+        wgmma_qk<BN>(s,
+                     desc_sw128(qop + (kk >> 2) * P_BM * 128 + off),
+                     desc_sw128(kop + (kk >> 2) * BN * 128 + off), kk > 0);
       }
       wg_commit();
       if constexpr (VQ8) p_convert<HD>(slot + L::O_V, sm + L::O_VC, tid);
@@ -536,7 +665,7 @@ __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
       const float* vss = reinterpret_cast<const float*>(slot + L::O_VS);
       float mxA = -INFINITY, mxB = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
         float2 f = make_float2(sl2, sl2);
         if (has_ks) {
           const float2 k2 = *reinterpret_cast<const float2*>(kss + 8 * j + 2 * t4);
@@ -567,9 +696,9 @@ __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
       const float muB = mnB == -INFINITY ? 0.f : mnB;
       const float corrA = ex2(mA - muA), corrB = ex2(mB - muB);
       float sumA = 0.f, sumB = 0.f;
-      uint32_t pa[8][4];
+      uint32_t pa[BN / 16][4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
         float p[4];
         const float2 v2 = has_vs ? *reinterpret_cast<const float2*>(
                                        vss + 8 * j + 2 * t4)
@@ -608,12 +737,12 @@ __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
         fence_async();
         __syncthreads();
       }
-      // O += P V, P from registers, V MN-major
+      // O += P V, P from registers, V MN-major (HD / 64 panels, LBO apart)
       const uint32_t vop = smem_u32(VQ8 ? sm + L::O_VC : slot + L::O_V);
       wg_fence();
 #pragma unroll
-      for (int u = 0; u < P_BN / 16; ++u)
-        wgmma_pv<HD>(o, pa[u], desc_mn_sw128(vop + u * 16 * 128, P_BN * 128));
+      for (int u = 0; u < BN / 16; ++u)
+        wgmma_pv<HD>(o, pa[u], desc_mn_sw128(vop + u * 16 * 128, BN * 128));
       wg_commit();
       if constexpr (KQ8) {
         if (i + 1 < n_live)
@@ -625,10 +754,14 @@ __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
     }
   }
 
-  // epilogue: rows past TG are not written; a row with l = 0 gives zeros
-  const float iA = lA > 0.f ? 1.f / lA : 0.f;
-  const float iB = lB > 0.f ? 1.f / lB : 0.f;
-  float* ob = a.out + ((long long)b * a.Hkv + h) * TG * HD;
+  // epilogue: rows past TG are not written; a row with l = 0 gives zeros;
+  // in parts, the part's (acc, m, l), m in base 2 (-1e30 where no key)
+  constexpr bool whole = !PARTS;
+  const float iA = !whole ? 1.f : lA > 0.f ? 1.f / lA : 0.f;
+  const float iB = !whole ? 1.f : lB > 0.f ? 1.f / lB : 0.f;
+  const long long bh = (long long)b * a.Hkv + h;
+  const long long pb = (bh * n_parts + part) * TG;
+  float* ob = whole ? a.out + bh * TG * HD : a.acc + pb * HD;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     const int c = 8 * j + 2 * t4;
@@ -639,12 +772,29 @@ __global__ void __launch_bounds__(P_NT, 1) prefill_kernel(const Args a) {
       *reinterpret_cast<float2*>(ob + (long long)rB * HD + c) =
           make_float2(o[4 * j + 2] * iB, o[4 * j + 3] * iB);
   }
+  if (!whole && t4 == 0) {
+    if (rA < TG) {
+      a.m_part[pb + rA] = mA == -INFINITY ? NEG_INF : mA;
+      a.l_part[pb + rA] = lA;
+    }
+    if (rB < TG) {
+      a.m_part[pb + rB] = mB == -INFINITY ? NEG_INF : mB;
+      a.l_part[pb + rB] = lB;
+    }
+  }
 }
 
 
 // -- flash_decode: the split-S kernel (mma.sync, bytes-bound) -----------------
 constexpr int D_BN = 64, D_NT = 128, D_STAGES = 3, D_ROWS = 64;
 constexpr int D_WARPS = D_NT / 32;
+// blocks an SM the launch bounds ask for: 3 at head dims 64 and 128 (<= 168
+// registers a thread); 1 at 256, where a warp's m16 x 256 f32 accumulator
+// alone is 128 registers and a 3-slot ring of 64-key bf16 tiles 194 KB
+// (int8: 98 KB, so two fit an SM). The wrapper reads the built kernel's
+// residency (tl_flash_decode_blocks), not this figure.
+template <int HD>
+constexpr int D_MINB = HD > 128 ? 1 : 3;
 
 template <int HD, bool KQ8, bool VQ8>
 struct DLayout {
@@ -684,9 +834,13 @@ __device__ __forceinline__ void row_words(const uint8_t* tile, int r,
       w[4 * i + 3] = x.w;
     }
   } else {
-    const uint2 x = *reinterpret_cast<const uint2*>(
-        tile + d_off<ROW>(r, byte0 / 16) + (byte0 & 15));
-    w[0] = x.x; w[1] = x.y;
+    const uint8_t* p = tile + d_off<ROW>(r, byte0 / 16) + (byte0 & 15);
+    if constexpr (N == 2) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[0] = x.x; w[1] = x.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
   }
 }
 
@@ -740,8 +894,16 @@ __device__ __forceinline__ void d_load(const Args& a, uint8_t* slot, int k0,
 // - PV: the k16 step is sub-tile u's 16 keys in score order; output
 //   column n of n8 block d is head-dim element HD/8 * n + d, so a thread
 //   (g = lane / 4) reads elements HD/8 * g .. + HD/8 of 4 V rows.
+// At head dims 64 and 128 a warp holds its q fragments in registers and
+// reads its whole K and V runs of a row at once. At 256 that would need
+// 64 + 64 registers beside the 128 of the accumulator: the q fragments
+// are read again for each k16 step from q (an L1 hit after the first
+// sub-tile; `ldg_here`, or the compiler hoists them out of the loop into
+// 64 registers and spills), and K and V runs a k16 step's words (K) or 8
+// bytes (V) at a time, each used at once. The products, their order and
+// so the bits are the same.
 template <int HD, bool KQ8, bool VQ8>
-__global__ void __launch_bounds__(D_NT, 3) decode_kernel(const Args a) {
+__global__ void __launch_bounds__(D_NT, D_MINB<HD>) decode_kernel(const Args a) {
   using L = DLayout<HD, KQ8, VQ8>;
   constexpr int ND = HD / 8;                    // output n8 blocks
   constexpr int KW = L::KROW / 16;              // K words a row a thread
@@ -783,9 +945,9 @@ __global__ void __launch_bounds__(D_NT, 3) decode_kernel(const Args a) {
                  : 0;
 
   // q fragments of the warp's row tile, bf16, in the permuted order
-  uint32_t qa[HD / 16][4];
-  {
-    const float* qg = a.q + (long long)(b * a.Hkv + h) * TG * HD;
+  const float* qg = a.q + (long long)(b * a.Hkv + h) * TG * HD;
+  uint32_t qa[HD > 128 ? 1 : HD / 16][4];
+  if constexpr (HD <= 128) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = half ? rB : rA;
@@ -800,6 +962,19 @@ __global__ void __launch_bounds__(D_NT, 3) decode_kernel(const Args a) {
       }
     }
   }
+  // hd 256: the fragments of k16 step s, read when used (row B is row A
+  // + 8, and past TG wherever row A is)
+  const bool inA = rA < TG, inB = rB < TG;
+  const float* qA = qg + (long long)(inA ? rA : 0) * HD + (HD / 4) * t4;
+  auto q_frag = [&](int s, uint32_t (&f)[4]) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (inA) x = ldg_here(qA + 4 * s);
+    if (inB) y = ldg_here(qA + 8 * HD + 4 * s);
+    f[0] = pack_bf16(x.x, x.y);
+    f[1] = pack_bf16(y.x, y.y);
+    f[2] = pack_bf16(x.z, x.w);
+    f[3] = pack_bf16(y.z, y.w);
+  };
 
   float o[ND][4];
 #pragma unroll
@@ -831,22 +1006,51 @@ __global__ void __launch_bounds__(D_NT, 3) decode_kernel(const Args a) {
 
     for (int u = split; u < D_BN / 16; u += nsplit) {
       float sc[2][4];
+      if constexpr (HD <= 128) {
 #pragma unroll
-      for (int jn = 0; jn < 2; ++jn) {
-        sc[jn][0] = sc[jn][1] = sc[jn][2] = sc[jn][3] = 0.f;
-        uint32_t kw[KW];
-        row_words<L::KROW, KW>(slot + L::O_K, 16 * u + 8 * jn + g,
-                               (L::KROW / 4) * t4, kw);
+        for (int jn = 0; jn < 2; ++jn) {
+          sc[jn][0] = sc[jn][1] = sc[jn][2] = sc[jn][3] = 0.f;
+          uint32_t kw[KW];
+          row_words<L::KROW, KW>(slot + L::O_K, 16 * u + 8 * jn + g,
+                                 (L::KROW / 4) * t4, kw);
 #pragma unroll
-        for (int s = 0; s < HD / 16; ++s) {
-          uint32_t b0, b1;
-          if constexpr (KQ8) {
-            const uint2 x = int8_to_bf16(kw[s]);
-            b0 = x.x; b1 = x.y;
-          } else {
-            b0 = kw[2 * s]; b1 = kw[2 * s + 1];
+          for (int s = 0; s < HD / 16; ++s) {
+            uint32_t b0, b1;
+            if constexpr (KQ8) {
+              const uint2 x = int8_to_bf16(kw[s]);
+              b0 = x.x; b1 = x.y;
+            } else {
+              b0 = kw[2 * s]; b1 = kw[2 * s + 1];
+            }
+            mma_bf16(sc[jn], qa[s][0], qa[s][1], qa[s][2], qa[s][3], b0, b1);
           }
-          mma_bf16(sc[jn], qa[s][0], qa[s][1], qa[s][2], qa[s][3], b0, b1);
+        }
+      } else {
+        // a thread's K run of a row (KROW / 4 bytes), the words of one k16
+        // step at a time (KS: 1 int8 word, 2 bf16), both n8 blocks; four
+        // steps unrolled, so that the compiler does not hold all 16 steps'
+        // K words at once (it spilled with the loop unrolled whole)
+        constexpr int KS = KQ8 ? 1 : 2;
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+          sc[jn][0] = sc[jn][1] = sc[jn][2] = sc[jn][3] = 0.f;
+#pragma unroll 4
+        for (int s = 0; s < HD / 16; ++s) {
+          uint32_t qf[4];
+          q_frag(s, qf);
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn) {
+            uint32_t kw[KS], b0, b1;
+            row_words<L::KROW, KS>(slot + L::O_K, 16 * u + 8 * jn + g,
+                                   (L::KROW / 4) * t4 + 4 * KS * s, kw);
+            if constexpr (KQ8) {
+              const uint2 x = int8_to_bf16(kw[0]);
+              b0 = x.x; b1 = x.y;
+            } else {
+              b0 = kw[0]; b1 = kw[KS - 1];
+            }
+            mma_bf16(sc[jn], qf[0], qf[1], qf[2], qf[3], b0, b1);
+          }
         }
       }
       float mxA = -INFINITY, mxB = -INFINITY;
@@ -909,29 +1113,39 @@ __global__ void __launch_bounds__(D_NT, 3) decode_kernel(const Args a) {
       const uint32_t a1 = pack_bf16(sc[0][2], sc[0][3]);
       const uint32_t a2 = pack_bf16(sc[1][0], sc[1][1]);
       const uint32_t a3 = pack_bf16(sc[1][2], sc[1][3]);
-      // V rows of score columns 2 t4, + 1 (b0) and 8 + 2 t4, + 1 (b1)
-      uint32_t v0[VW], v1[VW], v2[VW], v3[VW];
+      // V rows of score columns 2 t4, + 1 (b0) and 8 + 2 t4, + 1 (b1),
+      // VC words of each at a time (all at head dims 64 and 128; 8 bytes
+      // at 256, where 16 made the mixed-type instances spill): DC n8
+      // blocks a load
+      constexpr int VC = HD <= 128 ? VW : 2, DC = ND * VC / VW;
       const int r0 = 16 * u + 2 * t4, vb = (L::VROW / 8) * g;
-      row_words<L::VROW, VW>(slot + L::O_V, r0, vb, v0);
-      row_words<L::VROW, VW>(slot + L::O_V, r0 + 1, vb, v1);
-      row_words<L::VROW, VW>(slot + L::O_V, r0 + 8, vb, v2);
-      row_words<L::VROW, VW>(slot + L::O_V, r0 + 9, vb, v3);
 #pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        uint32_t b0, b1;
-        if constexpr (VQ8) {
-          // element d is byte d % 4 of word d / 4; pair the two rows
-          const uint32_t sel = (d & 2) ? 0x7362 : 0x5140;
-          const uint2 x = int8_to_bf16(__byte_perm(v0[d >> 2], v1[d >> 2], sel));
-          const uint2 y = int8_to_bf16(__byte_perm(v2[d >> 2], v3[d >> 2], sel));
-          b0 = (d & 1) ? x.y : x.x;
-          b1 = (d & 1) ? y.y : y.x;
-        } else {
-          const uint32_t sel = (d & 1) ? 0x7632 : 0x5410;
-          b0 = __byte_perm(v0[d >> 1], v1[d >> 1], sel);
-          b1 = __byte_perm(v2[d >> 1], v3[d >> 1], sel);
+      for (int ch = 0; ch < VW / VC; ++ch) {
+        uint32_t v0[VC], v1[VC], v2[VC], v3[VC];
+        row_words<L::VROW, VC>(slot + L::O_V, r0, vb + 4 * VC * ch, v0);
+        row_words<L::VROW, VC>(slot + L::O_V, r0 + 1, vb + 4 * VC * ch, v1);
+        row_words<L::VROW, VC>(slot + L::O_V, r0 + 8, vb + 4 * VC * ch, v2);
+        row_words<L::VROW, VC>(slot + L::O_V, r0 + 9, vb + 4 * VC * ch, v3);
+#pragma unroll
+        for (int dd = 0; dd < DC; ++dd) {
+          const int d = DC * ch + dd;
+          uint32_t b0, b1;
+          if constexpr (VQ8) {
+            // element d is byte d % 4 of word d / 4; pair the two rows
+            const uint32_t sel = (dd & 2) ? 0x7362 : 0x5140;
+            const uint2 x =
+                int8_to_bf16(__byte_perm(v0[dd >> 2], v1[dd >> 2], sel));
+            const uint2 y =
+                int8_to_bf16(__byte_perm(v2[dd >> 2], v3[dd >> 2], sel));
+            b0 = (dd & 1) ? x.y : x.x;
+            b1 = (dd & 1) ? y.y : y.x;
+          } else {
+            const uint32_t sel = (dd & 1) ? 0x7632 : 0x5410;
+            b0 = __byte_perm(v0[dd >> 1], v1[dd >> 1], sel);
+            b1 = __byte_perm(v2[dd >> 1], v3[dd >> 1], sel);
+          }
+          mma_bf16(o[d], a0, a1, a2, a3, b0, b1);
         }
-        mma_bf16(o[d], a0, a1, a2, a3, b0, b1);
       }
     }
   }
@@ -984,7 +1198,7 @@ __global__ void __launch_bounds__(D_NT, 3) decode_kernel(const Args a) {
   }
 }
 
-// -- head dim 256, f32 / f16 K/V: the older body ---------------------------------
+// -- f32 / f16 K/V: the older body ----------------------------------------------
 // One block of 4 warps per (b, h, 64-row tile), mma.sync m16n8k16 from
 // padded shared-memory tiles converted to bf16 on load, synchronous tile
 // loads; SPLIT: one chunk of keys per block, partials as decode_kernel's.
@@ -1268,25 +1482,57 @@ flash_kernel(const Args a) {
 
 // out = sum_j 2^(m_j - m*) acc_j / sum_j 2^(m_j - m*) l_j (m in base 2), or
 // 0 where the denominator is 0; chunks in order. One block per (row,
-// b * Hkv + h), one thread per column.
+// b * Hkv + h), one thread per column. The chunks' m and l are read by all
+// threads at once into shared memory (ns * 8 bytes) and their weights
+// made there, so no thread waits on ns loads in a row; the sums run in
+// chunk order as before.
 __global__ void fd_combine(const float* __restrict__ acc,
                            const float* __restrict__ m,
                            const float* __restrict__ l,
                            float* __restrict__ out, int ns, int TG, int HD) {
+  extern __shared__ float cmb[];               // weights (ns), l (ns), red
+  float* wj = cmb;
+  float* lj = cmb + ns;
+  float* red = cmb + 2 * ns;                   // one float a warp
   const int r = blockIdx.x;
   const long long bh = blockIdx.y;
-  const int d = threadIdx.x;
+  const int d = threadIdx.x, lane = d & 31, warp = d >> 5;
   const float* mp = m + bh * ns * TG + r;
   const float* lp = l + bh * ns * TG + r;
+  float mx = NEG_INF;
+  for (int j = d; j < ns; j += blockDim.x) {
+    const float mv = mp[(long long)j * TG];
+    wj[j] = mv;
+    lj[j] = lp[(long long)j * TG];
+    mx = fmaxf(mx, mv);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
   float mg = NEG_INF;
-  for (int j = 0; j < ns; ++j) mg = fmaxf(mg, mp[(long long)j * TG]);
+  for (int w = 0; w < (int)(blockDim.x + 31) / 32; ++w) mg = fmaxf(mg, red[w]);
+  for (int j = d; j < ns; j += blockDim.x) wj[j] = exp2f(wj[j] - mg);
+  __syncthreads();
   float lg = 0.f, o = 0.f;
+  const float* ap = acc + (bh * ns * TG + r) * HD + d;
+#pragma unroll 8
   for (int j = 0; j < ns; ++j) {
-    const float w = exp2f(mp[(long long)j * TG] - mg);
-    lg += w * lp[(long long)j * TG];
-    o += w * acc[((bh * ns + j) * TG + r) * HD + d];
+    lg += wj[j] * lj[j];
+    o += wj[j] * ap[(long long)j * TG * HD];
   }
   out[(bh * TG + r) * HD + d] = lg > 0.f ? o / lg : 0.f;
+}
+
+cudaError_t combine(const float* acc, const float* m, const float* l,
+                    float* out, int ns, int B, int Hkv, int TG, int hd,
+                    cudaStream_t st) {
+  const int bytes = (2 * ns + 32) * 4;
+  if (bytes > 48 * 1024) return cudaErrorInvalidValue;
+  fd_combine<<<dim3(TG, B * Hkv), hd, bytes, st>>>(acc, m, l, out, ns, TG,
+                                                   hd);
+  return cudaGetLastError();
 }
 
 template <typename K>
@@ -1298,22 +1544,33 @@ cudaError_t allow_smem(K kernel, bool& done) {
   return e;
 }
 
-template <int HD, bool KQ8, bool VQ8>
-cudaError_t launch_prefill(const Args& a, int B, cudaStream_t st) {
-  using L = PLayout<HD, KQ8, VQ8>;
-  const int n_tiles = (a.S + P_BN - 1) / P_BN;
-  const int bytes = L::FIXED + 16 + (3 * n_tiles + 15) / 16 * 16 + 1024;
-  if (n_tiles > 0x7FFF || bytes > SMEM_MAX) return cudaErrorInvalidValue;
+template <int HD, bool KQ8, bool VQ8, bool PARTS>
+cudaError_t launch_prefill_parts(const Args& a, int B, cudaStream_t st,
+                                 int bytes) {
   static bool done = false;
-  cudaError_t e = allow_smem(prefill_kernel<HD, KQ8, VQ8>, done);
+  cudaError_t e = allow_smem(prefill_kernel<HD, KQ8, VQ8, PARTS>, done);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.TG + P_BM - 1) / P_BM, a.Hkv, B);
-  prefill_kernel<HD, KQ8, VQ8><<<grid, P_NT, bytes, st>>>(a);
+  dim3 grid((a.TG + P_BM - 1) / P_BM * a.n_chunks, a.Hkv, B);
+  prefill_kernel<HD, KQ8, VQ8, PARTS><<<grid, P_NT, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
 template <int HD, bool KQ8, bool VQ8>
-cudaError_t launch_decode(const Args& a, int B, cudaStream_t st) {
+cudaError_t launch_prefill(const Args& a, int B, cudaStream_t st) {
+  using L = PLayout<HD, KQ8, VQ8>;
+  const int n_tiles = (a.S + L::BN - 1) / L::BN;
+  const int bytes = L::FIXED + 16 + (3 * n_tiles + 15) / 16 * 16 + 1024;
+  if (n_tiles > 0x7FFF || bytes > SMEM_MAX) return cudaErrorInvalidValue;
+  if constexpr (HD == P_PARTS_HD)
+    if (a.n_chunks > 1)
+      return launch_prefill_parts<HD, KQ8, VQ8, true>(a, B, st, bytes);
+  return launch_prefill_parts<HD, KQ8, VQ8, false>(a, B, st, bytes);
+}
+
+// occ == nullptr: launch; else the blocks of the kernel an SM holds at
+// this chunk's shared memory, into *occ
+template <int HD, bool KQ8, bool VQ8>
+cudaError_t launch_decode(const Args& a, int B, cudaStream_t st, int* occ) {
   using L = DLayout<HD, KQ8, VQ8>;
   const int n_ct = (a.chunk + D_BN - 1) / D_BN;
   const int bytes = L::FIXED + 16 + (3 * n_ct + 15) / 16 * 16;
@@ -1321,17 +1578,23 @@ cudaError_t launch_decode(const Args& a, int B, cudaStream_t st) {
   static bool done = false;
   cudaError_t e = allow_smem(decode_kernel<HD, KQ8, VQ8>, done);
   if (e != cudaSuccess) return e;
+  if (occ)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, decode_kernel<HD, KQ8, VQ8>, D_NT, bytes);
   dim3 grid((a.TG + D_ROWS - 1) / D_ROWS * a.n_chunks, a.Hkv, B);
   decode_kernel<HD, KQ8, VQ8><<<grid, D_NT, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
 template <int HD, int BN, bool SPLIT>
-cudaError_t launch_legacy(const Args& a, int B, cudaStream_t st) {
+cudaError_t launch_legacy(const Args& a, int B, cudaStream_t st, int* occ) {
   constexpr int bytes = legacy::smem_bytes<HD, BN>();
   static bool done = false;
   cudaError_t e = allow_smem(legacy::flash_kernel<HD, BN, SPLIT>, done);
   if (e != cudaSuccess) return e;
+  if (occ)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, legacy::flash_kernel<HD, BN, SPLIT>, legacy::THREADS, bytes);
   const int rt = (a.TG + legacy::BM - 1) / legacy::BM;
   dim3 grid(SPLIT ? rt * a.n_chunks : rt, a.Hkv, B);
   legacy::flash_kernel<HD, BN, SPLIT><<<grid, legacy::THREADS, bytes, st>>>(a);
@@ -1339,13 +1602,13 @@ cudaError_t launch_legacy(const Args& a, int B, cudaStream_t st) {
 }
 
 template <int HD, bool SPLIT>
-cudaError_t launch_new(const Args& a, int B, cudaStream_t st) {
+cudaError_t launch_new(const Args& a, int B, cudaStream_t st, int* occ) {
   const bool kq = a.k_type == T_I8, vq = a.v_type == T_I8;
   if (SPLIT) {
-    if (kq && vq) return launch_decode<HD, true, true>(a, B, st);
-    if (kq) return launch_decode<HD, true, false>(a, B, st);
-    if (vq) return launch_decode<HD, false, true>(a, B, st);
-    return launch_decode<HD, false, false>(a, B, st);
+    if (kq && vq) return launch_decode<HD, true, true>(a, B, st, occ);
+    if (kq) return launch_decode<HD, true, false>(a, B, st, occ);
+    if (vq) return launch_decode<HD, false, true>(a, B, st, occ);
+    return launch_decode<HD, false, false>(a, B, st, occ);
   }
   if (kq && vq) return launch_prefill<HD, true, true>(a, B, st);
   if (kq) return launch_prefill<HD, true, false>(a, B, st);
@@ -1353,27 +1616,56 @@ cudaError_t launch_new(const Args& a, int B, cudaStream_t st) {
   return launch_prefill<HD, false, false>(a, B, st);
 }
 
-// head dims 64 and 128 with bf16 or int8 K/V run the kernels above; head
-// dim 256 and f32 / f16 K/V the older body
-template <bool SPLIT>
-cudaError_t dispatch(int hd, const Args& a, int B, cudaStream_t st) {
+// bf16 or int8 K/V run the kernels above at every head dim; a K or V of
+// f32 / f16 the older body. TL_FLASH_LEGACY_256 (a build of
+// tools/flash_ablation.py) sends head dim 256 to the older body whatever
+// the type, as before these kernels took it.
+bool new_body(int hd, const Args& a) {
   auto fits = [](int t) { return t == T_BF16 || t == T_I8; };
-  const bool hopper = fits(a.k_type) && fits(a.v_type);
+#ifdef TL_FLASH_LEGACY_256
+  if (hd == 256) return false;
+#endif
+  return fits(a.k_type) && fits(a.v_type);
+}
+
+template <bool SPLIT>
+cudaError_t dispatch(int hd, const Args& a, int B, cudaStream_t st,
+                     int* occ = nullptr) {
+  const bool hopper = new_body(hd, a);
   switch (hd) {
     case 64:
-      return hopper ? launch_new<64, SPLIT>(a, B, st)
-                    : launch_legacy<64, 64, SPLIT>(a, B, st);
+      return hopper ? launch_new<64, SPLIT>(a, B, st, occ)
+                    : launch_legacy<64, 64, SPLIT>(a, B, st, occ);
     case 128:
-      return hopper ? launch_new<128, SPLIT>(a, B, st)
-                    : launch_legacy<128, 64, SPLIT>(a, B, st);
-    case 256: return launch_legacy<256, 32, SPLIT>(a, B, st);
+      return hopper ? launch_new<128, SPLIT>(a, B, st, occ)
+                    : launch_legacy<128, 64, SPLIT>(a, B, st, occ);
+    case 256:
+      return hopper ? launch_new<256, SPLIT>(a, B, st, occ)
+                    : launch_legacy<256, 32, SPLIT>(a, B, st, occ);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// split = 0: flash_attention, out (B, Hkv, TG, hd) f32.
+// The blocks of flash_decode's kernel for (hd, k_type, v_type) that one
+// SM holds when each takes `chunk` keys (the shared memory of its tile
+// list grows with the chunk), into *blocks; sets the kernel's shared-memory
+// limit on the current device first. Returns a CUDA error code.
+extern "C" int tl_flash_decode_blocks(int hd, int k_type, int v_type,
+                                      int chunk, int* blocks) {
+  if (chunk <= 0 || chunk % 16 != 0) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.k_type = k_type; a.v_type = v_type; a.chunk = chunk;
+  *blocks = 0;
+  return (int)dispatch<true>(hd, a, 1, nullptr, blocks);
+}
+
+// split = 0: flash_attention, out (B, Hkv, TG, hd) f32; n_chunks > 1 (hd
+// 256, bf16 / int8 K/V): each block of rows in that many parts of its live
+// key tiles, the parts' partials in acc_ws / m_ws / l_ws as below, then
+// the combine into out (elsewhere n_chunks is not read: whole blocks write
+// out themselves).
 // split = 1: flash_decode over n_chunks chunks of `chunk` keys (a multiple
 // of 16); acc_ws (B, Hkv, n_chunks, TG, hd), m_ws / l_ws (B, Hkv,
 // n_chunks, TG), then the combine into out. Strides are in elements; the
@@ -1404,17 +1696,23 @@ extern "C" int tl_flash(int hd, int split, const float* q,
   a.scale = scale;
   if (TG <= 0 || B <= 0) return 0;
   if (!split) {
-    a.chunk = S; a.n_chunks = 1;
-    a.out = out; a.m_part = nullptr; a.l_part = nullptr;
-    return (int)dispatch<false>(hd, a, B, st);
+    a.chunk = S;
+    a.out = out; a.acc = acc_ws; a.m_part = m_ws; a.l_part = l_ws;
+    a.n_chunks =
+        new_body(hd, a) && hd == P_PARTS_HD && n_chunks > 1 ? n_chunks : 1;
+    if (a.n_chunks > 1 && (!acc_ws || !m_ws || !l_ws))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = dispatch<false>(hd, a, B, st);
+    if (e != cudaSuccess || a.n_chunks == 1) return (int)e;
+    return (int)combine(acc_ws, m_ws, l_ws, out, a.n_chunks, B, Hkv, TG, hd,
+                        st);
   }
   if (chunk <= 0 || chunk % 16 != 0 || n_chunks != (S + chunk - 1) / chunk)
     return (int)cudaErrorInvalidValue;
   a.chunk = chunk; a.n_chunks = n_chunks;
   a.out = acc_ws; a.m_part = m_ws; a.l_part = l_ws;
+  a.acc = nullptr;
   cudaError_t e = dispatch<true>(hd, a, B, st);
   if (e != cudaSuccess) return (int)e;
-  fd_combine<<<dim3(TG, B * Hkv), hd, 0, st>>>(acc_ws, m_ws, l_ws, out,
-                                               n_chunks, TG, hd);
-  return (int)cudaGetLastError();
+  return (int)combine(acc_ws, m_ws, l_ws, out, n_chunks, B, Hkv, TG, hd, st);
 }

@@ -50,6 +50,7 @@ LIBS: dict[str, tuple[str, dict[str, list]]] = {
                      _P, _L, _L, _P, _L, _L,        # ks, strides, vs, strides
                      _I, _I, _I, _I, _I, _I, _F,    # B Hkv TG S G causal scale
                      _I, _I, _P, _P, _P, _P, _P],   # chunking, ws, out, stream
+        "tl_flash_decode_blocks": [_I, _I, _I, _I, _IP],  # hd types chunk
     }),
     "ffn_fused": ("ffn_fused.cu", {
         "tl_ffn_fused_blocks": [_I, _IP],

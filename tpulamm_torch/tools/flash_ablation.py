@@ -1,20 +1,26 @@
 """Where the time of the flash kernels goes: build copies of
-csrc/flash_attention.cu with one step of a kernel removed and
-time them beside the source as it is, on the card, at the long-context
-path's shapes (B = 1, Hkv = 32, hd = 128, G = 1, S = 16385; prefill at
-T = 512, decode at T = 1; q8 and bf16 K/V).
+csrc/flash_attention.cu with one step of a kernel removed, or built
+another way, and time them beside the source as it is, on the card, at
+the long-context path's shapes: at --hd 128 (the default) B = 1,
+Hkv = 32, G = 1, S = 16385; at --hd 256 Gemma-7B's B = 1, Hkv = 16,
+G = 1, S = 8193 and a Gemma-2B decode (Hkv = 1, G = 8). Prefill at
+T = 512, decode at T = 1; q8 and bf16 K/V.
 
-    python -m tpulamm_torch.tools.flash_ablation
+    python -m tpulamm_torch.tools.flash_ablation [--hd 128|256]
 
 The ablated kernels compute wrong results; only their times are read.
+`legacy_256` is not an ablation: built with TL_FLASH_LEGACY_256 it runs
+head dim 256 on the older mma.sync body, as before the hd-256 kernels
+(the "before" of their times; at other head dims it equals as-is).
 Each build runs in its own nvcc process, all at once; the times are the
 median of 20 launches with the L2 flushed (tools/timing.py), in the order
-as-is, ablations, ablations reversed, as-is, and each line gives both
+as-is, variants, variants reversed, as-is, and each line gives both
 readings. Needs a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -24,6 +30,7 @@ import torch
 
 from tpulamm_torch.ops import flash_attention as FA
 from tpulamm_torch.ops import kernels
+from tpulamm_torch.tools.flash_times import inputs
 from tpulamm_torch.tools.timing import device_label, time_ms
 
 # name -> (what is removed, [(text in the source, replacement)])
@@ -37,15 +44,37 @@ ABLATIONS = {
         ("p[e] = ex2(s[4 * j + e] - (e < 2 ? muA : muB));",
          "p[e] = s[4 * j + e] - (e < 2 ? muA : muB);")]),
     "no_pv": ("the PV products", [
-        ("for (int u = 0; u < P_BN / 16; ++u)\n        wgmma_pv",
+        ("for (int u = 0; u < BN / 16; ++u)\n        wgmma_pv",
          "for (int u = 0; u < 0; ++u)\n        wgmma_pv")]),
     "decode_loads_only": ("the decode kernel's products and softmax (its "
                           "loads, waits and fold remain)", [
         ("for (int u = split; u < D_BN / 16; u += nsplit) {",
          "for (int u = split; u < 0; u += nsplit) {")]),
+    "no_combine": ("flash_decode's combine of the chunks' partials", [
+        ("  return (int)combine(acc_ws, m_ws, l_ws, out, n_chunks, B, Hkv, "
+         "TG, hd, st);\n}", "  return 0;\n}")]),
+    "prefill_whole": ("the prefill's parts: each row block walks all its "
+                      "live tiles", [
+        ("new_body(hd, a) && hd == P_PARTS_HD && n_chunks > 1 ? n_chunks : 1;",
+         "1;")]),
 }
-SHAPES = [("flash_attention", 512, "q8"), ("flash_attention", 512, "bf16"),
-          ("flash_decode", 1, "q8"), ("flash_decode", 1, "bf16")]
+# builds made with a define rather than an edit: name -> (what, nvcc flags)
+VARIANTS = {
+    "legacy_256": ("head dim 256 on the older body (legacy::flash_kernel)",
+                   ["-DTL_FLASH_LEGACY_256"]),
+}
+# head dim -> [(kernel, T, kind, Hkv, G, S)]
+SHAPES = {
+    128: [("flash_attention", 512, "q8", 32, 1, 16385),
+          ("flash_attention", 512, "bf16", 32, 1, 16385),
+          ("flash_decode", 1, "q8", 32, 1, 16385),
+          ("flash_decode", 1, "bf16", 32, 1, 16385)],
+    256: [("flash_attention", 512, "q8", 16, 1, 8193),
+          ("flash_attention", 512, "bf16", 16, 1, 8193),
+          ("flash_decode", 1, "q8", 16, 1, 8193),
+          ("flash_decode", 1, "bf16", 16, 1, 8193),
+          ("flash_decode", 1, "q8", 1, 8, 8193)],
+}
 
 
 def ablated_sources(lib: str, subs) -> dict[str, str]:
@@ -62,13 +91,17 @@ def ablated_sources(lib: str, subs) -> dict[str, str]:
     return texts
 
 
-def build(names, ablations=None, lib: str = "flash_attention"
-          ) -> dict[str, ctypes.CDLL]:
+def build(names, ablations=None, lib: str = "flash_attention",
+          variants=None) -> dict[str, ctypes.CDLL]:
     """as_is and each named ablation of library `lib` (default: this
     tool's kernels and ABLATIONS) as a library of its own under build/:
     the ablated sources written to a directory of the ablation and
-    compiled there, one nvcc process each, all at once."""
+    compiled there, one nvcc process each, all at once; a name of
+    `variants` (default: VARIANTS when lib is this tool's) compiles the
+    source as it is with its extra nvcc flags."""
     ablations = ABLATIONS if ablations is None else ablations
+    if variants is None:
+        variants = VARIANTS if lib == "flash_attention" else {}
     procs = {}
     for name in names:
         d = kernels.BUILD_DIR / f"ablate_{lib}_{name}"
@@ -77,7 +110,8 @@ def build(names, ablations=None, lib: str = "flash_attention"
         for f, t in ablated_sources(lib, subs).items():
             (d / f).write_text(t)
         so = d / f"lib{lib}.so"
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-I", str(d), "-o",
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+               *variants.get(name, ("", []))[1], "-I", str(d), "-o",
                str(so), str(d / kernels.LIBS[lib][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -96,56 +130,40 @@ def build(names, ablations=None, lib: str = "flash_attention"
     return libs
 
 
-def inputs(T: int, kind: str, device, S: int = 16385, Hkv: int = 32,
-           hd: int = 128, seed: int = 0) -> dict:
-    """One batch row: cells 0..S-2 live at positions 0..S-2, the trash
-    cell empty, the T queries at the last T positions."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    kpos = torch.arange(S, dtype=torch.int32, device=device)[None].clone()
-    kpos[0, -1] = -1
-    c = {"q": torch.randn((1, Hkv, T, hd), generator=g, device=device),
-         "kpos": kpos,
-         "qbase": torch.tensor([S - 1 - T], dtype=torch.int32, device=device),
-         "qlen": torch.tensor([T], dtype=torch.int32, device=device),
-         "ks": None, "vs": None}
-    if kind == "q8":
-        for n in ("k", "v"):
-            c[n] = torch.randint(-127, 128, (1, Hkv, S, hd), generator=g,
-                                 device=device, dtype=torch.int8)
-            c[n + "s"] = 0.005 + 0.015 * torch.rand((1, Hkv, S), generator=g,
-                                                    device=device)
-    else:
-        for n in ("k", "v"):
-            c[n] = torch.randn((1, Hkv, S, hd), generator=g, device=device,
-                               dtype=torch.bfloat16)
-    return c
-
-
 def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="flash_ablation")
+    ap.add_argument("--hd", type=int, default=128, choices=sorted(SHAPES),
+                    help="head dim of the shapes timed (default 128)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_ablation: needs a GPU", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     print(f"device: {device_label(device)}")
-    names = ["as_is", *ABLATIONS]
+    names = ["as_is", *ABLATIONS, *VARIANTS]
     libs = build(names)
     order = names + names[:0:-1] + names[:1]
-    for kernel, T, kind in SHAPES:
-        c = inputs(T, kind, device)
+    for kernel, T, kind, Hkv, G, S in SHAPES[args.hd]:
+        c = inputs(T, kind, device, S=S, Hkv=Hkv, hd=args.hd, G=G)
         fn = getattr(FA, kernel)
-        kw = dict(scale=float(1.0 / np.sqrt(128)), g=1)
+        kw = dict(scale=float(1.0 / np.sqrt(args.hd)), g=G)
         got = {}
         for name in order:
             kernels._loaded["flash_attention"] = libs[name]
+            FA._residency.cache_clear()         # each build's own kernel
             got.setdefault(name, []).append(time_ms(
                 lambda: fn(c["q"], c["k"], c["v"], c["kpos"], c["qbase"],
                            c["qlen"], c["ks"], c["vs"], **kw), device))
         kernels._loaded.pop("flash_attention")
-        print(f"{kernel} {kind} T={T} S=16385 (ms): " + " | ".join(
-            f"{n} {np.mean(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
-            for n, v in got.items()), flush=True)
+        FA._residency.cache_clear()
+        print(f"{kernel} {kind} hd={args.hd} Hkv={Hkv} G={G} T={T} S={S} "
+              "(ms): " + " | ".join(
+                  f"{n} {np.mean(v):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
+                  for n, v in got.items()), flush=True)
     for name, (what, _) in ABLATIONS.items():
         print(f"{name}: without {what}")
+    for name, (what, _) in VARIANTS.items():
+        print(f"{name}: {what}")
     return 0
 
 

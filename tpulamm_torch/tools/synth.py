@@ -223,17 +223,27 @@ FAMILIES = {
 
 def write_family_gguf(path: str, arch: str, rng, n_layers: int = 2,
                       dim: int = 512, ffn: int = 1536, n_head: int = 8,
-                      vocab: int = 1024, n_ctx_train: int = 2048) -> None:
+                      vocab: int = 1024, n_ctx_train: int = 2048,
+                      head_dim: int | None = None,
+                      n_kv: int | None = None) -> None:
     """A small `arch` model of FAMILIES: every projection random Q4_0
     blocks (tiling at the default widths: K % 256 == 0, N % 128 == 0),
     norm weights near 1, biases, positions and act scales small normal or
-    uniform draws, all from `rng`."""
+    uniform draws, all from `rng`. head_dim: n_head heads of head_dim
+    each, whose product may differ from dim (Gemma-7B: 16 x 256 over
+    3072; the family must write attention.key_length); default the
+    family's head dim or dim / n_head, with n_head = dim / head dim.
+    n_kv: the KV heads (default the family's, else n_head)."""
     from tpulamm_torch.models.config import ARCH_SPECS
     f = FAMILIES[arch]
     ln = ARCH_SPECS[arch]["norm"] == "ln"
-    hd = f.get("hd", dim // n_head)
-    n_head = dim // hd
-    n_kv = f.get("n_kv", n_head)
+    if head_dim is None:
+        hd = f.get("hd", dim // n_head)
+        n_head = dim // hd
+    else:
+        hd = head_dim
+    if n_kv is None:
+        n_kv = f.get("n_kv", n_head)
     w = GGUFWriter(path)
     md = {"context_length": n_ctx_train, "embedding_length": dim,
           "block_count": n_layers, "feed_forward_length": ffn,
